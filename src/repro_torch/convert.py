@@ -1,0 +1,81 @@
+"""State carried across from the JAX package, given as numpy arrays.
+
+``graph_from_arrays`` builds the port's `Graph` from the arrays of a
+``repro`` graph; ``engine_state_from_tree`` adopts the numpy tree of
+``repro``'s ``InfluenceEngine.snapshot_tree()`` (a bitmap store, the PRNG
+key and meta).  A JAX engine stopped at some theta then continues in the
+port, batch for batch, on the same key stream::
+
+    tree = jax_engine.snapshot_tree()
+    engine = InfluenceEngine(graph_from_arrays(arrays), cfg)
+    engine.restore_tree(engine_state_from_tree(tree))
+    engine.extend(theta2)
+
+Nothing here imports JAX: the caller turns device arrays into numpy
+(``np.asarray``) first.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.graphs.csr import Graph
+
+_INT_FIELDS = ("src_offsets", "out_dst", "dst_offsets", "in_src",
+               "edge_src", "edge_dst")
+_FLOAT_FIELDS = ("in_prob", "in_lt_cum", "in_lt_total")
+
+
+def graph_from_arrays(arrays, *, device="cpu") -> Graph:
+    """A `Graph` from a mapping (or an object with attributes) holding a
+    reference graph's fields: ``n``, ``m`` and the CSR/CSC arrays."""
+    get = (arrays.__getitem__ if isinstance(arrays, dict)
+           else lambda k: getattr(arrays, k))
+    fields = {}
+    for name in _INT_FIELDS + _FLOAT_FIELDS:
+        dtype = np.int32 if name in _INT_FIELDS else np.float32
+        a = np.array(get(name), dtype=dtype)   # a writable copy
+        fields[name] = torch.from_numpy(a).to(device)
+    g = Graph(n=int(get("n")), m=int(get("m")), **fields)
+    if g.edge_src.shape[0] != g.m or g.dst_offsets.shape[0] != g.n + 1:
+        raise ValueError(f"inconsistent graph arrays for n={g.n}, m={g.m}")
+    return g
+
+
+def engine_state_from_tree(tree: dict) -> dict:
+    """Validate and normalize a reference ``snapshot_tree()`` (numpy
+    leaves) into the tree `InfluenceEngine.restore_tree` adopts: a
+    bitmap store with ``(capacity, n) uint8`` rows, int32 sizes and
+    counter, bool live bits, and a ``uint32[2]`` key."""
+    st = tree["store"]
+    kind = str(np.asarray(st["kind"]))
+    if kind != "bitmap":
+        raise NotImplementedError(
+            f"only bitmap snapshots carry across so far, got {kind!r} "
+            f"(index/packed/sharded stores: ROADMAP A3, A5, A8)")
+    n = int(st["n"])
+    R = np.ascontiguousarray(np.asarray(st["R"]), dtype=np.uint8)
+    if R.ndim != 2 or R.shape[1] != n:
+        raise ValueError(f"snapshot arena {R.shape} does not have n={n} "
+                         f"columns")
+    store = {
+        "kind": np.asarray("bitmap"),
+        "n": np.int64(n),
+        "count": np.int64(int(st["count"])),
+        "R": R,
+        "sizes": np.asarray(st["sizes"], np.int32),
+        "counter": np.asarray(st["counter"], np.int32),
+        "live": np.asarray(st.get("live", np.ones(R.shape[0], bool)), bool),
+    }
+    key = np.asarray(tree["key"])
+    if key.shape != (2,):
+        raise ValueError(f"snapshot key has shape {key.shape}, expected a "
+                         f"raw threefry key of shape (2,)")
+    meta = tree["meta"]
+    return {
+        "store": store,
+        "key": key.astype(np.uint32),
+        "meta": {"n": np.int64(int(meta["n"])),
+                 "model": np.asarray(str(np.asarray(meta["model"]))),
+                 "sampler": np.asarray(str(np.asarray(meta["sampler"])))},
+    }

@@ -1,0 +1,296 @@
+"""InfluenceEngine — resumable, multi-query IMM on one device
+(``repro.core.engine``).
+
+    engine = InfluenceEngine(graph, IMMConfig(model="IC"))   # on cuda
+    result = engine.run()                 # Algorithm 1
+    top10  = engine.select(10)            # more queries, no re-sampling
+    sigma  = engine.influence([5, 17])    # sigma(S) for any seed set
+
+Sampling goes through the sampler registry (`repro_torch.core.sampler`),
+batches land in a preallocated `BitmapStore` through the fused
+sample -> write -> count extender, and selection goes through the
+strategy registry (`repro_torch.core.selection`), memoized per (store
+version, k, method).  For a fixed ``cfg.seed`` every seed, theta,
+coverage and arena byte equals the JAX package's.
+
+The engine runs on ``cuda`` unless ``device="cpu"`` is passed; without a
+GPU and without ``device="cpu"`` it raises rather than carry on slowly
+on the host.  A mesh, or a store other than auto/bitmap, raises
+`NotImplementedError` (ROADMAP A3, A5, A8).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import obs, prng
+from repro_torch.core import martingale as mg
+from repro_torch.core.adaptive import choose_representation
+from repro_torch.core.fused import make_fused_extender
+from repro_torch.core.sampler import default_sampler_name, get_sampler
+from repro_torch.core.selection import get_selection
+from repro_torch.core.store import make_store, next_pow2, store_from_state
+from repro_torch.graphs.csr import Graph
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` unless told otherwise; a CUDA device without a GPU raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available: pass device='cpu' to run the "
+            "plain PyTorch versions of the kernels on the host")
+    return dev
+
+
+@dataclasses.dataclass
+class IMMConfig:
+    """The reference's configuration, field for field.  Inert here:
+    ``pallas_interpret`` (no Pallas), ``overlap`` and ``partition``
+    (no mesh), ``fuse_counters`` (informational in the reference too)."""
+    k: int = 50
+    eps: float = 0.5
+    ell: float = 1.0
+    model: str = "IC"
+    backend: Optional[str] = None
+    stable: bool = False
+    pallas_interpret: bool = False
+    batch: int = 256                  # RRR sets per sampling call
+    max_theta: int = 1 << 16          # safety cap
+    dense_sampler_max_n: int = 4096
+    selection_method: str = "rebuild"  # "rebuild" | "decrement" |
+    #                                  # "fused-rebuild" | "fused-decrement"
+    adaptive_representation: bool = True  # C4
+    sparse_rep_min_n: int = 65536
+    fuse_counters: bool = True
+    switch_ratio: int = 32
+    store: str = "auto"               # "auto" | "bitmap" (others: A3/A5/A8)
+    partition: str = "equal"
+    overlap: bool = True
+    fused_pipeline: str = "auto"      # "auto" | "off"
+    sampler: Optional[str] = None
+    seed: int = 0
+
+
+@dataclasses.dataclass
+class IMMResult:
+    seeds: np.ndarray
+    influence: float          # n * covered_frac
+    covered_frac: float
+    theta: int
+    rounds: int
+    representation: str
+    counter: np.ndarray       # fused global counter over all sampled sets
+
+
+@dataclasses.dataclass(frozen=True)
+class Selection:
+    """One answered seed-selection query."""
+    seeds: np.ndarray
+    covered_frac: float
+    influence: float
+    gains: np.ndarray
+    representation: str
+    theta: int
+
+
+class InfluenceEngine:
+    """Stateful IMM engine over a persistent RRR store on one device."""
+
+    def __init__(self, graph: Graph, cfg: IMMConfig = None, *,
+                 store=None, mesh=None, device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh-sharded engines are not ported yet (ROADMAP A8)")
+        self.device = resolve_device(device)
+        self.graph = graph.to(self.device)
+        self.cfg = cfg if cfg is not None else IMMConfig()
+        self.key = prng.PRNGKey(self.cfg.seed)
+        self.store = (store if store is not None
+                      else make_store(self.cfg.store, graph.n,
+                                      device=self.device))
+        self.sampler_name = self.cfg.sampler or default_sampler_name(
+            self.graph, self.cfg)
+        self._sample = get_sampler(self.sampler_name)(self.graph, self.cfg)
+        self._rebind_fused()
+        self._select_cache: dict = {}
+
+    def _rebind_fused(self) -> None:
+        self._fused = None
+        if getattr(self.cfg, "fused_pipeline", "auto") != "off":
+            self._fused = make_fused_extender(
+                self.store, self._sample, self.cfg,
+                sampler_name=self.sampler_name)
+
+    # ------------------------------------------------------------ sampling
+
+    @property
+    def theta(self) -> int:
+        return self.store.count
+
+    def extend(self, theta: int) -> int:
+        """Sample batches until the store holds >= ``theta`` RRR sets.
+        The key stream is ``(key, sub) = split(key)`` per batch, as in the
+        reference, so a fixed seed gives a bitwise-identical stream."""
+        with obs.span("extend", tier="engine", target=theta):
+            while self.store.count < theta:
+                self.key, sub = prng.split(self.key)
+                if self._fused is not None and self._fused.extend_once(sub):
+                    pass
+                else:
+                    with obs.span("sample", tier="engine",
+                                  sampler=self.sampler_name):
+                        visited, counter, _ = self._sample(sub)
+                    self.store.add_batch(visited, counter)
+                obs.counter("engine.batches_sampled").add(1)
+        obs.gauge("engine.theta").set(self.store.count)
+        return self.store.count
+
+    # ----------------------------------------------------------- selection
+
+    def _choose_representation(self) -> str:
+        """The C4 choice: the bitmap the store holds, unless sets are
+        sparse enough for index lists, which are not ported yet."""
+        cfg = self.cfg
+        if (cfg.adaptive_representation
+                and self.graph.n >= cfg.sparse_rep_min_n):
+            avg_cov, l_max = self.store.coverage_stats()
+            if choose_representation(avg_cov, self.graph.n, l_max,
+                                     cfg.switch_ratio) == "indices":
+                raise NotImplementedError(
+                    f"C4 chose index lists (average coverage {avg_cov:.4g}, "
+                    f"largest set {l_max}): index-list selection is not "
+                    f"ported yet (ROADMAP A3); set "
+                    f"adaptive_representation=False to keep the bitmap")
+        return self.store.representation
+
+    def select(self, k: int = None, *, method: str = None) -> Selection:
+        """Greedy max-coverage over the current store, memoized."""
+        cfg = self.cfg
+        k = min(cfg.k if k is None else int(k), self.graph.n)
+        if k < 1:
+            raise ValueError(f"select needs k >= 1, got {k}")
+        method = method or cfg.selection_method
+        cache_key = (self.store.version, self.store.count, k, method)
+        hit = self._select_cache.get(cache_key)
+        if hit is not None:
+            obs.counter("engine.select_cache_hits").add(1)
+            return hit
+        obs.counter("engine.select_cache_misses").add(1)
+        rep = self._choose_representation()
+        strategy = get_selection(method, "dense")
+        with obs.span("select", tier="engine", k=k, method=method,
+                      layout="dense"):
+            seeds, frac, gains = strategy(self.store.view(), k)
+            seeds, frac, gains = (seeds.cpu().numpy(), float(frac),
+                                  gains.cpu().numpy())
+        sel = Selection(seeds=seeds, covered_frac=frac,
+                        influence=frac * self.graph.n, gains=gains,
+                        representation=rep, theta=self.store.count)
+        self._select_cache[cache_key] = sel
+        return sel
+
+    # ----------------------------------------------------------- influence
+
+    def influences(self, seed_sets: Sequence[Sequence[int]]) -> np.ndarray:
+        """sigma(S) estimates for a batch of seed sets in one pass.  Sets
+        pad with their own first element, the query axis to a power of
+        two, as in the reference."""
+        if not len(seed_sets):
+            return np.zeros((0,), np.float64)
+        sets = [np.asarray(s, np.int32).reshape(-1) for s in seed_sets]
+        for i, s in enumerate(sets):
+            if s.size == 0:
+                raise ValueError(f"seed set {i} is empty")
+            if (s < 0).any() or (s >= self.graph.n).any():
+                raise ValueError(f"seed set {i} has out-of-range vertices")
+        q = len(sets)
+        l_pad = next_pow2(max(s.size for s in sets), 1)
+        q_pad = next_pow2(q, 1)
+        S = np.empty((q_pad, l_pad), np.int32)
+        for i in range(q_pad):
+            s = sets[min(i, q - 1)]
+            S[i, :s.size] = s
+            S[i, s.size:] = s[0]
+        with obs.span("influence", tier="engine", queries=q):
+            fracs = self.store.hits(S).cpu().numpy()[:q]
+        return fracs.astype(np.float64) * self.graph.n
+
+    def influence(self, seed_set: Sequence[int]) -> float:
+        """sigma(S) ~= n * F_R(S) for one seed set against the store."""
+        return float(self.influences([seed_set])[0])
+
+    # ------------------------------------------------------- checkpointing
+
+    def snapshot_tree(self) -> dict:
+        """Store + PRNG key + meta as a numpy tree — the reference's
+        `snapshot_tree` format, so either package restores the other's."""
+        return {
+            "store": self.store.state(),
+            "key": np.asarray(self.key),
+            "meta": {
+                "n": np.int64(self.graph.n),
+                "model": np.asarray(self.cfg.model),
+                "sampler": np.asarray(self.sampler_name),
+            },
+        }
+
+    def restore_tree(self, tree: dict) -> None:
+        """Adopt a `snapshot_tree` (validates n/model, rebuilds the store
+        on this engine's device, resumes the PRNG stream)."""
+        meta = tree["meta"]
+        if int(meta["n"]) != self.graph.n:
+            raise ValueError(
+                f"snapshot is for n={int(meta['n'])}, graph has n={self.graph.n}")
+        if str(np.asarray(meta["model"])) != self.cfg.model:
+            raise ValueError(
+                f"snapshot model {np.asarray(meta['model'])} != cfg.model "
+                f"{self.cfg.model}")
+        self.store = store_from_state(tree["store"], device=self.device)
+        self.key = prng.as_key(tree["key"])
+        self._rebind_fused()
+        self._select_cache.clear()
+
+    # ---------------------------------------------------- Algorithm 1
+
+    def run(self) -> IMMResult:
+        """IMM Algorithm 1 (Sampling phase -> Set_Theta -> Selection)."""
+        cfg, n = self.cfg, self.graph.n
+        k = min(cfg.k, n)
+        bounds = mg.compute_bounds(n, k, cfg.eps, cfg.ell)
+        lb = 1.0
+        rounds = 0
+
+        with obs.span("run", tier="engine", n=n, k=k):
+            for i in range(1, bounds.max_rounds + 1):
+                rounds = i
+                theta_i = min(mg.round_theta(bounds, i), cfg.max_theta)
+                with obs.span("round", tier="engine", round=i,
+                              theta=theta_i):
+                    self.extend(theta_i)
+                    sel = self.select(k)
+                obs.counter("engine.rounds").add(1)
+                if n * sel.covered_frac >= mg.round_target(bounds, i):
+                    lb = mg.lower_bound_from_coverage(bounds, sel.covered_frac)
+                    break
+                if self.store.count >= cfg.max_theta:
+                    lb = max(
+                        mg.lower_bound_from_coverage(bounds, sel.covered_frac),
+                        1.0)
+                    break
+
+            theta = min(mg.theta_from_lb(bounds, lb), cfg.max_theta)
+            self.extend(theta)
+            sel = self.select(k)
+        return IMMResult(
+            seeds=sel.seeds,
+            influence=sel.influence,
+            covered_frac=sel.covered_frac,
+            theta=self.store.count,
+            rounds=rounds,
+            representation=sel.representation,
+            counter=self.store.counter.cpu().numpy(),
+        )

@@ -1,0 +1,117 @@
+"""Find_Most_Influential_Set (paper Alg. 2): greedy max-coverage over a
+bitmap arena (``repro.core.selection``: ``select_dense``,
+``select_fused`` and the strategy registry).
+
+  * ``rebuild``   — EfficientIMM (paper C5): each round recomputes the
+    counter from the surviving sets, ``counter = alive @ R``;
+  * ``decrement`` — the Ripples baseline: a running counter minus the
+    covered sets' contribution.
+
+Every counter goes through `repro_torch.kernels.ops`: the
+``coverage_matvec`` kernel on the card (``torch.matmul`` has no uint8
+product, and ``R.float()`` would copy the arena at 4 bytes a cell), the
+plain version on the CPU.  ``fused-rebuild`` takes each round's winner
+straight from the ``fused_select`` kernel.  Counts are exact integers,
+and every argmax keeps ``jnp.argmax``'s first-maximum rule, so all four
+strategies pick the JAX package's seeds.  ``valid`` may be any row mask.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops as kops
+
+
+def _member(R, v):
+    """``(theta,) bool``: which rows contain vertex ``v`` (a 0-dim tensor)."""
+    return R.index_select(1, v.view(1).long()).squeeze(1) > 0
+
+
+def _finish(valid, seeds, gains):
+    n_valid = valid.sum(dtype=torch.float32).clamp_min(1.0)
+    return seeds, gains.sum(dtype=torch.float32) / n_valid, gains
+
+
+def _greedy(R, valid, k: int, method: str, pick):
+    """The greedy loop shared by the dense and fused strategies;
+    ``pick(alive, counter)`` returns the round's vertex."""
+    if method not in ("rebuild", "decrement"):
+        raise ValueError(f"unknown method {method}")
+    seeds = torch.zeros(k, dtype=torch.int32, device=R.device)
+    gains = torch.zeros(k, dtype=torch.int32, device=R.device)
+    alive = valid.clone()
+    counter = kops.coverage_matvec(alive, R) if method == "decrement" else None
+    for i in range(k):
+        v = pick(alive, counter)
+        covered = _member(R, v) & alive
+        seeds[i] = v
+        gains[i] = covered.sum(dtype=torch.int32)
+        if method == "decrement":
+            counter = counter - kops.coverage_matvec(covered, R)
+        alive &= ~covered
+    return _finish(valid, seeds, gains)
+
+
+def select_dense(R, valid, k: int, method: str = "rebuild"):
+    """R: (theta, n) uint8 bitmaps; valid: (theta,) bool.  Returns
+    (seeds (k,) int32, covered_frac () f32, gains (k,) int32)."""
+    def pick(alive, counter):
+        if counter is None:
+            counter = kops.coverage_matvec(alive, R)
+        return torch.argmax(counter)
+    return _greedy(R, valid, k, method, pick)
+
+
+def select_fused(R, valid, n: int, k: int, method: str = "rebuild"):
+    """`select_dense` with each rebuild round reduced by the
+    ``fused_select`` kernel: the round's ``(n,)`` counter never exists.
+    Decrement rounds keep a counter through ``coverage_matvec``."""
+    def pick(alive, counter):
+        if counter is None:
+            return kops.fused_select(alive, R)[1]
+        return torch.argmax(counter)
+    return _greedy(R, valid, k, method, pick)
+
+
+# ------------------------------------------------- SelectionStrategy API ----
+#
+# A strategy is ``fn(view, k, **opts) -> (seeds, covered_frac, gains)``
+# keyed "<method>-<layout>"; only the dense (bitmap) layout is ported.
+
+SELECTION_STRATEGIES = {}
+
+
+def register_selection(name: str, fn) -> None:
+    """Register (or shadow) a selection strategy."""
+    SELECTION_STRATEGIES[name] = fn
+
+
+def get_selection(method: str, layout: str):
+    name = f"{method}-{layout}"
+    try:
+        return SELECTION_STRATEGIES[name]
+    except KeyError:
+        if layout != "dense":
+            raise NotImplementedError(
+                f"selection strategy {name!r} is not ported yet (layouts "
+                f"sparse: ROADMAP A3, packed/compressed: A5, sharded: A8)")
+        raise ValueError(
+            f"no selection strategy {name!r}; registered: "
+            f"{sorted(SELECTION_STRATEGIES)}")
+
+
+def _dense_strategy(method):
+    def run(view, k, **_):
+        return select_dense(view.R, view.valid, k, method)
+    return run
+
+
+def _fused_dense_strategy(method):
+    def run(view, k, **_):
+        return select_fused(view.R, view.valid, view.n, k, method)
+    return run
+
+
+for _m in ("rebuild", "decrement"):
+    register_selection(f"{_m}-dense", _dense_strategy(_m))
+    register_selection(f"fused-{_m}-dense", _fused_dense_strategy(_m))

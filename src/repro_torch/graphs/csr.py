@@ -1,0 +1,111 @@
+"""Fixed-shape graph container over torch tensors.
+
+The counterpart of ``repro.graphs.csr``: the edge list sorted two ways
+(by src = CSR order, by dst = CSC order) plus offset arrays.  The numpy
+preprocessing is the reference's line for line, so the same ``seed``
+gives the same arrays; only the final containers are torch tensors.
+IMM's reverse BFS traverses *in*-edges (the CSC view).
+
+Graphs are built on the host (``device="cpu"``); an engine moves the
+tensors it needs to its own device with `Graph.to`.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Graph:
+    n: int
+    m: int
+    # CSR (sorted by src): out-edges
+    src_offsets: torch.Tensor  # (n+1,) int32
+    out_dst: torch.Tensor      # (m,) int32 — dst of each out-edge
+    # CSC (sorted by dst): in-edges
+    dst_offsets: torch.Tensor  # (n+1,) int32
+    in_src: torch.Tensor       # (m,) int32 — src of each in-edge
+    in_prob: torch.Tensor      # (m,) float32 — IC prob, CSC order
+    in_lt_cum: torch.Tensor    # (m,) float32 — LT cumulative weight
+    in_lt_total: torch.Tensor  # (n,) float32 — per-node total LT weight
+    # edge view (CSC order) for the vectorized IC steps
+    edge_src: torch.Tensor     # (m,) int32 (== in_src)
+    edge_dst: torch.Tensor     # (m,) int32
+
+    @property
+    def device(self) -> torch.device:
+        return self.in_prob.device
+
+    def to(self, device) -> "Graph":
+        """The same graph with every tensor on ``device``."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        moved = {f.name: getattr(self, f.name).to(device)
+                 for f in dataclasses.fields(self)
+                 if isinstance(getattr(self, f.name), torch.Tensor)}
+        return dataclasses.replace(self, **moved)
+
+
+def _offsets_from_sorted(keys: np.ndarray, n: int) -> np.ndarray:
+    counts = np.bincount(keys, minlength=n)
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+
+def build_graph(src, dst, n: int, *, ic_prob=None, seed: int = 0,
+                device="cpu") -> Graph:
+    """Build a Graph from numpy edge arrays (``repro.graphs.csr.
+    build_graph`` without its weighted-cascade and explicit-LT-weight
+    options): IC probabilities U(0,1) unless given, LT weights normalized
+    per dst to a total drawn from U(0.3, 1)."""
+    src = np.asarray(src, dtype=np.int32)
+    dst = np.asarray(dst, dtype=np.int32)
+    m = src.shape[0]
+    rng = np.random.default_rng(seed)
+
+    if ic_prob is None:
+        ic_prob = rng.uniform(0.0, 1.0, size=m)
+    ic_prob = np.asarray(ic_prob, dtype=np.float32)
+
+    order_src = np.argsort(src, kind="stable")
+    src_offsets = _offsets_from_sorted(src[order_src], n)
+    out_dst = dst[order_src]
+
+    order_dst = np.argsort(dst, kind="stable")
+    dst_sorted = dst[order_dst]
+    dst_offsets = _offsets_from_sorted(dst_sorted, n)
+    in_src = src[order_dst]
+    in_prob = ic_prob[order_dst]
+
+    raw = rng.uniform(0.0, 1.0, size=m).astype(np.float64)
+    indeg = (dst_offsets[1:] - dst_offsets[:-1]).astype(np.int64)
+    seg_sum = np.zeros(n, dtype=np.float64)
+    np.add.at(seg_sum, dst_sorted, raw)
+    total0 = rng.uniform(0.3, 1.0, size=n)
+    total0 = np.where(indeg > 0, total0, 0.0)
+    scale = np.where(seg_sum > 0, total0 / np.maximum(seg_sum, 1e-30), 0.0)
+    w = raw * scale[dst_sorted]
+    cum = np.cumsum(w)
+    seg_start_cum = np.concatenate([[0.0], cum])[dst_offsets[:-1]]
+    lt_cum = cum - seg_start_cum[dst_sorted] if m else np.zeros(0)
+    lt_total = np.zeros(n, dtype=np.float64)
+    np.add.at(lt_total, dst_sorted, w)
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+
+    return Graph(
+        n=n,
+        m=m,
+        src_offsets=t(src_offsets, np.int32),
+        out_dst=t(out_dst, np.int32),
+        dst_offsets=t(dst_offsets, np.int32),
+        in_src=t(in_src, np.int32),
+        in_prob=t(in_prob, np.float32),
+        in_lt_cum=t(lt_cum, np.float32),
+        in_lt_total=t(lt_total, np.float32),
+        edge_src=t(in_src, np.int32),
+        edge_dst=t(dst_sorted, np.int32),
+    )

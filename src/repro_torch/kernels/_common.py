@@ -1,0 +1,108 @@
+"""Shared plumbing of the kernel wrappers: device dispatch, launch
+counts, stream and row-view checks.
+
+A wrapper takes its plain PyTorch version only for CPU tensors; for CUDA
+tensors it launches its kernel or raises — there is no fallback.  Every
+dispatch records ``kernels.dispatch{kernel, impl=cuda|reference}`` on the
+obs registry, and every launch adds one to ``LAUNCHES[kernel]``, so a run
+can show that its main path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch import obs
+
+#: arena and batch rows start on 16-byte boundaries so kernels read them
+#: with 16-byte loads; pad bytes between n and the stride are zero
+ROW_ALIGN = 16
+
+#: launches per kernel since the last `reset_launches`
+LAUNCHES: dict[str, int] = {}
+
+VOIDP, I64, I32, U32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_uint32)
+
+
+def padded_width(n: int) -> int:
+    """Row stride (bytes) of an ``n``-column uint8 row block."""
+    return -(-int(n) // ROW_ALIGN) * ROW_ALIGN
+
+
+def impl_for(kernel: str, *tensors: torch.Tensor) -> str:
+    """``"reference"`` when every operand lies on the CPU, ``"cuda"`` when
+    every operand lies on a CUDA device; anything else raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        impl = "reference"
+    elif kinds == {"cuda"}:
+        impl = "cuda"
+    else:
+        raise ValueError(
+            f"{kernel}: operands on {sorted(kinds)}; the CUDA kernel takes "
+            f"CUDA tensors, the plain version CPU tensors")
+    obs.counter("kernels.dispatch", kernel=kernel, impl=impl).add(1)
+    return impl
+
+
+def launched(kernel: str, err: int) -> None:
+    """Raise on a refused launch (the C entry point returns
+    ``cudaGetLastError()``), else count it."""
+    if err != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
+    LAUNCHES[kernel] = LAUNCHES.get(kernel, 0) + 1
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def bind(lib, fn: str, argtypes) -> ctypes._CFuncPtr:
+    f = getattr(lib, fn)
+    f.argtypes = list(argtypes)
+    f.restype = ctypes.c_int
+    return f
+
+
+def as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """A bool tensor as uint8 (same storage); uint8 passes through."""
+    if t.dtype == torch.bool:
+        return t.view(torch.uint8)
+    if t.dtype != torch.uint8:
+        raise TypeError(f"expected a uint8/bool tensor, got {t.dtype}")
+    return t
+
+
+def row_view(t: torch.Tensor, what: str) -> tuple[int, int]:
+    """``(data_ptr, row_stride)`` of a 2-D uint8/bool row block that a
+    kernel reads or writes with 16-byte accesses: unit column stride, a
+    16-byte-aligned base and a row stride that is a multiple of 16 bytes
+    covering the padded width, with storage behind the last row's pad."""
+    if t.dim() != 2 or t.stride(1) != 1 and t.shape[1] > 1:
+        raise ValueError(f"{what}: need a 2-D row block with unit column "
+                         f"stride, got shape {tuple(t.shape)} strides "
+                         f"{t.stride()}")
+    rows, n = t.shape
+    ld = t.stride(0) if rows > 1 else padded_width(n)
+    ptr = t.data_ptr()
+    if ptr % ROW_ALIGN or ld % ROW_ALIGN or ld < n:
+        raise ValueError(
+            f"{what}: rows must start on {ROW_ALIGN}-byte boundaries "
+            f"(base % 16 = {ptr % ROW_ALIGN}, row stride {ld}); allocate "
+            f"(rows, padded_width(n)) and pass [:, :n]")
+    need = t.storage_offset() + (rows - 1) * ld + padded_width(n)
+    if rows and t.untyped_storage().nbytes() < need:
+        raise ValueError(f"{what}: storage ends inside the last row's "
+                         f"padding ({need} bytes needed)")
+    return ptr, ld

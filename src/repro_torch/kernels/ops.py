@@ -1,0 +1,46 @@
+"""Kernel dispatch (``repro.kernels.ops``): the CUDA kernel for CUDA
+tensors, the plain PyTorch version for CPU tensors, nothing else.
+
+There is no fallback: a CUDA operand launches its kernel or raises
+(a missing ``nvcc``, a refused launch, a layout the kernel does not
+take).  Each call records ``kernels.dispatch{kernel, impl=cuda|reference}``
+on the obs registry (per call: PyTorch runs eagerly, so calls are
+executions), and each launch counts in `launch_counts`.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import coins, commit, coverage_matvec as _cov
+from repro_torch.kernels import fused_select as _sel
+from repro_torch.kernels._common import (          # noqa: F401
+    impl_for, launch_counts, padded_width, reset_launches,
+)
+
+
+def arena_commit(rows, out, counter) -> None:
+    """Write ``rows (B, n)`` into ``out (B, n)`` (an arena slice) and add
+    their int32 column sums into ``counter (n,)``, in place."""
+    if impl_for(commit.KERNEL, rows, out, counter) == "cuda":
+        commit.arena_commit_cuda(rows, out, counter)
+    else:
+        commit.arena_commit_plain(rows, out, counter)
+
+
+def coverage_matvec(alive, R):
+    """``alive (theta,) 0/1 @ R (theta, n) uint8 -> (n,) float32``."""
+    if impl_for(_cov.KERNEL, alive, R) == "cuda":
+        return _cov.coverage_matvec_cuda(alive, R)
+    return _cov.coverage_matvec_plain(alive, R)
+
+
+def fused_select(alive, R):
+    """``-> (max_count () float32, argmax () int32)`` of ``alive @ R``."""
+    if impl_for(_sel.KERNEL, alive, R) == "cuda":
+        return _sel.fused_select_cuda(alive, R)
+    return _sel.fused_select_plain(alive, R)
+
+
+def ic_sparse_hits(key, edge_prob, batch: int):
+    """``(batch, m) bool``: ``uniform(key, (batch, m)) < edge_prob``."""
+    if impl_for(coins.KERNEL, edge_prob) == "cuda":
+        return coins.ic_sparse_hits_cuda(key, edge_prob, batch)
+    return coins.ic_sparse_hits_plain(key, edge_prob, batch)

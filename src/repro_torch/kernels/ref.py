@@ -1,0 +1,18 @@
+"""Plain PyTorch versions of every kernel (``repro.kernels.ref``).
+
+Each is defined beside its kernel (``<kernel>_plain`` in the kernel's
+module) and named here as the reference's ``*_ref``: the CPU path of
+`repro_torch.kernels.ops` and the yardstick the CUDA kernels are held to
+on the card.
+"""
+from repro_torch.kernels.coins import ic_sparse_hits_plain as ic_sparse_hits_ref
+from repro_torch.kernels.commit import arena_commit_plain as arena_commit_ref
+from repro_torch.kernels.coverage_matvec import (
+    coverage_matvec_plain as coverage_matvec_ref,
+)
+from repro_torch.kernels.fused_select import (
+    fused_select_plain as fused_select_ref,
+)
+
+__all__ = ["arena_commit_ref", "coverage_matvec_ref", "fused_select_ref",
+           "ic_sparse_hits_ref"]

@@ -1,0 +1,140 @@
+"""Plain versions of the port's kernels against the JAX package's kernels
+(Pallas in interpret mode) on the CPU: exact, on ragged shapes, ties and
+an all-zero alive mask; plus the dispatch rules."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch import obs  # noqa: E402
+from repro_torch.kernels import _common, ops, ref  # noqa: E402
+
+
+def _bitmap(rng, theta, n, p=0.3):
+    return (rng.uniform(size=(theta, n)) < p).astype(np.uint8)
+
+
+def _padded(a: np.ndarray) -> torch.Tensor:
+    """A (rows, n) view of a zeroed row-padded buffer holding ``a``."""
+    rows, n = a.shape
+    buf = torch.zeros((rows, ops.padded_width(n)), dtype=torch.uint8)
+    buf[:, :n] = torch.from_numpy(a)
+    return buf[:, :n]
+
+
+# ---------------------------------------------------------- arena_commit ----
+
+@pytest.mark.parametrize("B,n", [(1, 1), (3, 17), (8, 128), (70, 1000),
+                                 (256, 513)])
+def test_arena_commit_matches_jax(B, n):
+    rng = np.random.default_rng(B * 31 + n)
+    rows = _bitmap(rng, B, n, 0.2)
+    stored, colsum = jops.arena_commit(jnp.asarray(rows), kind="bitmap",
+                                       interpret=True)
+    arena = torch.zeros((2 * B, ops.padded_width(n)), dtype=torch.uint8)
+    counter = torch.from_numpy(rng.integers(0, 9, n).astype(np.int32))
+    before = counter.clone()
+    ops.arena_commit(_padded(rows), arena[B:, :n], counter)
+    np.testing.assert_array_equal(arena[B:, :n].numpy(), np.asarray(stored))
+    np.testing.assert_array_equal((counter - before).numpy(),
+                                  np.asarray(colsum))
+    assert int(arena[:B].sum()) == 0 and int(arena[:, n:].sum()) == 0
+
+
+# ------------------------------------------------------- coverage_matvec ----
+
+@pytest.mark.parametrize("theta,n", [(64, 100), (300, 700), (257, 1000),
+                                     (1, 33), (4100, 64)])
+@pytest.mark.parametrize("alive_kind", ["mask", "float", "zeros"])
+def test_coverage_matvec_matches_jax(theta, n, alive_kind):
+    rng = np.random.default_rng(theta * 7 + n)
+    R = _bitmap(rng, theta, n)
+    alive = rng.uniform(size=theta) < 0.7
+    if alive_kind == "zeros":
+        alive[:] = False
+    want = jops.coverage_matvec(jnp.asarray(alive), jnp.asarray(R),
+                                interpret=True)
+    a = torch.from_numpy(alive)
+    if alive_kind == "float":
+        a = a.to(torch.float32)
+    got = ops.coverage_matvec(a, _padded(R))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------- fused_select ----
+
+@pytest.mark.parametrize("theta,n", [(64, 100), (513, 300), (256, 2000),
+                                     (5, 1)])
+def test_fused_select_matches_jax(theta, n):
+    rng = np.random.default_rng(theta + n)
+    R = _bitmap(rng, theta, n, 0.25)
+    alive = rng.uniform(size=theta) < 0.8
+    jm, ji = jops.fused_select(jnp.asarray(alive), jnp.asarray(R),
+                               interpret=True)
+    pm, pi = ops.fused_select(torch.from_numpy(alive), _padded(R))
+    assert pi.dtype == torch.int32
+    assert float(pm) == float(jm) and int(pi) == int(ji)
+
+
+@pytest.mark.parametrize("n,cols", [(1100, (3, 600, 1099)),
+                                    (2000, (1999, 700)),
+                                    (40, (0, 39))])
+def test_fused_select_ties_take_the_first_column(n, cols):
+    """Equal maxima in different 512-column tiles: jnp.argmax's first."""
+    rng = np.random.default_rng(n)
+    R = _bitmap(rng, 96, n, 0.1)
+    R[:, list(cols)] = 1
+    alive = np.ones(96, bool)
+    jm, ji = jops.fused_select(jnp.asarray(alive), jnp.asarray(R),
+                               interpret=True)
+    pm, pi = ops.fused_select(torch.from_numpy(alive), _padded(R))
+    assert int(pi) == int(ji) == min(cols)
+    assert float(pm) == float(jm) == 96.0
+
+
+@pytest.mark.parametrize("n", [1, 64, 1025])
+def test_fused_select_all_zero_alive(n):
+    R = np.ones((32, n), np.uint8)
+    alive = np.zeros(32, bool)
+    jm, ji = jops.fused_select(jnp.asarray(alive), jnp.asarray(R),
+                               interpret=True)
+    pm, pi = ops.fused_select(torch.from_numpy(alive), _padded(R))
+    assert (float(pm), int(pi)) == (float(jm), int(ji)) == (0.0, 0)
+
+
+# -------------------------------------------------------------- dispatch ----
+
+def test_dispatch_records_reference_on_cpu():
+    obs.reset()
+    obs.enable()
+    try:
+        ops.coverage_matvec(torch.ones(4, dtype=torch.bool),
+                            _padded(np.ones((4, 5), np.uint8)))
+        snap = obs.snapshot()["counters"]
+    finally:
+        obs.reset()
+    assert snap["kernels.dispatch{impl=reference,kernel=coverage_matvec}"] == 1
+    assert not _common.launch_counts().get("coverage_matvec")
+
+
+def test_non_cpu_operands_never_take_the_plain_version():
+    """A tensor off the CPU launches the kernel or raises: here (meta
+    tensors) it raises before any plain arithmetic runs."""
+    R = torch.zeros((4, 16), dtype=torch.uint8, device="meta")
+    alive = torch.ones(4, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="operands on"):
+        ops.coverage_matvec(alive, R)
+    with pytest.raises(ValueError, match="operands on"):
+        ops.arena_commit(R, R, torch.zeros(16, dtype=torch.int32))
+
+
+def test_row_view_requires_padded_rows():
+    ok = torch.zeros((4, 32), dtype=torch.uint8)[:, :17]
+    assert _common.row_view(ok, "R")[1] == 32
+    with pytest.raises(ValueError, match="16-byte"):
+        _common.row_view(torch.zeros((4, 17), dtype=torch.uint8), "R")
+    assert ops.padded_width(334_863) == 334_864

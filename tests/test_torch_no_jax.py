@@ -1,0 +1,67 @@
+"""repro_torch stands alone: importing every module loads neither JAX nor
+the JAX package, and entry points run on CUDA unless told otherwise."""
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"modules": names, "leaked": leaked}))
+"""
+
+
+def test_no_module_imports_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), ROOT]))
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "repro_torch.core.engine" in res["modules"]
+    assert "repro_torch.kernels.coins" in res["modules"]
+    assert "repro_torch.launch.im_run" in res["modules"]
+    assert res["leaked"] == []
+
+
+def test_entry_points_default_to_cuda():
+    from repro_torch.core.engine import InfluenceEngine, resolve_device
+    from repro_torch.graphs import generators
+
+    g = generators.rmat_graph(5000, 20000, seed=0)
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InfluenceEngine(g)
+    from repro_torch.core.imm import imm
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        imm(g)
+    from repro_torch.launch import im_run
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        im_run.run("com-Amazon", scale=0.02, log=lambda s: None)
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_refuses_without_a_gpu(tmp_path):
+    """Without CUDA, or outside the repo, the smoke prints no ok line."""
+    import shutil
+
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
