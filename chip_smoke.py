@@ -6,18 +6,27 @@
 Phases, one JSON line each:
 
   env       the card (nvidia-smi), torch/CUDA versions, kernel build time
-  kernels   every CUDA kernel of the main path against its plain PyTorch
-            version on the same inputs, bitwise, at the main path's shapes
+  kernels   every CUDA kernel of the main paths against its plain PyTorch
+            version on the same inputs, bitwise, at the main paths' shapes
             (B = 256 rows, com-Amazon's n = 334,863 and m = 1,820,024,
-            theta = 16,384), plus ragged and tie cases; times on the card
-  parity    a small cell (rmat n = 2,048) run by the port on cuda and on
-            cpu: seeds, theta, coverage, counter and arena identical
+            theta = 16,384, the arena also packed and as tokens), plus
+            ragged and tie cases; times on the card
+  parity    a small cell (rmat n = 2,048) run by the port on cuda with
+            each store and on cpu: seeds, theta, coverage, counter and
+            arena identical
   imm_full  imm() on the full-size com-Amazon replica (IC, k = 50,
             eps = 0.5, max_theta = 16,384, rebuild), then the fused
             selections and four influence queries on its store
+  packed_full, compressed_full
+            the same solve, selections and queries on the IMPack packed
+            and compressed stores: seeds, theta, influence and coverage
+            equal imm_full's
 
-then the kernel table (launches counted on the imm_full run only), the
-card's name and power limit, and ``{"ok": true, "device": {...}}`` last.
+then the kernel table (each kernel's launches counted on the one full
+run that is its path: the bitmap kernels and the coins on imm_full, the
+packed commit and packed_count on packed_full, token_count on
+compressed_full), the card's name and power limit, and
+``{"ok": true, "device": {...}}`` last.
 Any failure exits non-zero without the ok line; so does a machine with
 no CUDA device, or a directory without the repo's src/repro_torch.
 """
@@ -99,6 +108,133 @@ def bitmap_arena(torch, theta: int, n: int, gen, *, ld: int):
     return buf, R
 
 
+def packed_commit_row(torch, gen, B: int, n: int) -> dict:
+    """The packed arena commit against its plain version on ragged
+    widths (n = 1, 7, 9, 17, 1,000, 4,099) and at the main path's batch;
+    its times at that batch."""
+    from repro_torch.kernels import commit, ops
+
+    def case(Bc, nc):
+        nbc = -(-nc // 8)
+        src = torch.zeros((Bc, ops.padded_width(nc)), dtype=torch.uint8,
+                          device="cuda")
+        src[:, :nc] = torch.randint(0, 100, (Bc, nc), generator=gen,
+                                    device="cuda") < 15
+        arena = torch.zeros((2 * Bc, ops.padded_width(nbc)),
+                            dtype=torch.uint8, device="cuda")
+        arena_ref = arena.clone()
+        cnt = torch.randint(0, 50, (nc,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        cnt_ref = cnt.clone()
+        ops.arena_commit(src[:, :nc], arena[Bc:, :nbc], cnt, kind="packed")
+        commit.arena_commit_packed_plain(src[:, :nc], arena_ref[Bc:, :nbc],
+                                         cnt_ref)
+        check(torch.equal(arena, arena_ref),
+              f"arena_commit_packed rows {Bc}x{nc}")
+        check(torch.equal(cnt, cnt_ref),
+              f"arena_commit_packed counter {Bc}x{nc}")
+        return src[:, :nc], arena, cnt, arena_ref, cnt_ref
+
+    for Bc, nc in ((5, 1), (5, 7), (5, 9), (3, 17), (70, 1000), (256, 4099)):
+        case(Bc, nc)
+    rows, arena, cnt, arena_ref, cnt_ref = case(B, n)
+    nb = -(-n // 8)
+    ms = time_cuda(torch, lambda: commit.arena_commit_packed_cuda(
+        rows, arena[B:, :nb], cnt))
+    plain_ms = time_cuda(torch, lambda: commit.arena_commit_packed_plain(
+        rows, arena_ref[B:, :nb], cnt_ref), iters=3)
+    b_ms, b_by = bound(B * n + B * nb + 8 * n)
+    return dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/commit.cu",
+        replaces="src/repro/kernels/commit.py:118", max_abs_err=0,
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, shape=[B, n])
+
+
+def encode_arena(torch, R, *, chunk: int = 1024):
+    """``R (theta, n)`` 0/1 rows bit-packed into a 16-byte-strided arena
+    and as tokens at the smallest power-of-two ``s_pad`` holding every
+    row; returns ``(packed view, tokens, tokens needed per row)``."""
+    from repro_torch.core.pack import codec as pc
+    from repro_torch.core.store import next_pow2
+    from repro_torch.kernels import ops
+
+    theta, n = R.shape
+    nb = pc.n_bytes_for(n)
+    pbuf = torch.zeros((theta, ops.padded_width(nb)), dtype=torch.uint8,
+                       device="cuda")
+    need = torch.empty(theta, dtype=torch.int32, device="cuda")
+    for s in range(0, theta, chunk):
+        pbuf[s:s + chunk, :nb] = pc.pack_bits(R[s:s + chunk])
+        need[s:s + chunk] = pc.tokens_needed(R[s:s + chunk])
+    s_pad = next_pow2(int(need.max()), pc.MIN_TOKEN_PAD)
+    T = torch.empty((theta, s_pad), dtype=torch.int32, device="cuda")
+    for s in range(0, theta, chunk):
+        T[s:s + chunk] = pc.token_encode(R[s:s + chunk], s_pad)
+    return pbuf[:, :nb], T, need
+
+
+def count_rows(torch, R, gen) -> dict:
+    """packed_count and token_count against their plain versions and
+    against coverage_matvec over the same rows: ragged shapes, saturated
+    runs, random, full and all-zero ``alive``; then at the main path's
+    shape, the ``(theta, n)`` arena ``R`` (with saturated rows added)
+    packed and as tokens, and their times there."""
+    from repro_torch.kernels import coverage_matvec as cov
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import packed_count as pcm
+
+    def agree(Rc, tag):
+        theta, n = Rc.shape
+        P, T, need = encode_arena(torch, Rc)
+        alive = torch.rand(theta, generator=gen, device="cuda") < 0.8
+        for a in (alive, torch.zeros_like(alive), torch.ones_like(alive),
+                  alive.to(torch.float32)):
+            want = cov.coverage_matvec_plain(a, Rc).to(torch.int32)
+            got_p, got_t = (ops.packed_count(P, a, n=n),
+                            ops.token_count(T, a, n=n))
+            check(torch.equal(got_p, pcm.packed_count_plain(P, a, n))
+                  and torch.equal(got_p, want), f"packed_count {tag}")
+            check(torch.equal(got_t, pcm.token_count_plain(T, a, n))
+                  and torch.equal(got_t, want), f"token_count {tag}")
+        return P, T, need
+
+    for th, nc in ((300, 1000), (1, 17), (33, 9), (4096, 513), (64, 4099)):
+        buf, Rc = bitmap_arena(torch, th, nc, gen,
+                               ld=ops.padded_width(nc))
+        Rc[0] = 1                                  # a saturated row
+        Rc[th // 2, :min(nc, 512)] = 1             # and a saturated span
+        agree(Rc, f"{th}x{nc}")
+
+    theta, n = R.shape
+    R[5::64] = 1                           # whole rows of saturated runs
+    R[37::64, 2560:2560 + 256 * 40] = 1    # superblock-aligned spans
+    P, T, need = agree(R, "full size")
+    full = torch.ones(theta, dtype=torch.bool, device="cuda")
+    nb = P.shape[1]
+    rows = {}
+    for name, fn, plain, arena, nbytes, replaces in (
+            ("packed_count", pcm.packed_count_cuda, pcm.packed_count_plain,
+             P, theta * nb, "src/repro/kernels/packed_count.py:65"),
+            ("token_count", pcm.token_count_cuda, pcm.token_count_plain,
+             T, 4 * int(need.sum()), "src/repro/kernels/packed_count.py:131")):
+        ms = time_cuda(torch, lambda: fn(arena, full, n))
+        plain_ms = time_cuda(torch, lambda: plain(arena, full, n),
+                             warmup=1, iters=2)
+        b_ms, b_by = bound(nbytes + theta + 4 * n)
+        rows[name] = dict(
+            route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            replaces=replaces, max_abs_err=0, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            shape=[theta, n] if name == "packed_count"
+            else [theta, T.shape[1]])
+    emit("count_arenas", theta=theta, n=n, packed_bytes=theta * nb,
+         s_pad=T.shape[1], token_bytes=T.numel() * 4,
+         real_token_bytes=4 * int(need.sum()),
+         rows_holding_tokens=int((need > 1).sum()))
+    return rows
+
+
 def kernel_phase(torch, graph):
     from repro_torch import prng
     from repro_torch.kernels import coins, commit, ops
@@ -141,6 +277,7 @@ def kernel_phase(torch, graph):
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None, shape=[B, n])
     del rows, arena, cnt, arena_ref, cnt_ref
+    rows_out["arena_commit_packed"] = packed_commit_row(torch, gen, B, n)
 
     # ---- coverage_matvec and fused_select over a theta x n arena
     for th, nc in ((300, 1000), (1, 17), (4096, 513)):
@@ -201,6 +338,7 @@ def kernel_phase(torch, graph):
         replaces="src/repro/kernels/fused_select.py:46", max_abs_err=0,
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None, shape=[theta, n])
+    rows_out.update(count_rows(torch, R, gen))
     del buf, R
 
     # ---- ic_sparse_hits: one BFS step's coins over the real edge probs
@@ -242,46 +380,78 @@ def parity_phase(torch):
     from repro_torch.kernels import ops
 
     g = rmat_graph(2048, 16384, seed=0)
-    cfg = IMMConfig(k=10, backend="sparse", max_theta=4096, seed=0)
     out = {}
-    for dev in (DEV, "cpu"):
+    for dev, store in ((DEV, "bitmap"), ("cpu", "bitmap"), (DEV, "packed"),
+                       (DEV, "compressed")):
+        cfg = IMMConfig(k=10, backend="sparse", max_theta=4096, seed=0,
+                        store=store)
         ops.reset_launches()
         t0 = time.perf_counter()
         eng = InfluenceEngine(g, cfg, device=dev)
         res = eng.run()
         fr = eng.select(10, method="fused-rebuild")
         fd = eng.select(10, method="fused-decrement")
-        out[dev] = dict(res=res, fr=fr, fd=fd, R=eng.store.R[:res.theta].cpu(),
-                        s=time.perf_counter() - t0,
-                        launches=ops.launch_counts())
-    c, h = out[DEV], out["cpu"]
+        st = eng.store
+        rows = st.R[:res.theta] if store == "bitmap" else \
+            st.codec.decode(st.R[:res.theta])
+        out[dev, store] = dict(res=res, fr=fr, fd=fd, R=rows.cpu(),
+                               s=time.perf_counter() - t0,
+                               launches=ops.launch_counts())
+    c, h = out[DEV, "bitmap"], out["cpu", "bitmap"]
     for name in ("arena_commit", "coverage_matvec", "fused_select",
                  "ic_sparse_hits"):
         check(c["launches"].get(name, 0) > 0, f"parity: {name} not launched")
         check(h["launches"].get(name, 0) == 0, f"parity: {name} on cpu")
-    rc, rh = c["res"], h["res"]
-    check(list(rc.seeds) == list(rh.seeds), "parity seeds")
-    check(rc.theta == rh.theta and rc.rounds == rh.rounds, "parity theta")
-    check(rc.covered_frac == rh.covered_frac, "parity covered_frac")
-    check((rc.counter == rh.counter).all(), "parity counter")
-    check(torch.equal(c["R"], h["R"]), "parity arena")
-    for q in ("fr", "fd"):
-        check(list(c[q].seeds) == list(rc.seeds)
-              and list(h[q].seeds) == list(rc.seeds), f"parity {q} seeds")
-    emit("parity", n=g.n, m=g.m, theta=rc.theta, rounds=rc.rounds,
-         seeds=[int(s) for s in rc.seeds], covered_frac=rc.covered_frac,
-         cuda_s=c["s"], cpu_s=h["s"], launches=c["launches"])
+    for store, names in (("packed", ("arena_commit_packed", "packed_count")),
+                         ("compressed", ("token_count",))):
+        for name in names:
+            check(out[DEV, store]["launches"].get(name, 0) > 0,
+                  f"parity: {name} not launched on the {store} store")
+    rh = h["res"]
+    for key, o in out.items():
+        r = o["res"]
+        check(list(r.seeds) == list(rh.seeds), f"parity seeds {key}")
+        check(r.theta == rh.theta and r.rounds == rh.rounds,
+              f"parity theta {key}")
+        check(r.covered_frac == rh.covered_frac, f"parity covered_frac {key}")
+        check((r.counter == rh.counter).all(), f"parity counter {key}")
+        check(torch.equal(o["R"], h["R"]), f"parity arena {key}")
+        for q in ("fr", "fd"):
+            check(list(o[q].seeds) == list(rh.seeds), f"parity {q} {key}")
+    emit("parity", n=g.n, m=g.m, theta=rh.theta, rounds=rh.rounds,
+         seeds=[int(s) for s in rh.seeds], covered_frac=rh.covered_frac,
+         cuda_s=c["s"], cpu_s=h["s"], launches=c["launches"],
+         packed_s=out[DEV, "packed"]["s"],
+         compressed_s=out[DEV, "compressed"]["s"],
+         packed_launches=out[DEV, "packed"]["launches"],
+         compressed_launches=out[DEV, "compressed"]["launches"])
 
 
-# ------------------------------------------------------------ imm_full ----
+# --------------------------------------------------------- full solves ----
 
-def imm_full_phase(torch, graph, max_theta: int):
+#: the kernels each store's solve must launch, and those it must not
+PATH_KERNELS = {
+    "bitmap": ("arena_commit", "coverage_matvec", "fused_select"),
+    "packed": ("arena_commit_packed", "packed_count"),
+    "compressed": ("token_count",),
+}
+PHASE = {"bitmap": "imm_full", "packed": "packed_full",
+         "compressed": "compressed_full"}
+
+
+def full_phase(torch, graph, max_theta: int, store: str = "bitmap",
+               ref: dict = None):
+    """imm() on the full-size replica with ``store``, then the fused
+    selections and four influence queries; checks the arena against the
+    counter and sizes and, given the bitmap run's ``ref``, every result
+    against it.  Returns (launches, summary)."""
     from repro_torch import obs
     from repro_torch.core.engine import IMMConfig, InfluenceEngine
     from repro_torch.kernels import ops
 
+    phase = PHASE[store]
     cfg = IMMConfig(k=50, eps=0.5, model="IC", max_theta=max_theta,
-                    selection_method="rebuild", seed=0)
+                    selection_method="rebuild", seed=0, store=store)
     obs.reset()
     obs.enable()
     torch.cuda.synchronize()
@@ -309,32 +479,68 @@ def imm_full_phase(torch, graph, max_theta: int):
     spans = {name: sum(tracer.durations_s(name))
              for name in ("sample", "store.write", "select")}
     obs.reset()
+    peak = torch.cuda.max_memory_allocated()
 
-    store = engine.store
-    count = store.count
-    check(res.theta == count and count > 0, "imm_full theta")
-    check(len(set(int(s) for s in res.seeds)) == 50, "imm_full seeds unique")
-    check(0.0 < res.covered_frac <= 1.0, "imm_full covered_frac")
-    check(list(fr.seeds) == list(res.seeds), "fused-rebuild seeds")
-    check(list(fd.seeds) == list(res.seeds), "fused-decrement seeds")
+    st = engine.store
+    count = st.count
+    check(res.theta == count and count > 0, f"{phase} theta")
+    check(len(set(int(s) for s in res.seeds)) == 50, f"{phase} seeds unique")
+    check(0.0 < res.covered_frac <= 1.0, f"{phase} covered_frac")
+    check(res.representation == store, f"{phase} representation")
+    check(list(fr.seeds) == list(res.seeds), f"{phase} fused-rebuild seeds")
+    check(list(fd.seeds) == list(res.seeds),
+          f"{phase} fused-decrement seeds")
     check(fr.covered_frac == res.covered_frac == fd.covered_frac,
-          "fused covered_frac")
-    check(infl[0] == res.influence, f"influence of the seeds {infl[0]} vs "
-          f"{res.influence}")
-    check(all(0.0 < x <= graph.n for x in infl), "influences in range")
+          f"{phase} fused covered_frac")
+    check(infl[0] == res.influence, f"{phase} influence of the seeds "
+          f"{infl[0]} vs {res.influence}")
+    check(all(0.0 < x <= graph.n for x in infl), f"{phase} influences")
     colsum = torch.zeros(graph.n, dtype=torch.int32, device=DEV)
     rowsum = torch.empty(count, dtype=torch.int32, device=DEV)
     for s in range(0, count, 1024):
-        blk = store.R[s:s + 1024]
+        blk = st.R[s:s + 1024]
+        if store != "bitmap":
+            blk = st.codec.decode(blk)
         colsum += blk.sum(dim=0, dtype=torch.int32)
         rowsum[s:s + 1024] = blk.sum(dim=1, dtype=torch.int32)
-    check(torch.equal(colsum, store.counter), "fused counter == arena sums")
-    check(torch.equal(rowsum, store.sizes[:count]), "sizes == row sums")
-    check(int(store._arena[:, graph.n:].sum()) == 0, "arena padding zero")
-    for name in ("arena_commit", "coverage_matvec", "fused_select",
-                 "ic_sparse_hits"):
-        check(launches.get(name, 0) > 0, f"imm_full: {name} not launched")
-    emit("imm_full", graph="com-Amazon", n=graph.n, m=graph.m, k=50,
+    check(torch.equal(colsum, st.counter), f"{phase} counter == arena sums")
+    check(torch.equal(rowsum, st.sizes[:count]), f"{phase} sizes == row sums")
+    width = st.R.shape[1]
+    if store != "compressed":
+        check(int(st._arena[:, width:].sum()) == 0,
+              f"{phase} arena padding zero")
+    for kind, names in PATH_KERNELS.items():
+        for name in names:
+            got = launches.get(name, 0)
+            check(got > 0 if kind == store else got == 0,
+                  f"{phase}: {name} launched {got} times")
+    check(launches.get("ic_sparse_hits", 0) > 0, f"{phase}: coins")
+    summary = dict(seeds=[int(x) for x in res.seeds], theta=res.theta,
+                   influence=res.influence, covered_frac=res.covered_frac,
+                   influences=[float(x) for x in infl])
+    for key in summary if ref is not None else ():
+        check(summary[key] == ref[key], f"{phase} {key} differs from "
+              f"imm_full's: {summary[key]} vs {ref[key]}")
+    extra = {}
+    if store != "bitmap":
+        # one greedy round's count and the winner's membership, timed
+        alive = torch.ones(st.capacity, dtype=torch.bool, device=DEV)
+        count_fn = (ops.packed_count if store == "packed"
+                    else ops.token_count)
+        v = torch.as_tensor(res.seeds[:1], device=DEV)
+        extra = dict(
+            round_count_ms=time_cuda(
+                torch, lambda: count_fn(st.R, alive, n=graph.n), iters=5),
+            round_member_ms=time_cuda(
+                torch, lambda: st.codec.decode_cols(st.R, v), iters=5))
+    if store == "compressed":
+        # token_count's bound on this arena: its real tokens, read once
+        real = 4 * sum(int((st.R[s:s + 1024] != st.codec.fill).sum())
+                       for s in range(0, count, 1024))
+        extra.update(s_pad=st.codec.s_pad, real_token_bytes=real,
+                     round_count_bound_ms=bound(real + st.capacity
+                                                + 4 * graph.n)[0])
+    emit(phase, graph="com-Amazon", store=store, n=graph.n, m=graph.m, k=50,
          eps=0.5, max_theta=max_theta, theta=res.theta, rounds=res.rounds,
          imm_s=imm_s, sample_s=spans["sample"] + spans["store.write"],
          select_s=spans["select"], fused_selects_s=fused_s,
@@ -342,10 +548,9 @@ def imm_full_phase(torch, graph, max_theta: int):
          covered_frac=res.covered_frac,
          seeds=[int(s) for s in res.seeds[:10]],
          influences=[float(x) for x in infl],
-         arena_bytes=store.capacity * store.row_stride,
-         max_memory_allocated=torch.cuda.max_memory_allocated(),
-         launches=launches)
-    return launches
+         arena_bytes=st.arena_bytes, at_rest_row_bytes=st._row_bytes(),
+         max_memory_allocated=peak, launches=launches, **extra)
+    return launches, summary
 
 
 def profile_phase(torch, graph, batches: int = 4):
@@ -402,10 +607,14 @@ def profile_phase(torch, graph, batches: int = 4):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--max-theta", type=int, default=THETA,
-                    help="theta cap of imm_full (cut this, never n)")
-    ap.add_argument("--phases", default="kernels,parity,imm_full",
-                    help="comma list of kernels, parity, imm_full and the "
-                         "optional profile")
+                    help="theta cap of the full solves (cut this, never "
+                         "n)")
+    ap.add_argument("--phases",
+                    default="kernels,parity,imm_full,packed_full,"
+                            "compressed_full",
+                    help="comma list of kernels, parity, imm_full, "
+                         "packed_full, compressed_full and the optional "
+                         "profile")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -441,14 +650,22 @@ def main(argv=None) -> int:
     rows = kernel_phase(torch, graph) if "kernels" in phases else {}
     if "parity" in phases:
         parity_phase(torch)
-    launches = {}
-    if "imm_full" in phases:
-        launches = imm_full_phase(torch, graph, args.max_theta)
+    launches, ref = {}, None
+    for store in ("bitmap", "packed", "compressed"):
+        if PHASE[store] in phases:
+            launches[PHASE[store]], summary = full_phase(
+                torch, graph, args.max_theta, store, ref)
+            if store == "bitmap":
+                ref = summary
     if "profile" in phases:
         profile_phase(torch, graph)
+    # each kernel's launches on the full run that is its path
+    path = {name: PHASE[kind] for kind, names in PATH_KERNELS.items()
+            for name in names}
     table = [{"name": name,
               **{k: v for k, v in row.items() if k != "shape"},
-              "launches": launches.get(name, 0)}
+              "launches": launches.get(path.get(name, "imm_full"),
+                                       {}).get(name, 0)}
              for name, row in rows.items()]
     print(json.dumps({"kernels": table}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -2,9 +2,10 @@
 
 ``graph_from_arrays`` builds the port's `Graph` from the arrays of a
 ``repro`` graph; ``engine_state_from_tree`` adopts the numpy tree of
-``repro``'s ``InfluenceEngine.snapshot_tree()`` (a bitmap store, the PRNG
-key and meta).  A JAX engine stopped at some theta then continues in the
-port, batch for batch, on the same key stream::
+``repro``'s ``InfluenceEngine.snapshot_tree()`` (a bitmap, packed or
+compressed store, the PRNG key and meta).  A JAX engine stopped at some
+theta then continues in the port, batch for batch, on the same key
+stream, in the store the port engine is configured with::
 
     tree = jax_engine.snapshot_tree()
     engine = InfluenceEngine(graph_from_arrays(arrays), cfg)
@@ -42,24 +43,32 @@ def graph_from_arrays(arrays, *, device="cpu") -> Graph:
     return g
 
 
+#: element type of each snapshot kind's at-rest arena
+_DTYPES = {"bitmap": np.uint8, "packed": np.uint8, "compressed": np.int32}
+
+
 def engine_state_from_tree(tree: dict) -> dict:
     """Validate and normalize a reference ``snapshot_tree()`` (numpy
     leaves) into the tree `InfluenceEngine.restore_tree` adopts: a
-    bitmap store with ``(capacity, n) uint8`` rows, int32 sizes and
+    ``"bitmap"`` store with ``(capacity, n) uint8`` rows, a ``"packed"``
+    one with ``(capacity, ceil(n/8)) uint8`` rows or a ``"compressed"``
+    one with ``(capacity, s_pad) int32`` token rows; int32 sizes and
     counter, bool live bits, and a ``uint32[2]`` key."""
     st = tree["store"]
     kind = str(np.asarray(st["kind"]))
-    if kind != "bitmap":
+    if kind not in _DTYPES:
         raise NotImplementedError(
-            f"only bitmap snapshots carry across so far, got {kind!r} "
-            f"(index/packed/sharded stores: ROADMAP A3, A5, A8)")
+            f"only bitmap, packed and compressed snapshots carry across so "
+            f"far, got {kind!r} (index/sharded stores: ROADMAP A3, A8)")
     n = int(st["n"])
-    R = np.ascontiguousarray(np.asarray(st["R"]), dtype=np.uint8)
-    if R.ndim != 2 or R.shape[1] != n:
-        raise ValueError(f"snapshot arena {R.shape} does not have n={n} "
-                         f"columns")
+    R = np.ascontiguousarray(np.asarray(st["R"]), dtype=_DTYPES[kind])
+    # bitmap rows hold n bytes, packed ceil(n/8); token rows any s_pad
+    width = {"bitmap": n, "packed": -(-n // 8)}.get(kind, R.shape[-1])
+    if R.ndim != 2 or R.shape[1] != width:
+        raise ValueError(f"{kind} snapshot arena {R.shape} does not have "
+                         f"{width} columns for n={n}")
     store = {
-        "kind": np.asarray("bitmap"),
+        "kind": np.asarray(kind),
         "n": np.int64(n),
         "count": np.int64(int(st["count"])),
         "R": R,

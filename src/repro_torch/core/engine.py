@@ -7,16 +7,18 @@
     sigma  = engine.influence([5, 17])    # sigma(S) for any seed set
 
 Sampling goes through the sampler registry (`repro_torch.core.sampler`),
-batches land in a preallocated `BitmapStore` through the fused
-sample -> write -> count extender, and selection goes through the
+batches land in a preallocated store — a `BitmapStore`, or with
+``cfg.store`` ``"packed"``/``"compressed"`` an IMPack arena
+(`repro_torch.core.pack`) — through the fused sample -> write -> count
+extender where the at-rest form has one, and selection goes through the
 strategy registry (`repro_torch.core.selection`), memoized per (store
 version, k, method).  For a fixed ``cfg.seed`` every seed, theta,
-coverage and arena byte equals the JAX package's.
+coverage and arena byte equals the JAX package's, on every store.
 
 The engine runs on ``cuda`` unless ``device="cpu"`` is passed; without a
 GPU and without ``device="cpu"`` it raises rather than carry on slowly
-on the host.  A mesh, or a store other than auto/bitmap, raises
-`NotImplementedError` (ROADMAP A3, A5, A8).
+on the host.  A mesh, or the indices or sharded store, raises
+`NotImplementedError` (ROADMAP A3, A8).
 """
 from __future__ import annotations
 
@@ -28,12 +30,18 @@ import torch
 
 from repro_torch import obs, prng
 from repro_torch.core import martingale as mg
+from repro_torch.core import pack  # noqa: F401  (registers pack layouts)
 from repro_torch.core.adaptive import choose_representation
 from repro_torch.core.fused import make_fused_extender
 from repro_torch.core.sampler import default_sampler_name, get_sampler
 from repro_torch.core.selection import get_selection
 from repro_torch.core.store import make_store, next_pow2, store_from_state
 from repro_torch.graphs.csr import Graph
+
+
+_PACK_REPS = ("packed", "compressed")
+# selection layout of each at-rest representation
+_LAYOUTS = {"bitmap": "dense", "packed": "packed", "compressed": "compressed"}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -67,7 +75,8 @@ class IMMConfig:
     sparse_rep_min_n: int = 65536
     fuse_counters: bool = True
     switch_ratio: int = 32
-    store: str = "auto"               # "auto" | "bitmap" (others: A3/A5/A8)
+    store: str = "auto"               # "auto" | "bitmap" | "packed" |
+    #                                  # "compressed" (indices: A3, sharded: A8)
     partition: str = "equal"
     overlap: bool = True
     fused_pipeline: str = "auto"      # "auto" | "off"
@@ -152,8 +161,9 @@ class InfluenceEngine:
     # ----------------------------------------------------------- selection
 
     def _choose_representation(self) -> str:
-        """The C4 choice: the bitmap the store holds, unless sets are
-        sparse enough for index lists, which are not ported yet."""
+        """The C4 choice: the store's own at-rest representation (bitmap,
+        packed or compressed), unless sets are sparse enough for index
+        lists, which are not ported yet."""
         cfg = self.cfg
         if (cfg.adaptive_representation
                 and self.graph.n >= cfg.sparse_rep_min_n):
@@ -164,7 +174,8 @@ class InfluenceEngine:
                     f"C4 chose index lists (average coverage {avg_cov:.4g}, "
                     f"largest set {l_max}): index-list selection is not "
                     f"ported yet (ROADMAP A3); set "
-                    f"adaptive_representation=False to keep the bitmap")
+                    f"adaptive_representation=False to keep the store's "
+                    f"own layout")
         return self.store.representation
 
     def select(self, k: int = None, *, method: str = None) -> Selection:
@@ -181,10 +192,12 @@ class InfluenceEngine:
             return hit
         obs.counter("engine.select_cache_misses").add(1)
         rep = self._choose_representation()
-        strategy = get_selection(method, "dense")
+        layout = _LAYOUTS[rep]
+        strategy = get_selection(method, layout)
         with obs.span("select", tier="engine", k=k, method=method,
-                      layout="dense"):
-            seeds, frac, gains = strategy(self.store.view(), k)
+                      layout=layout):
+            seeds, frac, gains = strategy(
+                self.store.view(), k, codec=getattr(self.store, "codec", None))
             seeds, frac, gains = (seeds.cpu().numpy(), float(frac),
                                   gains.cpu().numpy())
         sel = Selection(seeds=seeds, covered_frac=frac,
@@ -240,7 +253,10 @@ class InfluenceEngine:
 
     def restore_tree(self, tree: dict) -> None:
         """Adopt a `snapshot_tree` (validates n/model, rebuilds the store
-        on this engine's device, resumes the PRNG stream)."""
+        on this engine's device, resumes the PRNG stream).  A packed- or
+        compressed-configured engine re-encodes whatever the snapshot
+        holds; other configurations keep the snapshot's own kind, as in
+        the reference."""
         meta = tree["meta"]
         if int(meta["n"]) != self.graph.n:
             raise ValueError(
@@ -249,7 +265,9 @@ class InfluenceEngine:
             raise ValueError(
                 f"snapshot model {np.asarray(meta['model'])} != cfg.model "
                 f"{self.cfg.model}")
-        self.store = store_from_state(tree["store"], device=self.device)
+        target = self.cfg.store if self.cfg.store in _PACK_REPS else None
+        self.store = store_from_state(tree["store"], device=self.device,
+                                      kind=target)
         self.key = prng.as_key(tree["key"])
         self._rebind_fused()
         self._select_cache.clear()

@@ -1,34 +1,41 @@
 """Fused sample -> write -> count extender (``repro.core.fused``,
-``_ArenaFused`` over a `BitmapStore`).
+``_ArenaFused`` over a `BitmapStore` or a packed `CodecStore`).
 
 One batch: the bound sampler produces the ``(B, n)`` visited rows, then
 one ``arena_commit`` launch writes them into the arena's next ``B`` rows
-and adds their column sums into the fused counter.  The JAX chain returns
+in its at-rest form (bitmap bytes or LSB-first packed bytes) and adds
+their column sums into the fused counter.  The JAX chain returns
 ``stored`` for a separate donated ``_commit_write`` copy; here
 ``arena_commit`` writes the batch straight into ``R[count:count + B]``,
 so that copy and its second pass over the batch are gone.  The PRNG
 stream and every stored byte are those of the unfused path.
+
+Token-compressed rows have no fused chain (the reference's
+``_FUSED_KINDS``): `make_fused_extender` returns None and the engine
+writes through ``store.add_batch`` with the same batch key.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import obs
-from repro_torch.core.store import BitmapStore
 from repro_torch.kernels import ops as kops
+
+# the at-rest forms arena_commit covers
+_FUSED_KINDS = ("bitmap", "packed")
 
 
 def make_fused_extender(store, sample, cfg, *, sampler_name: str):
     """The fused extender for ``(store, bound sampler)``, or None when the
-    store has no fused chain."""
-    if isinstance(store, BitmapStore):
+    store's at-rest form has no fused chain."""
+    if store.representation in _FUSED_KINDS:
         return _ArenaFused(store, sample, int(cfg.batch),
                            sampler_name=sampler_name)
     return None
 
 
 class _ArenaFused:
-    """Fused extender over a `BitmapStore`."""
+    """Fused extender over a single-device bitmap or packed arena."""
 
     def __init__(self, store, sample, batch: int, *, sampler_name: str):
         self.store = store
@@ -38,14 +45,14 @@ class _ArenaFused:
 
     def extend_once(self, key) -> bool:
         s, B = self.store, self.batch
+        kind = s.representation
         s._grow_rows(s.count + B)
         with obs.span("sample", tier="engine", sampler=self.sampler_name,
                       fused=True):
             visited, _, _ = self._sample(key)
-        with obs.span("store.write", tier="store", kind="bitmap",
-                      fused=True):
+        with obs.span("store.write", tier="store", kind=kind, fused=True):
             lo, hi = s.count, s.count + B
-            kops.arena_commit(visited, s.R[lo:hi], s.counter)
+            kops.arena_commit(visited, s.R[lo:hi], s.counter, kind=kind)
             s.sizes[lo:hi] = visited.sum(dim=1, dtype=torch.int32)
         s._note_write(B)
         return True

@@ -32,24 +32,32 @@ def _finish(valid, seeds, gains):
     return seeds, gains.sum(dtype=torch.float32) / n_valid, gains
 
 
-def _greedy(R, valid, k: int, method: str, pick):
-    """The greedy loop shared by the dense and fused strategies;
-    ``pick(alive, counter)`` returns the round's vertex."""
+def greedy(valid, k: int, method: str, pick, count, member):
+    """The greedy loop shared by every layout: ``count(mask)`` is the
+    ``(n,)`` counter of a row mask, ``member(v)`` the ``(theta,) bool``
+    rows holding ``v``, and ``pick(alive, counter)`` the round's vertex
+    (``counter`` is None on rebuild rounds)."""
     if method not in ("rebuild", "decrement"):
         raise ValueError(f"unknown method {method}")
-    seeds = torch.zeros(k, dtype=torch.int32, device=R.device)
-    gains = torch.zeros(k, dtype=torch.int32, device=R.device)
+    seeds = torch.zeros(k, dtype=torch.int32, device=valid.device)
+    gains = torch.zeros(k, dtype=torch.int32, device=valid.device)
     alive = valid.clone()
-    counter = kops.coverage_matvec(alive, R) if method == "decrement" else None
+    counter = count(alive) if method == "decrement" else None
     for i in range(k):
         v = pick(alive, counter)
-        covered = _member(R, v) & alive
+        covered = member(v) & alive
         seeds[i] = v
         gains[i] = covered.sum(dtype=torch.int32)
         if method == "decrement":
-            counter = counter - kops.coverage_matvec(covered, R)
+            counter = counter - count(covered)
         alive &= ~covered
     return _finish(valid, seeds, gains)
+
+
+def _dense_greedy(R, valid, k: int, method: str, pick):
+    return greedy(valid, k, method, pick,
+                  lambda mask: kops.coverage_matvec(mask, R),
+                  lambda v: _member(R, v))
 
 
 def select_dense(R, valid, k: int, method: str = "rebuild"):
@@ -59,7 +67,7 @@ def select_dense(R, valid, k: int, method: str = "rebuild"):
         if counter is None:
             counter = kops.coverage_matvec(alive, R)
         return torch.argmax(counter)
-    return _greedy(R, valid, k, method, pick)
+    return _dense_greedy(R, valid, k, method, pick)
 
 
 def select_fused(R, valid, n: int, k: int, method: str = "rebuild"):
@@ -70,13 +78,14 @@ def select_fused(R, valid, n: int, k: int, method: str = "rebuild"):
         if counter is None:
             return kops.fused_select(alive, R)[1]
         return torch.argmax(counter)
-    return _greedy(R, valid, k, method, pick)
+    return _dense_greedy(R, valid, k, method, pick)
 
 
 # ------------------------------------------------- SelectionStrategy API ----
 #
 # A strategy is ``fn(view, k, **opts) -> (seeds, covered_frac, gains)``
-# keyed "<method>-<layout>"; only the dense (bitmap) layout is ported.
+# keyed "<method>-<layout>"; the dense (bitmap) layout registers here, the
+# packed and compressed layouts in `repro_torch.core.pack.selection`.
 
 SELECTION_STRATEGIES = {}
 
@@ -91,10 +100,10 @@ def get_selection(method: str, layout: str):
     try:
         return SELECTION_STRATEGIES[name]
     except KeyError:
-        if layout != "dense":
+        if layout not in ("dense", "packed", "compressed"):
             raise NotImplementedError(
                 f"selection strategy {name!r} is not ported yet (layouts "
-                f"sparse: ROADMAP A3, packed/compressed: A5, sharded: A8)")
+                f"sparse: ROADMAP A3, sharded: A8)")
         raise ValueError(
             f"no selection strategy {name!r}; registered: "
             f"{sorted(SELECTION_STRATEGIES)}")

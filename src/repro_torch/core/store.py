@@ -14,9 +14,12 @@ pad bytes zero) so the selection and commit kernels read rows with
 
 Padding rows (index >= ``count``) are all zero and masked by
 ``view().valid``; selection, ``hits`` and the counter are exact integer
-sums, so results are seed for seed those of the JAX store.  Row
-lifecycle (kill/replace/compact), pressure policies and the index,
-packed and sharded stores are not ported yet (ROADMAP A3, A5, A6, A8).
+sums, so results are seed for seed those of the JAX store.  The packed
+and compressed stores live in `repro_torch.core.pack.stores`; every
+single-device kind restores from every other's snapshot
+(`store_from_state`).  Row lifecycle (kill/replace/compact), pressure
+policies and the index and sharded stores are not ported yet (ROADMAP
+A3, A6, A8).
 """
 from __future__ import annotations
 
@@ -126,6 +129,11 @@ class _ArenaBase:
         iota = torch.arange(self.capacity, device=self.device)
         return (iota < self.count) & self.live
 
+    @property
+    def arena_bytes(self) -> int:
+        """Device bytes the arena occupies, row padding included."""
+        return self._arena.numel() * self._arena.element_size()
+
     def coverage_stats(self) -> tuple[float, int]:
         """(avg fractional set coverage, max set size) over live sets."""
         return _coverage_stats(self.sizes, self.live_count, self.n)
@@ -138,6 +146,21 @@ class _ArenaBase:
             "counter": self.counter.cpu().numpy(),
             "live": self.live.cpu().numpy(),
         }
+
+    def _restore_base(self, st) -> None:
+        """Adopt copies of a snapshot's sizes, counter, count and live bits
+        (absent in pre-streaming snapshots, where every filled row is
+        live); the store updates them in place, never the caller's
+        arrays."""
+        self.sizes = torch.tensor(np.asarray(st["sizes"], np.int32),
+                                  device=self.device)
+        self.counter = torch.tensor(np.asarray(st["counter"], np.int32),
+                                    device=self.device)
+        self.count = int(st["count"])
+        if "live" in st:
+            live = np.asarray(st["live"]).astype(bool)
+            self.live = torch.tensor(live, device=self.device)
+            self.dead = int(self.count - live[:self.count].sum())
 
 
 class BitmapStore(_ArenaBase):
@@ -206,43 +229,87 @@ class BitmapStore(_ArenaBase):
         if store.capacity != R.shape[0]:
             raise ValueError(f"snapshot arena has {R.shape[0]} rows, not a "
                              f"power of two >= {MIN_CAPACITY}")
-        store.R.copy_(torch.from_numpy(R))
-        store.sizes = torch.as_tensor(np.asarray(st["sizes"], np.int32),
-                                      device=store.device)
-        store.counter = torch.as_tensor(np.asarray(st["counter"], np.int32),
-                                        device=store.device)
-        store.count = int(st["count"])
-        if "live" in st:
-            live = np.asarray(st["live"]).astype(bool)
-            store.live = torch.as_tensor(live, device=store.device)
-            store.dead = int(store.count - live[:store.count].sum())
+        store.R.copy_(torch.from_numpy(np.require(R, None, ("C", "W"))))
+        store._restore_base(st)
+        return store
+
+    @classmethod
+    def from_rows(cls, rows, n: int, *, device="cpu") -> "BitmapStore":
+        """A store holding exactly ``rows (count, n) uint8`` — the
+        cross-representation restore path."""
+        store = cls(int(n), capacity=max(int(rows.shape[0]), MIN_CAPACITY),
+                    device=device)
+        if rows.shape[0]:
+            store.add_batch(torch.as_tensor(np.asarray(rows, np.uint8)))
         return store
 
 
 _NOT_PORTED = {
     "indices": "the index-list store (ROADMAP A3)",
-    "packed": "the IMPack stores (ROADMAP A5)",
-    "compressed": "the IMPack stores (ROADMAP A5)",
     "sharded": "the sharded store (ROADMAP A8)",
 }
+_KINDS = ("bitmap", "packed", "compressed")
 
 
-def make_store(kind: str, n: int, *, device="cpu") -> BitmapStore:
-    """Store factory: ``"auto"`` and ``"bitmap"`` give a `BitmapStore`."""
+def _store_class(kind: str):
+    """The single-device store class of ``kind`` (``auto`` is bitmap)."""
     if kind in ("auto", "bitmap"):
-        return BitmapStore(n, device=device)
+        return BitmapStore
+    if kind in ("packed", "compressed"):
+        from repro_torch.core.pack.stores import (
+            CompressedStore, PackedBitmapStore,
+        )
+        return PackedBitmapStore if kind == "packed" else CompressedStore
     if kind in _NOT_PORTED:
         raise NotImplementedError(
             f"store {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
-    raise ValueError(f"unknown store kind {kind!r}")
+    raise ValueError(f"unknown store kind {kind!r}; have "
+                     f"{sorted(_KINDS + tuple(_NOT_PORTED))}")
 
 
-def store_from_state(st, *, device="cpu") -> BitmapStore:
-    """Rebuild a store from a `state()` tree (bitmap snapshots only)."""
+def make_store(kind: str, n: int, *, device="cpu"):
+    """Store factory: ``"auto"``/``"bitmap"`` give a `BitmapStore`,
+    ``"packed"`` a `PackedBitmapStore`, ``"compressed"`` a
+    `CompressedStore`."""
+    return _store_class(kind)(n, device=device)
+
+
+def _live_rows_from_state(st) -> tuple[int, np.ndarray]:
+    """Decode a bitmap, packed or compressed snapshot to its live bit
+    rows: ``(n, (live rows, n) uint8)`` — the cross-representation
+    interchange form that any store's ``from_rows`` re-encodes."""
+    from repro_torch.core.pack.codec import token_decode_np, unpack_bits_np
     kind = str(np.asarray(st["kind"]))
-    if kind != "bitmap":
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f"restoring a {kind!r} snapshot needs {_NOT_PORTED[kind]}")
-        raise ValueError(f"snapshot has unknown store kind {kind!r}")
-    return BitmapStore.from_state(st, device=device)
+    n, count = int(st["n"]), int(st["count"])
+    R = np.asarray(st["R"])[:count]
+    if kind == "packed":
+        rows = unpack_bits_np(R, n)
+    elif kind == "compressed":
+        rows = token_decode_np(R, n)
+    else:
+        rows = np.asarray(R, np.uint8)
+    if "live" in st:
+        rows = rows[np.asarray(st["live"])[:count].astype(bool)]
+    return n, rows
+
+
+def store_from_state(st, *, device="cpu", kind: str = None):
+    """Rebuild a store from a `state()` tree.  ``kind`` picks the target
+    representation (None keeps the snapshot's own): the same kind
+    restores the arena in place, another kind re-encodes the snapshot's
+    live rows (`from_rows`), so bitmap, packed and compressed snapshots
+    each restore into any of the three."""
+    snap_kind = str(np.asarray(st["kind"]))
+    target = snap_kind if kind is None else kind
+    for k in (snap_kind, target):
+        if k not in _KINDS:
+            if k in _NOT_PORTED:
+                raise NotImplementedError(
+                    f"restoring a {snap_kind!r} snapshot as {target!r} "
+                    f"needs {_NOT_PORTED[k]}")
+            raise ValueError(f"unknown store kind {k!r}")
+    cls = _store_class(target)
+    if target == snap_kind:
+        return cls.from_state(st, device=device)
+    n, rows = _live_rows_from_state(st)
+    return cls.from_rows(rows, n, device=device)

@@ -11,18 +11,31 @@ from __future__ import annotations
 
 from repro_torch.kernels import coins, commit, coverage_matvec as _cov
 from repro_torch.kernels import fused_select as _sel
+from repro_torch.kernels import packed_count as _pc
 from repro_torch.kernels._common import (          # noqa: F401
     impl_for, launch_counts, padded_width, reset_launches,
 )
 
 
-def arena_commit(rows, out, counter) -> None:
-    """Write ``rows (B, n)`` into ``out (B, n)`` (an arena slice) and add
-    their int32 column sums into ``counter (n,)``, in place."""
-    if impl_for(commit.KERNEL, rows, out, counter) == "cuda":
-        commit.arena_commit_cuda(rows, out, counter)
+def arena_commit(rows, out, counter, *, kind: str = "bitmap") -> None:
+    """Write ``rows (B, n)`` 0/1 into ``out`` (an arena slice: ``(B, n)``
+    for ``kind="bitmap"``, ``(B, ceil(n/8))`` LSB-first packed bytes for
+    ``kind="packed"``) and add their int32 column sums into ``counter
+    (n,)``, in place."""
+    if kind == "bitmap":
+        name, cuda, plain = (commit.KERNEL, commit.arena_commit_cuda,
+                             commit.arena_commit_plain)
+    elif kind == "packed":
+        name, cuda, plain = (commit.KERNEL_PACKED,
+                             commit.arena_commit_packed_cuda,
+                             commit.arena_commit_packed_plain)
     else:
-        commit.arena_commit_plain(rows, out, counter)
+        raise ValueError(f"arena_commit kind must be bitmap|packed, "
+                         f"got {kind!r}")
+    if impl_for(name, rows, out, counter) == "cuda":
+        cuda(rows, out, counter)
+    else:
+        plain(rows, out, counter)
 
 
 def coverage_matvec(alive, R):
@@ -37,6 +50,22 @@ def fused_select(alive, R):
     if impl_for(_sel.KERNEL, alive, R) == "cuda":
         return _sel.fused_select_cuda(alive, R)
     return _sel.fused_select_plain(alive, R)
+
+
+def packed_count(packed, alive, *, n: int):
+    """``alive (theta,) 0/1 @ unpack(packed (theta, ceil(n/8)))`` ->
+    ``(n,) int32``."""
+    if impl_for(_pc.KERNEL_PACKED, packed, alive) == "cuda":
+        return _pc.packed_count_cuda(packed, alive, n)
+    return _pc.packed_count_plain(packed, alive, n)
+
+
+def token_count(tokens, alive, *, n: int):
+    """``alive (theta,) 0/1 @ decode(tokens (theta, s_pad) int32)`` ->
+    ``(n,) int32``."""
+    if impl_for(_pc.KERNEL_TOKEN, tokens, alive) == "cuda":
+        return _pc.token_count_cuda(tokens, alive, n)
+    return _pc.token_count_plain(tokens, alive, n)
 
 
 def ic_sparse_hits(key, edge_prob, batch: int):

@@ -6,13 +6,21 @@ module) and named here as the reference's ``*_ref``: the CPU path of
 on the card.
 """
 from repro_torch.kernels.coins import ic_sparse_hits_plain as ic_sparse_hits_ref
-from repro_torch.kernels.commit import arena_commit_plain as arena_commit_ref
+from repro_torch.kernels.commit import (
+    arena_commit_packed_plain as arena_commit_packed_ref,
+    arena_commit_plain as arena_commit_ref,
+)
 from repro_torch.kernels.coverage_matvec import (
     coverage_matvec_plain as coverage_matvec_ref,
 )
 from repro_torch.kernels.fused_select import (
     fused_select_plain as fused_select_ref,
 )
+from repro_torch.kernels.packed_count import (
+    packed_count_plain as packed_count_ref,
+    token_count_plain as token_count_ref,
+)
 
-__all__ = ["arena_commit_ref", "coverage_matvec_ref", "fused_select_ref",
-           "ic_sparse_hits_ref"]
+__all__ = ["arena_commit_packed_ref", "arena_commit_ref",
+           "coverage_matvec_ref", "fused_select_ref", "ic_sparse_hits_ref",
+           "packed_count_ref", "token_count_ref"]

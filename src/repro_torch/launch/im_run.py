@@ -7,10 +7,11 @@
 Runs Algorithm 1 on a synthetic SNAP stand-in and prints one JSON line:
 the reference's keys plus ``"device"``.  Runs on ``cuda`` unless
 ``--device cpu`` is given.  ``--select-k`` answers extra queries from the
-same store.  Flags of features not ported yet (``--mesh``, a ``--store``
-other than auto/bitmap, ``--snapshot-dir``, models other than IC and
-backends other than sparse) raise `NotImplementedError` naming their
-ROADMAP item.
+same store; ``--store packed|compressed`` keeps the RRR sets in an IMPack
+arena, and ``"arena_bytes"`` reports the arena's device bytes.  Flags of
+features not ported yet (``--mesh``, ``--store indices|sharded``,
+``--snapshot-dir``, models other than IC and backends other than
+sparse) raise `NotImplementedError` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -80,6 +81,8 @@ def run(graph: str, *, scale: float = None, model: str = "IC", k: int = 50,
         "mesh_shards": None, "vertex_shards": None,
         "influence": res.influence, "covered_frac": res.covered_frac,
         "theta": res.theta, "representation": res.representation,
+        "store": engine.store.representation,
+        "arena_bytes": engine.store.arena_bytes,
         "graph_s": round(t_graph, 3), "imm_s": round(t_imm, 3),
         "seeds": [int(s) for s in res.seeds[:10]],
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"

@@ -130,6 +130,13 @@ def test_non_cpu_operands_never_take_the_plain_version():
         ops.coverage_matvec(alive, R)
     with pytest.raises(ValueError, match="operands on"):
         ops.arena_commit(R, R, torch.zeros(16, dtype=torch.int32))
+    with pytest.raises(ValueError, match="operands on"):
+        ops.arena_commit(R, R[:, :2], torch.zeros(16, dtype=torch.int32),
+                         kind="packed")
+    with pytest.raises(ValueError, match="operands on"):
+        ops.packed_count(R, alive, n=128)
+    with pytest.raises(ValueError, match="operands on"):
+        ops.token_count(R.to(torch.int32), alive, n=100)
 
 
 def test_row_view_requires_padded_rows():

@@ -34,6 +34,9 @@ def test_no_module_imports_jax_or_repro():
     assert "repro_torch.core.engine" in res["modules"]
     assert "repro_torch.kernels.coins" in res["modules"]
     assert "repro_torch.launch.im_run" in res["modules"]
+    for name in ("core.pack.codec", "core.pack.stores", "core.pack.selection",
+                 "kernels.packed_count", "kernels.commit"):
+        assert f"repro_torch.{name}" in res["modules"]
     assert res["leaked"] == []
 
 
