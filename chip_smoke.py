@@ -13,7 +13,8 @@ Phases, one JSON line each:
             ragged and tie cases; times on the card
   parity    a small cell (rmat n = 2,048) run by the port on cuda with
             each store and on cpu: seeds, theta, coverage, counter and
-            arena identical
+            arena identical (on the sparse sampler; the dense-path cells
+            below)
   imm_full  imm() on the full-size com-Amazon replica (IC, k = 50,
             eps = 0.5, max_theta = 16,384, rebuild), then the fused
             selections and four influence queries on its store
@@ -21,11 +22,23 @@ Phases, one JSON line each:
             the same solve, selections and queries on the IMPack packed
             and compressed stores: seeds, theta, influence and coverage
             equal imm_full's
+  pallas_full
+            imm() on the com-LJ Table III replica (n = 3,997, IC, k = 50,
+            eps = 0.5, max_theta = 65,536) with the pallas backend (every
+            BFS step one ic_frontier_step launch), then the dense one;
+            rows on which they differ are classified as near-ties
 
-then the kernel table (each kernel's launches counted on the one full
+The kernels phase also holds ic_frontier_step against its plain version
+at the com-LJ replica's logq (B = 256, frontier densities 0.1%, 1%, 30%),
+at n = 16,384, on ragged shapes and with coins on the threshold; the
+parity phase also runs the dense-path cells (IC/dense, IC/pallas,
+WC/pallas, GT/pallas, IC/pallas+stable) on cuda and cpu.
+
+Then the kernel table (each kernel's launches counted on the one full
 run that is its path: the bitmap kernels and the coins on imm_full, the
 packed commit and packed_count on packed_full, token_count on
-compressed_full), the card's name and power limit, and
+compressed_full, ic_frontier_step on pallas_full), the card's name and
+power limit, and
 ``{"ok": true, "device": {...}}`` last.
 Any failure exits non-zero without the ok line; so does a machine with
 no CUDA device, or a directory without the repo's src/repro_torch.
@@ -49,6 +62,9 @@ HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 
 AMAZON_N, BATCH, THETA = 334_863, 256, 16_384
+#: the com-LJ Table III replica (`IMM_EXPERIMENTS["com-LJ"].bench_scale`)
+#: and IMMConfig's default theta cap, the pallas_full cell
+LJ_SCALE, LJ_N, LJ_THETA = 0.001, 3_997, 1 << 16
 DEV = "cuda"
 
 
@@ -235,7 +251,125 @@ def count_rows(torch, R, gen) -> dict:
     return rows
 
 
-def kernel_phase(torch, graph):
+def random_logq(torch, gen, n: int, per_col: int):
+    """An ``(n, n)`` log(1-p) table on the card with about ``per_col``
+    nonzeros a column (all of them when ``per_col >= n``), p ~ U(0,1)."""
+    L = torch.zeros((n, n), dtype=torch.float32, device="cuda")
+    if per_col >= n:
+        L.copy_(torch.log1p(-torch.rand((n, n), generator=gen,
+                                        device="cuda")))
+    else:
+        rows = torch.randint(0, n, (per_col * n,), generator=gen,
+                             device="cuda")
+        cols = torch.arange(n, device="cuda").repeat(per_col)
+        L[rows, cols] = torch.log1p(-torch.rand(per_col * n, generator=gen,
+                                                device="cuda"))
+    return L.clamp_(min=-30.0)
+
+
+def frontier_inputs(torch, gen, B: int, n: int, density: float,
+                    padded: bool):
+    """frontier, visited (row-padded views when ``padded``), rand."""
+    from repro_torch.kernels import ops
+
+    ld = ops.padded_width(n) if padded else n
+    f = torch.zeros((B, ld), dtype=torch.bool, device="cuda")
+    v = torch.zeros((B, ld), dtype=torch.bool, device="cuda")
+    f[:, :n] = torch.rand((B, n), generator=gen, device="cuda") < density
+    v[:, :n] = (torch.rand((B, n), generator=gen, device="cuda") < 0.2) \
+        | f[:, :n]
+    rand = torch.rand((B, n), generator=gen, device="cuda")
+    return f[:, :n], v[:, :n], rand
+
+
+def frontier_row(torch, gen, lj_logq) -> dict:
+    """ic_frontier_step against its plain version, bitwise: the solve's
+    shape (B 256 x the com-LJ replica's logq, n 3,997) at frontier
+    densities 0.1%, 1% and 30%; B 256 x n 16,384 (logq 1.07 GB); ragged
+    shapes; coins on the threshold.  Times at both full shapes."""
+    from repro_torch.core import ties
+    from repro_torch.kernels import ic_frontier as icf
+    from repro_torch.kernels import ops
+
+    def agree(F, V, L, R, tag):
+        got = ops.ic_frontier_step(F, V, L, R)
+        want = icf.ic_frontier_step_plain(F, V, L, R)
+        torch.cuda.synchronize()
+        bad = int((got != want).sum())
+        check(bad == 0, f"ic_frontier_step {tag}: {bad} cells differ")
+        rows, n = got.shape
+        whole = torch.as_strided(got, (rows, got.stride(0)), (got.stride(0),
+                                                              1))
+        check(int(whole[:, n:].sum()) == 0, f"ic_frontier_step {tag}: pad")
+        return got
+
+    for n in (1, 7, 129, 513, 4099):
+        L = random_logq(torch, gen, n, n if n <= 513 else 24)
+        for B in (1, 3, 70):
+            for padded in (False, True):
+                F, V, R = frontier_inputs(torch, gen, B, n, 0.3, padded)
+                agree(F, V, L, R, f"{B}x{n}")
+    B, n = BATCH, lj_logq.shape[0]
+    for density in (0.001, 0.01, 0.3):
+        F, V, R = frontier_inputs(torch, gen, B, n, density, True)
+        agree(F, V, lj_logq, R, f"{B}x{n} density {density}")
+    # coins on the threshold: rand = p fires nothing, p's lower f32
+    # neighbour fires every live cell, its upper one none
+    F, V, _ = frontier_inputs(torch, gen, B, n, 0.01, True)
+    V = V & False
+    p = torch.expm1(icf.ascending_acc(F, lj_logq).double()).neg_().float()
+    live = p > 0
+    for shift, fires in ((0.0, False), (-1.0, True), (1.0, False)):
+        R = p if not shift else torch.nextafter(
+            p, torch.full_like(p, shift * float("inf")))
+        got = agree(F, V, lj_logq, R.contiguous(), f"tie {shift:+}")
+        check(bool((got[live] == fires).all()),
+              f"ic_frontier_step tie {shift:+}: wrong side")
+
+    times, lib_ties = {}, {}
+    big = random_logq(torch, gen, 16_384, 32)
+    for name, L in (("solve", lj_logq), ("n16384", big)):
+        nn = L.shape[0]
+        for density in (0.3, 0.01):
+            F, V, R = frontier_inputs(torch, gen, B, nn, density, True)
+            agree(F, V, L, R, f"{B}x{nn} density {density}")
+            ms = time_cuda(torch, lambda: icf.ic_frontier_step_cuda(
+                F, V, L, R))
+            plain_ms = time_cuda(torch, lambda: icf.ic_frontier_step_plain(
+                F, V, L, R), warmup=1, iters=2)
+            # the library product sums in its own order: every cell where
+            # it disagrees with the kernel on these inputs is a near-tie
+            lib = icf.activation(F.float() @ L, R, V)
+            b, u = torch.nonzero(lib != ops.ic_frontier_step(F, V, L, R)
+                                 .bool(), as_tuple=True)
+            _, tie = ties.classify_cells(F, L, R, b.cpu().numpy(),
+                                         u.cpu().numpy())
+            check(bool(tie.all()), f"library product {name} {density}: "
+                  f"{int((~tie).sum())} cells are not near-ties")
+            lib_ties[f"{name}_{density}"] = int(b.numel())
+            library_ms = time_cuda(torch, lambda: icf.activation(
+                F.float() @ L, R, V))
+            # the work these inputs need: logq read once, the four (B, n)
+            # operands once each, and one f32 add (an FMA's two
+            # operations) for each frontier entry and nonzero of logq's
+            # row v; the zero terms are none of the function's work
+            terms = int((F.sum(0, dtype=torch.int64)
+                         * (L != 0).sum(1, dtype=torch.int64)).sum())
+            b_ms, b_by = bound(4 * nn * nn + 7 * B * nn, 2 * terms)
+            times[f"{name}_{density}"] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=b_ms, bound_by=b_by, terms=terms, shape=[B, nn])
+        del F, V, R
+    del big
+    torch.cuda.empty_cache()
+    emit("ic_frontier_step", library_near_ties=lib_ties, **times)
+    row = times["solve_0.3"]
+    return dict(route="cuda", source="src/repro_torch/kernels/csrc/"
+                "ic_frontier.cu", replaces="src/repro/kernels/"
+                "ic_frontier.py:55", max_abs_err=0, **row)
+
+
+def kernel_phase(torch, graph, lj_logq):
     from repro_torch import prng
     from repro_torch.kernels import coins, commit, ops
     from repro_torch.kernels import coverage_matvec as cov
@@ -366,6 +500,25 @@ def kernel_phase(torch, graph):
         library_ms=None, shape=[B, m])
     del hits
     torch.cuda.empty_cache()
+    rows_out["ic_frontier_step"] = frontier_row(torch, gen, lj_logq)
+
+    # ---- uniform_draw: the dense backends' (B, n) coin draw
+    for shape in ((1, 1), (3, 7), (70, 4099), (B, lj_logq.shape[0])):
+        got = ops.uniform(key, shape, device="cuda")
+        check(torch.equal(got, prng.uniform(key, shape, device="cuda")),
+              f"uniform_draw {shape}")
+    shape = (B, lj_logq.shape[0])
+    out = torch.empty(shape, device="cuda")
+    ms = time_cuda(torch, lambda: coins.uniform_cuda(key, out))
+    plain_ms = time_cuda(torch, lambda: prng.uniform(key, shape,
+                                                     device="cuda"))
+    count = shape[0] * shape[1]
+    b_ms, b_by = bound(4 * count, count * coins.OPS_PER_COIN)
+    rows_out["uniform_draw"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/coins.cu",
+        replaces="src/repro/core/sampler.py:401", max_abs_err=0,
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, shape=list(shape))
     emit("kernels", **{k: {kk: v[kk] for kk in ("ms", "plain_ms", "bound_ms",
                                                 "library_ms", "shape")}
                        for k, v in rows_out.items()})
@@ -418,13 +571,148 @@ def parity_phase(torch):
         check(torch.equal(o["R"], h["R"]), f"parity arena {key}")
         for q in ("fr", "fd"):
             check(list(o[q].seeds) == list(rh.seeds), f"parity {q} {key}")
+    dense = dense_parity(torch, g)
     emit("parity", n=g.n, m=g.m, theta=rh.theta, rounds=rh.rounds,
+         dense=dense,
          seeds=[int(s) for s in rh.seeds], covered_frac=rh.covered_frac,
          cuda_s=c["s"], cpu_s=h["s"], launches=c["launches"],
          packed_s=out[DEV, "packed"]["s"],
          compressed_s=out[DEV, "compressed"]["s"],
          packed_launches=out[DEV, "packed"]["launches"],
          compressed_launches=out[DEV, "compressed"]["launches"])
+
+
+def batch_keys(seed: int, count: int):
+    """The engine's first ``count`` batch keys for ``seed``."""
+    from repro_torch import prng
+
+    key, keys = prng.PRNGKey(seed), []
+    for _ in range(count):
+        key, sub = prng.split(key)
+        keys.append(sub)
+    return keys
+
+
+def differing_rows(eng_a, eng_b):
+    """Indices (on the host) of the arena rows, up to the shorter store's
+    count, on which two engines' bitmap stores differ."""
+    count = min(eng_a.store.count, eng_b.store.count)
+    a, b = eng_a.store.R[:count], eng_b.store.R[:count]
+    return (a != b.to(a.device)).any(dim=1).nonzero().squeeze(1).cpu()
+
+
+def classify_arenas(torch, eng_a, eng_b):
+    """Trace every arena row on which two positional dense-family solves
+    of one graph, model and seed on the card differ (say the ``dense``
+    and the ``pallas`` backend) to its first differing BFS step and
+    classify it; checks that each batch re-samples to its arena rows and
+    that every difference is a near-tie.  Returns ``(rows that differ,
+    cells, near-ties, batches classified)``."""
+    from repro_torch.core import sampler, ties
+
+    B, n = eng_a.cfg.batch, eng_a.graph.n
+    diff = differing_rows(eng_a, eng_b)
+    batches = sorted({int(r) // B for r in diff.tolist()})
+    keys = batch_keys(eng_a.cfg.seed, max(batches, default=-1) + 1)
+    logq = sampler.logq_from_probs(eng_a.graph, sampler._edge_probs(
+        sampler.get_model(eng_a.cfg.model), eng_a.graph))
+    kernels = [e.sampler_name.split("/")[1].startswith("pallas")
+               for e in (eng_a, eng_b)]
+    cells = tie_count = 0
+    for j in batches:
+        def run(kernel, key=keys[j]):
+            return lambda t: sampler._dense_loop(
+                key, logq, batch=B, max_steps=t,
+                kernel=kernel)[0].cpu().numpy()
+
+        _, _, roots = sampler._dense_loop(keys[j], logq, batch=B,
+                                          max_steps=1)
+        for eng, kernel in zip((eng_a, eng_b), kernels):
+            rerun = torch.from_numpy(run(kernel)(n))
+            check(torch.equal(rerun, eng.store.R[j * B:(j + 1) * B].cpu()),
+                  f"batch {j} of {eng.sampler_name} does not re-sample")
+        rep = ties.classify_runs(
+            run(kernels[0]), run(kernels[1]),
+            lambda t, key=keys[j]: sampler.dense_coins(
+                key, t, batch=B, n_nodes=n, device=logq.device),
+            logq, roots.cpu().numpy(), max_steps=n)
+        check(rep["faults"] == [], f"not near-ties: {rep['faults'][:3]}")
+        cells += rep["cells"]
+        tie_count += rep["ties"]
+    return int(diff.numel()), cells, tie_count, len(batches)
+
+
+#: the dense-path parity cells: (model, backend, stable)
+DENSE_CELLS = (("IC", None, False), ("IC", "pallas", False),
+               ("WC", "pallas", False), ("GT", "pallas", False),
+               ("IC", "pallas", True))
+
+
+def dense_parity(torch, g) -> dict:
+    """The dense-path cells of the parity graph (its default sampler is
+    IC/dense) on cuda and on cpu: pallas cuda == cpu bitwise, dense cuda
+    vs pallas cuda equal up to classified near-ties, ic_frontier_step
+    launched on cuda only, and a positions resample of the stable cell."""
+    from repro_torch.core.engine import IMMConfig, InfluenceEngine
+    from repro_torch.kernels import ops
+
+    out, summary = {}, {}
+    for model, backend, stable in DENSE_CELLS:
+        for dev in (DEV, "cpu"):
+            cfg = IMMConfig(k=10, model=model, backend=backend,
+                            stable=stable, max_theta=4096, seed=0,
+                            store="bitmap")
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            eng = InfluenceEngine(g, cfg, device=dev)
+            res = eng.run()
+            if dev == DEV:
+                torch.cuda.synchronize()
+            out[eng.sampler_name, dev] = dict(
+                eng=eng, res=res, s=time.perf_counter() - t0,
+                launches=ops.launch_counts())
+    for (name, dev), o in out.items():
+        for kname, wanted in (
+                ("ic_frontier_step", name.split("/")[1].startswith("pallas")),
+                ("uniform_draw", not name.endswith("+stable"))):
+            got = o["launches"].get(kname, 0)
+            check(got > 0 if (wanted and dev == DEV) else got == 0,
+                  f"parity {name} on {dev}: {kname} launched {got}")
+        kernel = name.split("/")[1].startswith("pallas")
+        if not kernel or dev != DEV:
+            continue
+        c, h = o, out[name, "cpu"]
+        rc, rh = c["res"], h["res"]
+        check(list(rc.seeds) == list(rh.seeds), f"parity {name} seeds")
+        check((rc.theta, rc.rounds) == (rh.theta, rh.rounds),
+              f"parity {name} theta")
+        check(rc.covered_frac == rh.covered_frac, f"parity {name} coverage")
+        check((rc.counter == rh.counter).all(), f"parity {name} counter")
+        check(torch.equal(c["eng"].store.R.cpu(), h["eng"].store.R),
+              f"parity {name} arena")
+        summary[name] = dict(seeds=[int(x) for x in rc.seeds],
+                             theta=rc.theta, covered_frac=rc.covered_frac,
+                             cuda_s=c["s"], cpu_s=h["s"],
+                             launches=c["launches"])
+    rows, cells, n_ties, _ = classify_arenas(
+        torch, out["IC/dense", DEV]["eng"], out["IC/pallas", DEV]["eng"])
+    d = out["IC/dense", DEV]["res"]
+    summary["IC/dense"] = dict(
+        seeds=[int(x) for x in d.seeds], theta=d.theta,
+        covered_frac=d.covered_frac, cuda_s=out["IC/dense", DEV]["s"],
+        cpu_s=out["IC/dense", "cpu"]["s"],
+        rows_differing_from_pallas=rows, cells=cells, near_ties=n_ties,
+        rows_differing_cuda_cpu=int(differing_rows(
+            out["IC/dense", DEV]["eng"], out["IC/dense", "cpu"]["eng"])
+            .numel()))
+    # a positions resample of the stable cell regenerates its arena rows
+    eng = out["IC/pallas+stable", DEV]["eng"]
+    key = batch_keys(0, 3)[2]
+    pos = [255, 0, 17, 128]
+    part, _ = eng.resample(key, positions=pos)
+    check(torch.equal(part, eng.store.R[2 * BATCH:3 * BATCH][pos]),
+          "parity resample(positions)")
+    return summary
 
 
 # --------------------------------------------------------- full solves ----
@@ -553,6 +841,100 @@ def full_phase(torch, graph, max_theta: int, store: str = "bitmap",
     return launches, summary
 
 
+def pallas_full(torch, graph, max_theta: int) -> dict:
+    """imm() on the com-LJ Table III replica (n 3,997, m 56,070: the
+    largest and densest of the six that take the dense backend) with the
+    ``pallas`` backend, then the ``dense`` one, on the card: times, BFS
+    steps, frontier density, the per-step cost of the coin draw, the
+    kernel and the library product, and the rows on which the two
+    backends differ (each classified as a near-tie)."""
+    from repro_torch import obs, prng
+    from repro_torch.core import sampler
+    from repro_torch.core.engine import IMMConfig, InfluenceEngine
+    from repro_torch.kernels import ic_frontier as icf
+    from repro_torch.kernels import ops
+
+    n, B = graph.n, BATCH
+    out, engines = {}, {}
+    for backend in ("pallas", "dense"):
+        cfg = IMMConfig(k=50, eps=0.5, model="IC", backend=backend,
+                        batch=B, max_theta=max_theta, seed=0)
+        obs.reset()
+        obs.enable()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        engine = InfluenceEngine(graph, cfg, device=DEV)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = engine.run()
+        torch.cuda.synchronize()
+        imm_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        snap = obs.snapshot()["counters"]
+        tracer = obs.get_tracer()
+        spans = {name: sum(tracer.durations_s(name))
+                 for name in ("sample", "store.write", "select")}
+        obs.reset()
+        steps = int(snap.get("sampler.steps", 0))
+        cells = int(snap.get("sampler.frontier_cells", 0))
+        st = engine.store
+        check(res.theta == st.count > 0, f"pallas_full {backend} theta")
+        check(len(set(int(x) for x in res.seeds)) == 50,
+              f"pallas_full {backend} seeds unique")
+        check(0.0 < res.covered_frac <= 1.0, f"pallas_full {backend} cover")
+        check(torch.equal(st.R[:st.count].sum(0, dtype=torch.int32),
+                          st.counter), f"pallas_full {backend} counter")
+        got = launches.get("ic_frontier_step", 0)
+        check(got == steps > 0 if backend == "pallas" else got == 0,
+              f"pallas_full {backend}: ic_frontier_step launched {got} "
+              f"times in {steps} BFS steps")
+        check(launches.get("uniform_draw", 0) == steps,
+              f"pallas_full {backend}: uniform_draw launched "
+              f"{launches.get('uniform_draw', 0)} times in {steps} steps")
+        engines[backend] = engine
+        out[backend] = dict(
+            init_s=init_s, imm_s=imm_s,
+            sample_s=spans["sample"] + spans["store.write"],
+            select_s=spans["select"], theta=res.theta, rounds=res.rounds,
+            bfs_steps=steps, frontier_density=cells / max(steps * B * n, 1),
+            influence=res.influence, covered_frac=res.covered_frac,
+            seeds=[int(x) for x in res.seeds],
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            launches=launches)
+    rows, ncells, n_ties, nb = classify_arenas(
+        torch, engines["dense"], engines["pallas"])
+    # per-step costs at the solve's shape and mean frontier density
+    p = out["pallas"]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    L = sampler.make_logq(engines["pallas"].graph)
+    F, V, R = frontier_inputs(torch, gen, B, n, p["frontier_density"], True)
+    key = prng.PRNGKey(3)
+    per_step = dict(
+        coin_ms=time_cuda(torch, lambda: ops.uniform(key, (B, n),
+                                                     device=DEV)),
+        kernel_ms=time_cuda(torch, lambda: ops.ic_frontier_step(F, V, L, R)),
+        matmul_ms=time_cuda(torch, lambda: icf.activation(F.float() @ L, R,
+                                                          V)))
+    for backend, step_ms in (("pallas", per_step["kernel_ms"]),
+                             ("dense", per_step["matmul_ms"])):
+        o = out[backend]
+        wall_ms = 1e3 * o["sample_s"] / max(o["bfs_steps"], 1)
+        o.update(step_wall_ms=wall_ms,
+                 coin_share=per_step["coin_ms"] / wall_ms,
+                 step_share=step_ms / wall_ms)
+    emit("pallas_full", graph="com-LJ", scale=LJ_SCALE, n=n, m=graph.m,
+         k=50, eps=0.5, batch=B, max_theta=max_theta, per_step=per_step,
+         rows_differing=rows, differing_cells=ncells, near_ties=n_ties,
+         batches_classified=nb,
+         **{f"{b}": {k: v for k, v in o.items() if k != "seeds"}
+            for b, o in out.items()},
+         seeds={b: o["seeds"][:10] for b, o in out.items()})
+    return out["pallas"]["launches"]
+
+
 def profile_phase(torch, graph, batches: int = 4):
     """Optional (``--phases profile``): the full-size sampler for a few
     batches, first plain and then under ``torch.profiler`` (after one
@@ -564,9 +946,9 @@ def profile_phase(torch, graph, batches: int = 4):
 
     from repro_torch import prng
     from repro_torch.core.engine import IMMConfig
-    from repro_torch.core.sampler import _bind_sparse
+    from repro_torch.core.sampler import IC, _bind_sparse
 
-    sample = _bind_sparse(graph.to("cuda"), IMMConfig())
+    sample = _bind_sparse(IC, graph.to("cuda"), IMMConfig())
     keys = prng.split(prng.PRNGKey(7), batches + 1)
     sample(keys[0])
     torch.cuda.synchronize()
@@ -611,10 +993,10 @@ def main(argv=None) -> int:
                          "n)")
     ap.add_argument("--phases",
                     default="kernels,parity,imm_full,packed_full,"
-                            "compressed_full",
+                            "compressed_full,pallas_full",
                     help="comma list of kernels, parity, imm_full, "
-                         "packed_full, compressed_full and the optional "
-                         "profile")
+                         "packed_full, compressed_full, pallas_full and "
+                         "the optional profile")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -624,7 +1006,8 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
-        from repro_torch.graphs.datasets import synthetic_snap
+        from repro_torch.core.sampler import make_logq
+        from repro_torch.graphs.datasets import scaled_snap, synthetic_snap
         from repro_torch.kernels import build
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
@@ -646,8 +1029,12 @@ def main(argv=None) -> int:
     emit("graph", name="com-Amazon", n=graph.n, m=graph.m,
          build_s=time.perf_counter() - t0)
     check(graph.n == AMAZON_N, "com-Amazon replica size")
+    lj = scaled_snap("com-LJ", LJ_SCALE, seed=0)
+    emit("graph", name="com-LJ", scale=LJ_SCALE, n=lj.n, m=lj.m)
+    check(lj.n == LJ_N, "com-LJ replica size")
 
-    rows = kernel_phase(torch, graph) if "kernels" in phases else {}
+    rows = (kernel_phase(torch, graph, make_logq(lj.to(DEV)))
+            if "kernels" in phases else {})
     if "parity" in phases:
         parity_phase(torch)
     launches, ref = {}, None
@@ -657,13 +1044,17 @@ def main(argv=None) -> int:
                 torch, graph, args.max_theta, store, ref)
             if store == "bitmap":
                 ref = summary
+    if "pallas_full" in phases:
+        launches["pallas_full"] = pallas_full(torch, lj, LJ_THETA)
     if "profile" in phases:
         profile_phase(torch, graph)
     # each kernel's launches on the full run that is its path
     path = {name: PHASE[kind] for kind, names in PATH_KERNELS.items()
             for name in names}
+    path["ic_frontier_step"] = path["uniform_draw"] = "pallas_full"
     table = [{"name": name,
-              **{k: v for k, v in row.items() if k != "shape"},
+              **{k: v for k, v in row.items()
+                 if k not in ("shape", "terms")},
               "launches": launches.get(path.get(name, "imm_full"),
                                        {}).get(name, 0)}
              for name, row in rows.items()]

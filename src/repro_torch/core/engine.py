@@ -13,7 +13,12 @@ batches land in a preallocated store — a `BitmapStore`, or with
 extender where the at-rest form has one, and selection goes through the
 strategy registry (`repro_torch.core.selection`), memoized per (store
 version, k, method).  For a fixed ``cfg.seed`` every seed, theta,
-coverage and arena byte equals the JAX package's, on every store.
+coverage and arena byte equals the JAX package's, on every store, with
+the sparse sampler; the dense and pallas samplers (the default for
+n <= ``dense_sampler_max_n``) equal it up to near-tie coin flips
+(`repro_torch.core.ties`), and selection on a given store is exact.
+Stable samplers re-generate row subsets of a recorded batch
+(`resample`).
 
 The engine runs on ``cuda`` unless ``device="cpu"`` is passed; without a
 GPU and without ``device="cpu"`` it raises rather than carry on slowly
@@ -23,6 +28,7 @@ on the host.  A mesh, or the indices or sharded store, raises
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Optional, Sequence
 
 import numpy as np
@@ -157,6 +163,25 @@ class InfluenceEngine:
                 obs.counter("engine.batches_sampled").add(1)
         obs.gauge("engine.theta").set(self.store.count)
         return self.store.count
+
+    @property
+    def supports_row_resample(self) -> bool:
+        """Whether the bound sampler can re-generate an arbitrary subset
+        of a batch's rows (the stable samplers' ``positions`` hook)."""
+        return "positions" in inspect.signature(self._sample).parameters
+
+    def resample(self, batch_key, positions=None):
+        """Re-run the sampler for a recorded batch key: returns
+        ``(visited, counter)``.  ``positions`` (requires
+        `supports_row_resample`) re-generates only those rows of the
+        batch, bitwise the rows of the full batch."""
+        key = prng.as_key(batch_key)
+        if positions is None:
+            visited, counter, _ = self._sample(key)
+        else:
+            visited, counter, _ = self._sample(
+                key, positions=np.asarray(positions, np.int32))
+        return visited, counter
 
     # ----------------------------------------------------------- selection
 

@@ -1,101 +1,347 @@
-"""Batched RRR-set sampling (Generate_RRRsets, paper Alg. 3): the IC model
-on the ``sparse`` traversal backend, positional coins
-(``repro.core.sampler``: ``_setup``, ``_sparse_loop``, ``_bind_sparse``).
+"""Batched RRR-set samplers (Generate_RRRsets, paper Alg. 3), composed from
+a diffusion model and a traversal backend (``repro.core.sampler``).
 
-Each BFS step draws one coin per (row, edge) by array position —
-``uniform(sub, (B, m)) < edge_prob``, the `ic_sparse_hits` kernel on the
-card — and expands the reverse frontier over the CSC edge list: an edge
-``u -> v`` is live when ``v`` is in the frontier, its coin hits and
-``u`` is unvisited; live edges scatter-or into ``u``.  The key chain
-(one split per batch, ``_setup``'s split plus randint, one split per
-step) and every coin are jax's, so the sampled sets are bitwise the
-JAX package's for the same key.
+  * **DiffusionModel** — what an edge does with randomness.  `CoinModel`
+    ("coins" family): each in-edge ``u -> v`` fires an independent coin
+    with a model marginal when ``v`` first enters the reverse frontier;
+    built-ins ``IC`` (the graph's edge probabilities), ``WC`` (weighted
+    cascade, ``1/indeg(dst)``) and ``GT`` (the LT triggering weights as
+    independent marginals).  `WalkModel` ("walk" family): built-in ``LT``.
+  * **TraversalBackend** — how the traversal runs:
 
-The other models (WC, GT, LT), backends (dense, pallas, walk) and the
-identity-keyed ``+stable`` coins are not ported yet; naming one raises
-`NotImplementedError` with its ROADMAP item.
+      - ``dense``: the log-semiring step ``rand < -expm1(frontier @
+        logq) & ~visited`` with ``frontier @ logq`` a library product
+        (``torch.matmul``, TF32 off);
+      - ``pallas``: the same step through the hand-written
+        ``ic_frontier_step`` kernel (`repro_torch.kernels.ops`), which
+        sums in ascending v — bitwise equal to itself on the card and on
+        the host; ``dense`` differs from it only where a coin sits within
+        a few ulps of its threshold (a near-tie, `repro_torch.core.ties`);
+      - ``sparse``: per-edge coins and a scatter over the CSC edge list
+        (positional coins through the ``ic_sparse_hits`` kernel); exact,
+        bitwise the reference for every coin model;
+      - ``walk``: the LT random walk.
+
+  * **stable** — positional coins (``uniform(key, shape)``) or
+    identity-keyed counter-mode coins (a hash of step key, row position
+    and vertex or edge id) that re-generate any subset of a batch's rows
+    through ``positions``.
+
+The full model x backend x stable matrix is registered under
+``"<model>/<backend>[+stable]"`` with the reference's legacy aliases.
+Roots, coins, the WC/GT marginals and every sparse result are bitwise the
+reference's for the same key; dense and pallas activations equal the
+reference's up to classified near-ties (the reference sums in XLA's
+order with f32 ``expm1``).
+
+Not ported yet, and raising `NotImplementedError` with the ROADMAP item:
+the LT walk backend (A4), native index-list emission ``emit_l`` (C4
+index lists, A3) and mesh ``placement`` (A8).  ``overlap`` and
+``pallas_interpret`` are inert (no mesh, no Pallas).
 """
 from __future__ import annotations
 
+import dataclasses
+import inspect
+import warnings
+from typing import Callable
+
+import numpy as np
 import torch
 
-from repro_torch import prng
-from repro_torch.graphs.csr import Graph
+from repro_torch import obs, prng
+from repro_torch.core.store import next_pow2
+from repro_torch.graphs.csr import (
+    Graph, dense_ic_matrix, edge_arrays, wc_edge_probs,
+)
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ic_frontier import activation, column_terms
 
-# what each unported sampler axis waits for (ROADMAP queue A)
-_MODELS = {"IC": "coins", "WC": "coins", "GT": "coins", "LT": "walk"}
-_MISSING = {
-    "dense": "the dense log-semiring backend (ROADMAP A1)",
-    "pallas": "the pallas backend with the ic_frontier_step kernel "
-              "(ROADMAP A1, kernel B1)",
-    "walk": "the LT walk backend (ROADMAP A4)",
-    "WC": "the WC/GT coin models (ROADMAP A1)",
-    "GT": "the WC/GT coin models (ROADMAP A1)",
-    "stable": "identity-keyed +stable coins (ROADMAP A1)",
-}
+_LOGQ_CLAMP = -30.0  # exp(-30) ~ 1e-13: treat p=1 edges as prob 1-1e-13
 
 
-def composed_name(model: str, backend: str, stable: bool = False) -> str:
-    """Canonical registry spelling ``"<model>/<backend>[+stable]"``."""
-    return f"{model}/{backend}" + ("+stable" if stable else "")
+def _placement_not_ported(placement) -> None:
+    if placement is not None:
+        raise NotImplementedError(
+            "sampler placement (a mesh-sharded batch) is not ported yet "
+            "(ROADMAP A8)")
 
 
-def default_sampler_name(graph: Graph, cfg) -> str:
-    """Resolve ``cfg`` to a composed name as the reference does: coin
-    models take the dense backend up to ``cfg.dense_sampler_max_n`` and
-    the sparse one above it, walk models the walk backend;
-    ``cfg.backend`` and ``cfg.stable`` override."""
-    family = _MODELS.get(cfg.model)
-    if family is None:
-        raise ValueError(f"unknown diffusion model {cfg.model!r}; "
-                         f"known: {sorted(_MODELS)}")
-    backend = getattr(cfg, "backend", None)
-    if backend is None:
-        backend = ("walk" if family == "walk" else
-                   "dense" if graph.n <= cfg.dense_sampler_max_n else "sparse")
-    return composed_name(cfg.model, backend, bool(getattr(cfg, "stable",
-                                                          False)))
+# ---------------------------------------------------------------- models ----
+
+@dataclasses.dataclass(frozen=True)
+class CoinModel:
+    """Edge-factored ("coins" family) diffusion semantics:
+    ``edge_probs(graph) -> (m,)`` float32 marginals in CSC order (a torch
+    tensor or a numpy array)."""
+    name: str
+    edge_probs: Callable[[Graph], object]
+    family: str = dataclasses.field(default="coins", init=False)
 
 
-def _setup(key, batch: int, n_nodes: int, device):
-    """``(kstep, roots, visited)``: the (kroot, kstep) split, the batch
-    roots and the initial visited rows (a ``(B, n)`` bool view of a
-    buffer whose rows are padded to `kops.padded_width`, so the commit
-    kernel reads them with 16-byte loads)."""
+@dataclasses.dataclass(frozen=True)
+class WalkModel:
+    """Pick-at-most-one ("walk" family) diffusion semantics:
+    ``walk_tables(graph) -> (dst_offsets, in_src, cum, total)``."""
+    name: str
+    walk_tables: Callable[[Graph], tuple]
+    family: str = dataclasses.field(default="walk", init=False)
+
+
+def _wc_probs(graph: Graph) -> torch.Tensor:
+    """Weighted cascade: p(u -> v) = 1 / indeg(v), CSC order."""
+    return torch.from_numpy(
+        wc_edge_probs(graph.edge_dst, graph.n).astype(np.float32))
+
+
+def _gt_probs(graph: Graph) -> torch.Tensor:
+    """Generalized triggering: the LT triggering weights as independent
+    per-edge marginals (CSC order; per-dst sums are <= 1)."""
+    _, _, _, w = edge_arrays(graph)
+    return torch.from_numpy(np.clip(w, 0.0, 1.0).astype(np.float32))
+
+
+IC = CoinModel("IC", lambda g: g.in_prob)
+WC = CoinModel("WC", _wc_probs)
+GT = CoinModel("GT", _gt_probs)
+LT = WalkModel("LT", lambda g: (g.dst_offsets, g.in_src, g.in_lt_cum,
+                                g.in_lt_total))
+
+_MODEL_REGISTRY: dict = {}
+
+
+def register_model(model) -> None:
+    """Register a `CoinModel`/`WalkModel` under its name (overwrites
+    silently so experiments can shadow the built-ins)."""
+    _MODEL_REGISTRY[model.name] = model
+
+
+def get_model(name: str):
+    try:
+        return _MODEL_REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown diffusion model {name!r}; registered: "
+            f"{sorted(_MODEL_REGISTRY)}") from None
+
+
+def registered_models():
+    return sorted(_MODEL_REGISTRY)
+
+
+for _m in (IC, WC, GT, LT):
+    register_model(_m)
+
+
+def _edge_probs(model, graph: Graph) -> torch.Tensor:
+    """The model's marginals as a contiguous float32 tensor on the
+    graph's device."""
+    return torch.as_tensor(model.edge_probs(graph), dtype=torch.float32,
+                           device=graph.device).contiguous()
+
+
+def logq_from_probs(graph: Graph, probs) -> torch.Tensor:
+    """Dense ``(n, n)`` log(1-p) matrix in reverse-traversal orientation,
+    ``logq[v, u] = log(1 - p_{u->v})``, on the graph's device.  Computed
+    on the host in float64, rounded once to float32 and clamped at
+    ``_LOGQ_CLAMP``, so every device builds the same bits (within one ulp
+    of the reference's f32 ``log1p`` table)."""
+    P = dense_ic_matrix(graph, probs)
+    with np.errstate(divide="ignore"):
+        L = np.log1p(-np.ascontiguousarray(P.T).astype(np.float64))
+    L = np.maximum(L.astype(np.float32), np.float32(_LOGQ_CLAMP))
+    return torch.from_numpy(L).to(graph.device)
+
+
+def make_logq(graph: Graph) -> torch.Tensor:
+    """`logq_from_probs` for the IC model."""
+    return logq_from_probs(graph, graph.in_prob)
+
+
+# ----------------------------------------------- the stable-coin machinery ----
+#
+# Identity-keyed coins: a stateless counter-mode hash of (step key, row
+# position, vertex or edge id), so a row re-generates alone (``positions``)
+# and an edge keeps its coin when others are inserted or deleted.  uint32
+# arithmetic runs in int32, whose add, multiply and xor wrap modulo 2**32
+# exactly as uint32 does; right shifts are masked to act as logical ones.
+
+def _shr(x: torch.Tensor, s: int) -> torch.Tensor:
+    return (x >> s) & ((1 << (32 - s)) - 1)
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """splitmix-style avalanche on uint32 bits held in int32."""
+    x = (x ^ _shr(x, 16)) * prng.u32_to_i32(0x7FEB352D)
+    x = (x ^ _shr(x, 15)) * prng.u32_to_i32(0x846CA68B)
+    return x ^ _shr(x, 16)
+
+
+def _u01(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 hash bits -> float32 uniform in [0, 1)."""
+    return _shr(bits, 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+_GOLD = 0x9E3779B9   # 2**32 / phi — the classic Weyl increment
+
+
+def _stable_uniform(sub, ids: torch.Tensor, bb: torch.Tensor,
+                    rows=None) -> torch.Tensor:
+    """``_u01(_mix32(_mix32(ids ^ k0) ^ bb ^ k1))``: the ``(K, len(ids))``
+    stable draw of step key ``sub`` (``rows=(start, stop)`` selects a row
+    block of ``bb``)."""
+    k0, k1 = (prng.u32_to_i32(int(w)) for w in prng.as_key(sub))
+    h = _mix32(ids ^ k0)[None, :]
+    b = bb if rows is None else bb[rows[0]:rows[1]]
+    return _u01(_mix32(h ^ b ^ k1))
+
+
+def _setup(key, batch: int, n_nodes: int, device, positions=None,
+           stable: bool = False):
+    """``(kstep, roots, visited, bb)``: the (kroot, kstep) split, the
+    roots (of ``positions`` when given), the initial visited rows — a
+    ``(K, n)`` bool view of a buffer whose rows are padded to
+    `kops.padded_width`, so the commit kernel reads them with 16-byte
+    loads — and (stable only) the ``(K, 1)`` per-row hash lanes
+    ``position * _GOLD``.  The PRNG op sequence (one split plus one
+    randint) is the same in both modes, as in the reference."""
     kroot, kstep = prng.split(key)
     roots = prng.randint(kroot, (batch,), 0, n_nodes, device=device)
-    buf = torch.zeros((batch, kops.padded_width(n_nodes)), dtype=torch.bool,
+    bb = None
+    if not stable:
+        if positions is not None:
+            raise ValueError(
+                "positions-subset resampling needs stable=True "
+                "(identity-keyed coins); positional samplers can only "
+                "re-generate whole batches")
+    else:
+        pos = (torch.arange(batch, device=device) if positions is None
+               else torch.as_tensor(positions, device=device).long())
+        roots = roots[pos]
+        bb = ((pos * _GOLD) & prng.MASK32).to(torch.int32)[:, None]
+    K = roots.shape[0]
+    buf = torch.zeros((K, kops.padded_width(n_nodes)), dtype=torch.bool,
                       device=device)
     visited = buf[:, :n_nodes]
-    visited[torch.arange(batch, device=device), roots.long()] = True
-    return kstep, roots, visited
+    visited[torch.arange(K, device=device), roots.long()] = True
+    return kstep, roots, visited, bb
 
 
-def _sparse_loop(key, edge_src, edge_dst, edge_prob, *, n_nodes: int,
-                 batch: int, max_steps: int = 0):
-    """CSC edge-list frontier expansion with positional coins.
+def _dense_coins(sub, K: int, n: int, uids, bb, device) -> torch.Tensor:
+    """One BFS step's ``(K, n)`` float32 draw of the dense backends."""
+    if bb is not None:
+        return _stable_uniform(sub, uids, bb)
+    return kops.uniform(sub, (K, n), device=device)
 
-    ``edge_src``/``edge_dst`` are int64 index tensors on the sampling
-    device.  Returns ``(visited (B, n) uint8, counter (n,) int32,
-    roots (B,) int32)``; ``visited`` is a row-padded view.
+
+def dense_coins(key, step: int, *, batch: int, n_nodes: int,
+                positions=None, stable: bool = False,
+                device="cpu") -> torch.Tensor:
+    """The draw of BFS step ``step`` (1-based) of the dense loop for batch
+    key ``key``: the loop's key chain replayed without the traversal
+    (near-tie classification rebuilds a step's inputs from it)."""
+    k, _, _, bb = _setup(key, batch, n_nodes, device, positions, stable)
+    for _ in range(step):
+        k, sub = prng.split(k)
+    uids = torch.arange(n_nodes, dtype=torch.int32, device=device)
+    return _dense_coins(sub, bb.shape[0] if stable else batch, n_nodes,
+                        uids, bb, device)
+
+
+def _frontier_count(frontier: torch.Tensor) -> int:
+    """Members of the frontier (one host sync a BFS step), also counted
+    on ``sampler.frontier_cells`` / ``sampler.steps``."""
+    cells = int(frontier.sum())
+    if cells:
+        obs.counter("sampler.steps").add(1)
+        obs.counter("sampler.frontier_cells").add(cells)
+    return cells
+
+
+# -------------------------------------------------------- traversal loops ----
+
+def _dense_loop(key, logq, positions=None, *, batch: int, max_steps: int = 0,
+                stable: bool = False, kernel: bool = False, terms=None):
+    """Dense log-semiring frontier expansion (the ``dense`` backend, or
+    with ``kernel=True`` the ``pallas`` backend: each step is one
+    `kops.ic_frontier_step`, handed ``terms``, logq's `column_terms`,
+    when a CPU caller built them once).  Both share the coins and the
+    epilogue and differ only in how ``frontier @ logq`` is summed.
+
+    Returns ``(visited (K, n) uint8, counter (n,) int32, roots (K,))``,
+    ``K = len(positions)`` or the batch; ``visited`` is a row-padded view.
+    """
+    n = logq.shape[0]
+    dev = logq.device
+    if not kernel and dev.type == "cuda" \
+            and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "the dense backend sums frontier @ logq in float32: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False (the default)")
+    max_steps = max_steps or n
+    k, roots, visited, bb = _setup(key, batch, n, dev, positions, stable)
+    K = visited.shape[0]
+    uids = torch.arange(n, dtype=torch.int32, device=dev) if stable else None
+    frontier = visited.clone()
+    step = 0
+    while step < max_steps and _frontier_count(frontier):
+        k, sub = prng.split(k)
+        coin = _dense_coins(sub, K, n, uids, bb, dev)
+        if kernel:
+            new = kops.ic_frontier_step(frontier, visited, logq, coin,
+                                        terms=terms).view(torch.bool)
+        else:
+            new = activation(frontier.to(torch.float32) @ logq, coin,
+                             visited)
+        visited |= new
+        frontier = new
+        step += 1
+    counter = visited.sum(dim=0, dtype=torch.int32)
+    return visited.view(torch.uint8), counter, roots
+
+
+#: rows per block of the stable sparse coin draw (bounds its temporaries)
+STABLE_ROWS = 32
+
+
+def _sparse_loop(key, edge_src, edge_dst, edge_prob, positions=None, *,
+                 n_nodes: int, batch: int, max_steps: int = 0,
+                 stable: bool = False):
+    """CSC edge-list frontier expansion (the ``sparse`` backend).
+
+    An edge ``u -> v`` is usable when ``v`` is in the frontier, its coin
+    hits and ``u`` is unvisited; usable edges scatter-or into ``u``.
+    Positional coins are ``uniform(sub, (B, m)) < edge_prob`` (the
+    ``ic_sparse_hits`` kernel on the card); stable coins key on the
+    edge's identity ``u * n + v`` (uint32, wrapping as the reference's),
+    so pow2 padding edges (prob 0) never fire.  ``edge_src``/``edge_dst``
+    are int64 tensors on the sampling device.
     """
     m = edge_src.shape[0]
     max_steps = max_steps or n_nodes
-    k, roots, visited = _setup(key, batch, n_nodes, edge_prob.device)
+    dev = edge_prob.device
+    k, roots, visited, bb = _setup(key, batch, n_nodes, dev, positions,
+                                   stable)
+    K = visited.shape[0]
+    uid = (((edge_src * n_nodes + edge_dst) & prng.MASK32).to(torch.int32)
+           if stable else None)
     frontier = visited.clone()
     step = 0
-    while step < max_steps and bool(frontier.any()):
+    while step < max_steps and _frontier_count(frontier):
         k, sub = prng.split(k)
-        hit = kops.ic_sparse_hits(sub, edge_prob, batch)
-        # reverse traversal: edge u->v is usable when v is in the frontier
+        if stable:
+            hit = torch.empty((K, m), dtype=torch.bool, device=dev)
+            for r in range(0, K, STABLE_ROWS):
+                r1 = min(r + STABLE_ROWS, K)
+                hit[r:r1] = _stable_uniform(sub, uid, bb, (r, r1)) < edge_prob
+        else:
+            hit = kops.ic_sparse_hits(sub, edge_prob, batch)
         live = frontier[:, edge_dst] & hit & ~visited[:, edge_src]
         # scatter-or into src from the live (row, edge) pairs only — an
-        # index expanded to (B, m) int64 would take 8 bytes per coin
+        # index expanded to (K, m) int64 would take 8 bytes per coin
         flat = live.view(-1).nonzero().squeeze(1)
         rows = torch.div(flat, m, rounding_mode="floor")
-        new = torch.zeros((batch, n_nodes), dtype=torch.bool,
-                          device=visited.device)
+        new = torch.zeros((K, n_nodes), dtype=torch.bool, device=dev)
         new.view(-1)[rows * n_nodes + edge_src[flat - rows * m]] = True
         new &= ~visited
         visited |= new
@@ -105,45 +351,336 @@ def _sparse_loop(key, edge_src, edge_dst, edge_prob, *, n_nodes: int,
     return visited.view(torch.uint8), counter, roots
 
 
-def _bind_sparse(graph: Graph, cfg):
-    src = graph.edge_src.long()
-    dst = graph.edge_dst.long()
-    prob = graph.in_prob.to(torch.float32).contiguous()
+# ------------------------------------------------ historical entry points ----
 
-    def sample(key):
-        return _sparse_loop(key, src, dst, prob, n_nodes=graph.n,
-                            batch=cfg.batch)
-
-    return sample
+def sample_ic_dense(key, logq, *, batch: int, max_steps: int = 0,
+                    placement=None):
+    """Positional dense log-semiring IC sampling (see `_dense_loop`)."""
+    _placement_not_ported(placement)
+    return _dense_loop(key, logq, batch=batch, max_steps=max_steps)
 
 
-def _not_ported(name: str) -> NotImplementedError:
-    model, _, rest = name.partition("/")
-    backend, plus, _ = rest.partition("+")
-    missing = [_MISSING[a] for a in (model, backend) if a in _MISSING]
-    if plus:
-        missing.append(_MISSING["stable"])
-    what = "; ".join(missing) or "a sampler registry entry"
-    return NotImplementedError(
-        f"sampler {name!r} is not ported yet: it needs {what}. "
-        f"Ported: 'IC/sparse'")
+def sample_ic_dense_stable(key, logq, positions=None, *, batch: int,
+                           max_steps: int = 0, placement=None):
+    """Identity-keyed dense sampling with ``positions`` row subsets."""
+    _placement_not_ported(placement)
+    return _dense_loop(key, logq, positions, batch=batch,
+                       max_steps=max_steps, stable=True)
+
+
+def sample_ic_sparse(key, edge_src, edge_dst, edge_prob, *, n_nodes: int,
+                     batch: int, max_steps: int = 0, placement=None):
+    """Positional edge-list IC sampling (see `_sparse_loop`)."""
+    _placement_not_ported(placement)
+    return _sparse_loop(key, edge_src.long(), edge_dst.long(), edge_prob,
+                        n_nodes=n_nodes, batch=batch, max_steps=max_steps)
+
+
+def sample_ic_sparse_stable(key, edge_src, edge_dst, edge_prob,
+                            positions=None, *, n_nodes: int, batch: int,
+                            max_steps: int = 0, placement=None):
+    """Edge-identity-keyed sparse sampling with ``positions`` subsets."""
+    _placement_not_ported(placement)
+    return _sparse_loop(key, edge_src.long(), edge_dst.long(), edge_prob,
+                        positions, n_nodes=n_nodes, batch=batch,
+                        max_steps=max_steps, stable=True)
+
+
+def _walk_not_ported(*_, **__):
+    raise NotImplementedError(
+        "the LT random-walk backend is not ported yet (ROADMAP A4)")
+
+
+sample_lt = sample_lt_stable = _walk_not_ported
+
+
+# -------------------------------------------------------------- backends ----
+
+def _pad_edges_pow2(edge_src, edge_dst, edge_prob):
+    """Pad CSC edge arrays to the next power of two with never-firing
+    edges (prob 0, endpoints 0); under identity-keyed coins the padded
+    sampler's output is bitwise the unpadded one's."""
+    m = int(edge_src.shape[0])
+    m_pad = next_pow2(m, 1)
+    if m_pad == m:
+        return edge_src, edge_dst, edge_prob
+    pad = m_pad - m
+
+    def grow(a):
+        return torch.cat([a, torch.zeros(pad, dtype=a.dtype,
+                                         device=a.device)])
+    return grow(edge_src), grow(edge_dst), grow(edge_prob)
+
+
+@dataclasses.dataclass(frozen=True)
+class TraversalBackend:
+    """One way to execute an RRR traversal: ``family`` names the model
+    family it executes; ``bind(model, graph, cfg, *, stable, placement)``
+    preprocesses once and returns the bound sampler, a callable of a key
+    (plus keyword-only ``positions`` when stable) returning ``(visited
+    (K, n) uint8, counter (n,) int32, roots (K,))``."""
+    name: str
+    family: str
+    bind: Callable
+
+
+def _bind_dense(model, graph: Graph, cfg, *, stable, placement,
+                kernel=False):
+    _placement_not_ported(placement)
+    logq = logq_from_probs(graph, _edge_probs(model, graph))
+    # the plain step's column grouping depends on logq alone: build it
+    # once here, not at every BFS step
+    terms = (column_terms(logq) if kernel and logq.device.type == "cpu"
+             else None)
+    if stable:
+        return lambda key, positions=None: _dense_loop(
+            key, logq, positions, batch=cfg.batch, stable=True,
+            kernel=kernel, terms=terms)
+    return lambda key: _dense_loop(key, logq, batch=cfg.batch,
+                                   kernel=kernel, terms=terms)
+
+
+def _bind_pallas(model, graph: Graph, cfg, *, stable, placement):
+    return _bind_dense(model, graph, cfg, stable=stable,
+                       placement=placement, kernel=True)
+
+
+def _no_emit(emit_l: int) -> None:
+    if emit_l:
+        raise NotImplementedError(
+            "native index-list emission (emit_l, C4 index lists) is not "
+            "ported yet (ROADMAP A3)")
+
+
+def _bind_sparse(model, graph: Graph, cfg, *, stable=False, placement=None):
+    _placement_not_ported(placement)
+    src, dst = graph.edge_src.long(), graph.edge_dst.long()
+    prob = _edge_probs(model, graph)
+    if stable:
+        # pow2 padding is invisible only under identity-keyed coins; the
+        # positional coin layout is a function of m, so it keeps m
+        src, dst, prob = _pad_edges_pow2(src, dst, prob)
+
+        def fn(key, positions=None, emit_l=0):
+            _no_emit(emit_l)
+            return _sparse_loop(key, src, dst, prob, positions,
+                                n_nodes=graph.n, batch=cfg.batch,
+                                stable=True)
+    else:
+        def fn(key, emit_l=0):
+            _no_emit(emit_l)
+            return _sparse_loop(key, src, dst, prob, n_nodes=graph.n,
+                                batch=cfg.batch)
+    return fn
+
+
+def _bind_walk(model, graph: Graph, cfg, *, stable, placement):
+    _walk_not_ported()
+
+
+DENSE_BACKEND = TraversalBackend("dense", "coins", _bind_dense)
+SPARSE_BACKEND = TraversalBackend("sparse", "coins", _bind_sparse)
+PALLAS_BACKEND = TraversalBackend("pallas", "coins", _bind_pallas)
+WALK_BACKEND = TraversalBackend("walk", "walk", _bind_walk)
+
+_BACKEND_REGISTRY: dict = {}
+
+
+def register_backend(backend: TraversalBackend) -> None:
+    """Register a `TraversalBackend` under its name (overwrites
+    silently)."""
+    _BACKEND_REGISTRY[backend.name] = backend
+
+
+def get_backend(name: str) -> TraversalBackend:
+    try:
+        return _BACKEND_REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown traversal backend {name!r}; registered: "
+            f"{sorted(_BACKEND_REGISTRY)}") from None
+
+
+def registered_backends():
+    return sorted(_BACKEND_REGISTRY)
+
+
+for _b in (DENSE_BACKEND, SPARSE_BACKEND, PALLAS_BACKEND, WALK_BACKEND):
+    register_backend(_b)
+
+
+# ----------------------------------------------------------- composition ----
+
+def _check_family(model, backend) -> None:
+    if backend.family != model.family:
+        raise ValueError(
+            f"backend {backend.name!r} executes {backend.family!r}-family "
+            f"models; model {model.name!r} is {model.family!r}-family "
+            f"(coin models compose with dense/sparse/pallas, walk models "
+            f"with walk)")
+
+
+def composed_name(model: str, backend: str, stable: bool = False) -> str:
+    """Canonical registry spelling ``"<model>/<backend>[+stable]"``."""
+    return f"{model}/{backend}" + ("+stable" if stable else "")
 
 
 def make_sampler(model, backend=None, *, stable: bool = False):
-    """Compose a sampler factory ``factory(graph, cfg) -> sample(key)``;
-    only ``("IC", "sparse")`` positional is ported."""
-    name = composed_name(model, backend or "dense", stable)
-    if name != "IC/sparse":
-        raise _not_ported(name)
-    return _bind_sparse
+    """Compose a model and a backend (registry names or instances) into a
+    sampler factory ``factory(graph, cfg, *, placement=None) -> bound
+    sampler``; ``backend`` defaults to the family's reference backend
+    ("dense" for coins, "walk" for walks).  Families that do not match
+    fail here.  Names re-resolve at each bind, so re-registering a model
+    reaches factories composed before."""
+    m = get_model(model) if isinstance(model, str) else model
+    if backend is None:
+        backend = "dense" if m.family == "coins" else "walk"
+    b = get_backend(backend) if isinstance(backend, str) else backend
+    _check_family(m, b)
+
+    def factory(graph: Graph, cfg, *, placement=None):
+        mm = get_model(model) if isinstance(model, str) else model
+        bb = get_backend(backend) if isinstance(backend, str) else backend
+        _check_family(mm, bb)
+        return bb.bind(mm, graph, cfg, stable=stable, placement=placement)
+
+    factory.__name__ = f"sampler_{m.name}_{b.name}" + (
+        "_stable" if stable else "")
+    factory.model, factory.backend, factory.stable = m, b, stable
+    return factory
+
+
+def sampler_matrix():
+    """Every valid ``(model_name, backend_name)`` composition over the
+    registered models and backends."""
+    return [(mn, bn) for mn in registered_models()
+            for bn in registered_backends()
+            if _BACKEND_REGISTRY[bn].family == _MODEL_REGISTRY[mn].family]
+
+
+# ------------------------------------------------------- sampler registry ----
+
+_SAMPLER_REGISTRY: dict = {}
+
+# historical monolithic spellings -> canonical compositions; resolving one
+# warns once per name per process
+_LEGACY_ALIASES = {
+    "IC-dense": "IC/dense",
+    "IC-sparse": "IC/sparse",
+    "LT": "LT/walk",
+    "IC-dense-stable": "IC/dense+stable",
+    "IC-sparse-stable": "IC/sparse+stable",
+    "LT-stable": "LT/walk+stable",
+}
+_LEGACY_WARNED: set = set()
+
+
+def register_sampler(name: str, factory=None):
+    """Register a sampler factory under ``name`` (overwrites silently);
+    usable as a decorator."""
+    if factory is None:
+        def deco(f):
+            _SAMPLER_REGISTRY[name] = f
+            return f
+        return deco
+    _SAMPLER_REGISTRY[name] = factory
+    return factory
+
+
+def _parse_composed(name: str):
+    """``(model, backend, stable)`` when ``name`` is a canonical
+    composition over registered axes, else None."""
+    mdl, sep, rest = name.partition("/")
+    if not sep:
+        return None
+    bkd, plus, stb = rest.partition("+")
+    if plus and stb != "stable":
+        return None
+    if mdl in _MODEL_REGISTRY and bkd in _BACKEND_REGISTRY:
+        return mdl, bkd, bool(plus)
+    return None
 
 
 def get_sampler(name: str):
-    """The factory registered under ``name``."""
-    if name == "IC/sparse":
-        return _bind_sparse
-    model, sep, _ = name.partition("/")
-    if not sep or model not in _MODELS:
-        raise ValueError(f"unknown sampler {name!r}")
-    raise _not_ported(name)
+    hit = _SAMPLER_REGISTRY.get(name)
+    if hit is not None:
+        return hit
+    alias = _LEGACY_ALIASES.get(name)
+    if alias is not None:
+        if name not in _LEGACY_WARNED:
+            _LEGACY_WARNED.add(name)
+            mdl, _, rest = alias.partition("/")
+            bkd, _, stb = rest.partition("+")
+            spelling = f"make_sampler({mdl!r}, {bkd!r}" + (
+                ", stable=True)" if stb else ")")
+            warnings.warn(
+                f"sampler name {name!r} is a legacy monolithic spelling; "
+                f"use {alias!r} (= {spelling}) instead — results are "
+                f"seed-for-seed identical",
+                DeprecationWarning, stacklevel=2)
+        return _SAMPLER_REGISTRY[alias]
+    axes = _parse_composed(name)
+    if axes is not None:
+        mdl, bkd, stable = axes
+        factory = make_sampler(mdl, bkd, stable=stable)
+        _SAMPLER_REGISTRY[name] = factory
+        return factory
+    raise ValueError(
+        f"unknown sampler {name!r}; registered: {registered_samplers()}")
 
+
+def registered_samplers():
+    """Every resolvable name: the canonical matrix, user registrations
+    and the legacy aliases."""
+    return sorted(set(_SAMPLER_REGISTRY) | set(_LEGACY_ALIASES))
+
+
+for _mn, _bn in sampler_matrix():
+    for _s in (False, True):
+        register_sampler(composed_name(_mn, _bn, _s),
+                         make_sampler(_mn, _bn, stable=_s))
+
+
+def default_sampler_name(graph: Graph, cfg) -> str:
+    """Resolve ``cfg`` to a canonical name: coin models take the dense
+    backend up to ``cfg.dense_sampler_max_n`` and the sparse one above
+    it, walk models the walk backend; ``cfg.backend`` overrides (a family
+    mismatch fails here) and ``cfg.stable`` selects the identity-keyed
+    form."""
+    m = get_model(cfg.model)
+    backend = getattr(cfg, "backend", None)
+    if backend is None:
+        if m.family == "walk":
+            backend = "walk"
+        else:
+            backend = ("dense" if graph.n <= cfg.dense_sampler_max_n
+                       else "sparse")
+    else:
+        _check_family(m, get_backend(backend))
+    return composed_name(m.name, backend, bool(getattr(cfg, "stable",
+                                                       False)))
+
+
+def stable_variant(name: str) -> str:
+    """The delta-stable spelling of a sampler name: canonical names gain
+    ``+stable``, legacy aliases ``-stable``, unknown names pass through."""
+    if name.endswith("+stable") or name.endswith("-stable"):
+        return name
+    if name in _LEGACY_ALIASES:
+        return f"{name}-stable"
+    if (f"{name}+stable" in _SAMPLER_REGISTRY
+            or _parse_composed(name) is not None):
+        return f"{name}+stable"
+    return name
+
+
+def bind_sampler(factory, graph: Graph, cfg, placement=None):
+    """Instantiate a factory, forwarding ``placement`` only when the
+    factory declares it (keyword ``placement`` or ``**kwargs``)."""
+    if placement is not None:
+        params = inspect.signature(factory).parameters
+        takes_kw = any(p.kind is inspect.Parameter.VAR_KEYWORD
+                       for p in params.values())
+        if "placement" in params or takes_kw:
+            return factory(graph, cfg, placement=placement)
+    return factory(graph, cfg)

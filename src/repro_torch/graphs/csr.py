@@ -7,7 +7,9 @@ gives the same arrays; only the final containers are torch tensors.
 IMM's reverse BFS traverses *in*-edges (the CSC view).
 
 Graphs are built on the host (``device="cpu"``); an engine moves the
-tensors it needs to its own device with `Graph.to`.
+tensors it needs to its own device with `Graph.to`.  The host tables of
+the coin models (`wc_edge_probs`, `edge_arrays`, `dense_ic_matrix`) are
+numpy, as in the reference, and bitwise its values.
 """
 from __future__ import annotations
 
@@ -52,6 +54,18 @@ class Graph:
 def _offsets_from_sorted(keys: np.ndarray, n: int) -> np.ndarray:
     counts = np.bincount(keys, minlength=n)
     return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def wc_edge_probs(dst, n: int) -> np.ndarray:
+    """Weighted-cascade probabilities ``p(u->v) = 1/indeg(v)`` (float64)
+    for edges with destinations ``dst``; zero in-degree is clamped to 1."""
+    dst = _host(dst)
+    indeg = np.bincount(dst, minlength=n).astype(np.float64)
+    return 1.0 / np.maximum(indeg[dst], 1.0)
 
 
 def build_graph(src, dst, n: int, *, ic_prob=None, seed: int = 0,
@@ -109,3 +123,34 @@ def build_graph(src, dst, n: int, *, ic_prob=None, seed: int = 0,
         edge_src=t(in_src, np.int32),
         edge_dst=t(dst_sorted, np.int32),
     )
+
+
+def edge_arrays(g: Graph):
+    """Host ``(src, dst, ic_prob, lt_weight)`` arrays in CSC order.
+
+    The LT weight of an edge is recovered from the within-segment
+    cumulative sums, ``w[e] = lt_cum[e] - lt_cum[e-1]`` inside each dst
+    segment, as exact float64 differences of the float32 sums: the GT
+    model's marginals, bitwise the reference's.
+    """
+    src = _host(g.in_src)
+    dst = _host(g.edge_dst)
+    prob = _host(g.in_prob)
+    lt_cum = _host(g.in_lt_cum).astype(np.float64)
+    dst_offsets = _host(g.dst_offsets)
+    w = lt_cum.copy()
+    seg_starts = dst_offsets[:-1][dst_offsets[:-1] < g.m]
+    interior = np.ones(g.m, bool)
+    interior[seg_starts] = False
+    w[interior] = lt_cum[interior] - lt_cum[np.flatnonzero(interior) - 1]
+    return src, dst, prob, w
+
+
+def dense_ic_matrix(g: Graph, probs=None) -> np.ndarray:
+    """Dense ``(n, n)`` float32 matrix with ``P[u, v]`` the activation
+    probability of edge ``u -> v``; ``probs`` (CSC order) overrides the
+    graph's IC probabilities.  Only for small n (the dense backends)."""
+    P = np.zeros((g.n, g.n), dtype=np.float32)
+    P[_host(g.in_src), _host(g.edge_dst)] = np.asarray(
+        _host(g.in_prob if probs is None else probs), dtype=np.float32)
+    return P

@@ -1,4 +1,5 @@
-"""ic_sparse_hits: the positional coins of one sparse IC BFS step.
+"""The positional coins of a BFS step: ``ic_sparse_hits`` (the sparse
+backend's coin tests) and ``uniform_draw`` (the dense backends' draw).
 
 ``hit[b, e] = uniform(key, (B, m))[b, e] < edge_prob[e]`` with
 ``uniform`` bitwise jax's partitionable threefry draw (`repro_torch.prng`).
@@ -13,6 +14,11 @@ operations per element against one byte written (and ``4m`` bytes of
 probabilities read).  Design: one thread per element computes its
 threefry counter ``b*m + e`` in registers and stores only the bool
 (``csrc/coins.cu``).
+
+``uniform_draw`` is ``prng.uniform(key, shape)`` itself, the float32
+draw the dense and pallas backends test each vertex against (the
+``jax.random.uniform(sub, frontier.shape)`` of ``_dense_loop``): the
+same per-element threefry, storing the float (4 bytes an element).
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from repro_torch.kernels import _common as C
 from repro_torch.kernels import build
 
 KERNEL = "ic_sparse_hits"
+KERNEL_UNIFORM = "uniform_draw"
 #: 32-bit operations per coin: 2 + 20 rounds x (add, rotate, xor) +
 #: 5 key injections x 2 adds, then the 64-bit counter split (2), the
 #: output xor, shift, or, float subtract and compare (5)
@@ -61,4 +68,19 @@ def ic_sparse_hits_cuda(key, edge_prob, batch: int):
     err = fn(k0, k1, edge_prob.data_ptr(), out.data_ptr(), m, batch,
              C.stream())
     C.launched(KERNEL, err)
+    return out
+
+
+def uniform_cuda(key, out: torch.Tensor) -> torch.Tensor:
+    """Fill a contiguous float32 CUDA tensor with ``prng.uniform(key,
+    out.shape)``."""
+    if out.dtype != torch.float32 or not out.is_contiguous():
+        raise TypeError(f"{KERNEL_UNIFORM}: out must be contiguous float32")
+    if out.numel() == 0:
+        return out
+    k0, k1 = (int(v) for v in prng.as_key(key))
+    fn = C.bind(build.library("coins"), "repro_uniform",
+                (C.U32, C.U32, C.VOIDP, C.I64, C.VOIDP))
+    C.launched(KERNEL_UNIFORM, fn(k0, k1, out.data_ptr(), out.numel(),
+                                  C.stream()))
     return out

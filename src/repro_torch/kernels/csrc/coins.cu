@@ -59,7 +59,33 @@ ic_sparse_hits_kernel(uint32_t k0, uint32_t k1,
   }
 }
 
+// uniform_draw: the float32 draw jax.random.uniform(key, shape) itself,
+// element i = the same bits as above for counter i, for the positional
+// coins of the dense and pallas backends (the (B, n) draw of
+// src/repro/core/sampler.py:_dense_loop; no Pallas kernel either).  Bound
+// by operations (~80 per element) against 4 bytes written each.
+__global__ void __launch_bounds__(kThreads)
+uniform_kernel(uint32_t k0, uint32_t k1, float* __restrict__ out,
+               int64_t count) {
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < count;
+       i += (int64_t)gridDim.x * kThreads) {
+    const uint32_t bits = threefry_bits(k0, k1, (uint32_t)((uint64_t)i >> 32),
+                                        (uint32_t)i);
+    out[i] = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+  }
+}
+
 }  // namespace
+
+extern "C" int repro_uniform(uint32_t k0, uint32_t k1, void* out,
+                             long long count, void* stream) {
+  if (count <= 0) return 0;
+  const long long blocks = (count + kThreads - 1) / kThreads;
+  uniform_kernel<<<(unsigned)(blocks < (1LL << 20) ? blocks : (1LL << 20)),
+                   kThreads, 0, (cudaStream_t)stream>>>(
+      k0, k1, (float*)out, (int64_t)count);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int repro_ic_sparse_hits(uint32_t k0, uint32_t k1,
                                     const void* prob, void* out,

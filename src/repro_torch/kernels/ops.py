@@ -9,8 +9,12 @@ executions), and each launch counts in `launch_counts`.
 """
 from __future__ import annotations
 
+import torch
+
+from repro_torch import prng
 from repro_torch.kernels import coins, commit, coverage_matvec as _cov
 from repro_torch.kernels import fused_select as _sel
+from repro_torch.kernels import ic_frontier as _icf
 from repro_torch.kernels import packed_count as _pc
 from repro_torch.kernels._common import (          # noqa: F401
     impl_for, launch_counts, padded_width, reset_launches,
@@ -68,8 +72,28 @@ def token_count(tokens, alive, *, n: int):
     return _pc.token_count_plain(tokens, alive, n)
 
 
+def uniform(key, shape, *, device) -> torch.Tensor:
+    """``prng.uniform(key, shape)`` on ``device``: the ``uniform_draw``
+    kernel on a CUDA device, the plain threefry on the CPU."""
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    if impl_for(coins.KERNEL_UNIFORM, out) == "cuda":
+        return coins.uniform_cuda(key, out)
+    return prng.uniform(key, shape, device=out.device)
+
+
 def ic_sparse_hits(key, edge_prob, batch: int):
     """``(batch, m) bool``: ``uniform(key, (batch, m)) < edge_prob``."""
     if impl_for(coins.KERNEL, edge_prob) == "cuda":
         return coins.ic_sparse_hits_cuda(key, edge_prob, batch)
     return coins.ic_sparse_hits_plain(key, edge_prob, batch)
+
+
+def ic_frontier_step(frontier, visited, logq, rand, *, terms=None):
+    """One dense IC BFS step: ``(B, n) uint8`` (a row-padded view) of
+    ``rand < -expm1(frontier @ logq) & ~visited``, summed in ascending v
+    (`repro_torch.kernels.ic_frontier`).  ``terms``, logq's
+    `column_terms` built once by a caller stepping on one table, spares
+    the plain version rebuilding them; the kernel does not read them."""
+    if impl_for(_icf.KERNEL, frontier, visited, logq, rand) == "cuda":
+        return _icf.ic_frontier_step_cuda(frontier, visited, logq, rand)
+    return _icf.ic_frontier_step_plain(frontier, visited, logq, rand, terms)

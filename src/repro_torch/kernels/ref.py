@@ -6,6 +6,7 @@ module) and named here as the reference's ``*_ref``: the CPU path of
 on the card.
 """
 from repro_torch.kernels.coins import ic_sparse_hits_plain as ic_sparse_hits_ref
+from repro_torch.prng import uniform as uniform_draw_ref
 from repro_torch.kernels.commit import (
     arena_commit_packed_plain as arena_commit_packed_ref,
     arena_commit_plain as arena_commit_ref,
@@ -16,11 +17,15 @@ from repro_torch.kernels.coverage_matvec import (
 from repro_torch.kernels.fused_select import (
     fused_select_plain as fused_select_ref,
 )
+from repro_torch.kernels.ic_frontier import (
+    ic_frontier_step_plain as ic_frontier_ref,
+)
 from repro_torch.kernels.packed_count import (
     packed_count_plain as packed_count_ref,
     token_count_plain as token_count_ref,
 )
 
 __all__ = ["arena_commit_packed_ref", "arena_commit_ref",
-           "coverage_matvec_ref", "fused_select_ref", "ic_sparse_hits_ref",
-           "packed_count_ref", "token_count_ref"]
+           "coverage_matvec_ref", "fused_select_ref", "ic_frontier_ref",
+           "ic_sparse_hits_ref",
+           "packed_count_ref", "token_count_ref", "uniform_draw_ref"]

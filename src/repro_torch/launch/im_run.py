@@ -8,10 +8,13 @@ Runs Algorithm 1 on a synthetic SNAP stand-in and prints one JSON line:
 the reference's keys plus ``"device"``.  Runs on ``cuda`` unless
 ``--device cpu`` is given.  ``--select-k`` answers extra queries from the
 same store; ``--store packed|compressed`` keeps the RRR sets in an IMPack
-arena, and ``"arena_bytes"`` reports the arena's device bytes.  Flags of
+arena, and ``"arena_bytes"`` reports the arena's device bytes.
+``--model IC|WC|GT``, ``--backend dense|sparse|pallas`` and ``--sampler``
+(e.g. ``"IC/pallas+stable"``) pick the sampler; graphs with n <= 4096
+take the dense backend by default, as in the reference.  Flags of
 features not ported yet (``--mesh``, ``--store indices|sharded``,
-``--snapshot-dir``, models other than IC and backends other than
-sparse) raise `NotImplementedError` naming their ROADMAP item.
+``--snapshot-dir``, ``--model LT`` / ``--backend walk``) raise
+`NotImplementedError` naming their ROADMAP item.
 """
 from __future__ import annotations
 

@@ -34,7 +34,7 @@ _PARITY = 0x1BD11BDA
 ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def _u32_to_i32(x: int) -> int:
+def u32_to_i32(x: int) -> int:
     """A uint32 value as the int32 with the same bits."""
     return x - (1 << 32) if x & 0x80000000 else x
 
@@ -91,7 +91,7 @@ def threefry2x32(key, hi: torch.Tensor, lo: torch.Tensor):
     two output words (int32, same bits as jax's uint32 result).  Works
     in place on two words and one scratch tensor."""
     k0, k1 = (int(v) for v in as_key(key))
-    ks = [_u32_to_i32(k0), _u32_to_i32(k1), _u32_to_i32(k0 ^ k1 ^ _PARITY)]
+    ks = [u32_to_i32(k0), u32_to_i32(k1), u32_to_i32(k0 ^ k1 ^ _PARITY)]
     x0 = hi + ks[0]
     x1 = lo + ks[1]
     tmp = torch.empty_like(x1)
@@ -105,7 +105,7 @@ def threefry2x32(key, hi: torch.Tensor, lo: torch.Tensor):
             x1 |= tmp
             x1 ^= x0
         x0 += ks[(i + 1) % 3]
-        x1 += _u32_to_i32((ks[(i + 2) % 3] + i + 1) & MASK32)
+        x1 += u32_to_i32((ks[(i + 2) % 3] + i + 1) & MASK32)
     return x0, x1
 
 

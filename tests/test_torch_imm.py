@@ -149,5 +149,5 @@ def test_unported_configurations_raise():
         InfluenceEngine(g, IMMConfig(store="indices"), device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         InfluenceEngine(g, IMMConfig(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A1"):
-        InfluenceEngine(g, IMMConfig(), device="cpu")   # n <= 4096: dense
+    with pytest.raises(NotImplementedError, match="A4"):
+        InfluenceEngine(g, IMMConfig(model="LT"), device="cpu")

@@ -35,7 +35,8 @@ def test_no_module_imports_jax_or_repro():
     assert "repro_torch.kernels.coins" in res["modules"]
     assert "repro_torch.launch.im_run" in res["modules"]
     for name in ("core.pack.codec", "core.pack.stores", "core.pack.selection",
-                 "kernels.packed_count", "kernels.commit"):
+                 "kernels.packed_count", "kernels.commit",
+                 "kernels.ic_frontier", "core.sampler", "core.ties"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["leaked"] == []
 

@@ -100,11 +100,14 @@ def test_default_sampler_name_matches_jax(n, backend, model, stable):
             == jsampler.default_sampler_name(g, JCfg(**kw)))
 
 
-@pytest.mark.parametrize("name,item", [("IC/dense", "A1"),
-                                       ("IC/pallas", "B1"),
-                                       ("LT/walk", "A4"),
-                                       ("IC/sparse+stable", "A1"),
-                                       ("WC/sparse", "A1")])
-def test_unported_samplers_name_their_roadmap_item(name, item):
+@pytest.mark.parametrize("name,kw,item", [
+    ("LT/walk", {}, "A4"), ("LT/walk+stable", {}, "A4"),
+    ("LT-stable", {}, "A4"), ("IC/dense", {"placement": object()}, "A8"),
+    ("WC/sparse+stable", {"placement": object()}, "A8")])
+def test_unported_samplers_name_their_roadmap_item(name, kw, item):
+    """What is still unported raises when the sampler is bound: the LT
+    walk (A4) and mesh placement (A8)."""
+    g = generators.rmat_graph(64, 256, seed=0)
+    factory = sampler.get_sampler(name)
     with pytest.raises(NotImplementedError, match=item):
-        sampler.get_sampler(name)
+        sampler.bind_sampler(factory, g, IMMConfig(batch=8), **kw)
