@@ -27,18 +27,31 @@ Phases, one JSON line each:
             eps = 0.5, max_theta = 65,536) with the pallas backend (every
             BFS step one ic_frontier_step launch), then the dense one;
             rows on which they differ are classified as near-ties
+  lm_parity the three dense LM smoke configs (f32) and a narrow bf16
+            config of Qwen1.5-0.5B's shape served on cuda and on cpu from
+            the same weights: prefill logits within tolerance, greedy
+            tokens equal (a differing token only where the cpu run's
+            top-2 logit gap is below the tolerance)
+  lm_full   LMServer on the full-width Qwen1.5-0.5B config (24 layers,
+            d 1,024, vocab 151,936, bf16, random weights from a seeded
+            generator on the card): 4 requests of 512 prompt tokens, 32
+            generated tokens; prefill launches flash_attention once per
+            layer
 
 The kernels phase also holds ic_frontier_step against its plain version
 at the com-LJ replica's logq (B = 256, frontier densities 0.1%, 1%, 30%),
-at n = 16,384, on ragged shapes and with coins on the threshold; the
-parity phase also runs the dense-path cells (IC/dense, IC/pallas,
-WC/pallas, GT/pallas, IC/pallas+stable) on cuda and cpu.
+at n = 16,384, on ragged shapes and with coins on the threshold, and
+flash_attention at the serving prefill (B 4 x 16 heads x S 512 x D 64),
+Qwen's 8k prefill, Danube's (32:8 heads, D 120, window 4,096, S 8,192)
+and prefill_32k, in bf16 and f32, ragged and decode-shaped; the parity
+phase also runs the dense-path cells (IC/dense, IC/pallas, WC/pallas,
+GT/pallas, IC/pallas+stable) on cuda and cpu.
 
 Then the kernel table (each kernel's launches counted on the one full
 run that is its path: the bitmap kernels and the coins on imm_full, the
 packed commit and packed_count on packed_full, token_count on
-compressed_full, ic_frontier_step on pallas_full), the card's name and
-power limit, and
+compressed_full, ic_frontier_step on pallas_full, flash_attention on
+lm_full), the card's name and power limit, and
 ``{"ok": true, "device": {...}}`` last.
 Any failure exits non-zero without the ok line; so does a machine with
 no CUDA device, or a directory without the repo's src/repro_torch.
@@ -60,6 +73,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 #: issues int32 at half that, so the bound is a floor)
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+#: the bf16 tensor-core rate (dense), the bound of attention's flops
+BF16_FLOPS_PER_S = 989e12
 
 AMAZON_N, BATCH, THETA = 334_863, 256, 16_384
 #: the com-LJ Table III replica (`IMM_EXPERIMENTS["com-LJ"].bench_scale`)
@@ -99,9 +114,10 @@ def time_cuda(torch, fn, *, warmup: int = 2, iters: int = 10) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def bound(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
+def bound(nbytes: float, ops: float = 0.0,
+          rate: float = ALU_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ALU_OPS_PER_S * 1e3
+    t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -369,6 +385,132 @@ def frontier_row(torch, gen, lj_logq) -> dict:
                 "ic_frontier.py:55", max_abs_err=0, **row)
 
 
+
+#: (name, B, Hq, Hkv, S, D, window): the serving cell's prefill, Qwen's
+#: 8k prefill, Danube's attention shape, and prefill_32k (lm_shapes)
+ATTN_TIMED = (("serve_prefill", 4, 16, 16, 512, 64, 0),
+              ("qwen_8k", 1, 16, 16, 8192, 64, 0),
+              ("danube_8k", 1, 32, 8, 8192, 120, 4096),
+              ("prefill_32k", 1, 16, 16, 32768, 64, 0))
+#: flash_attention against its plain version: |err| <= tol * (1 + |ref|).
+#: f32: the same f32 arithmetic summed in another order (~1e-6 seen in
+#: the CPU tests); bf16: both round the same f32 value once, so they differ
+#: by at most one bf16 step (2**-8 of |ref|) where their f32 sums straddle
+#: a rounding boundary
+ATTN_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+def attention_inputs(torch, gen, B, Hq, Hkv, Sq, Skv, D, dtype):
+    def draw(h, s):
+        return torch.randn((B, h, s, D), generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype)
+    return draw(Hq, Sq), draw(Hkv, Skv), draw(Hkv, Skv)
+
+
+def attention_err(torch, got, want, dtype_name: str, tag: str):
+    """(max abs err, max err / (1 + |ref|)), checked against ATTN_TOL."""
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), f"flash_attention {tag}: not finite")
+    diff = (g - w).abs()
+    rel = float((diff / (1 + w.abs())).max())
+    check(rel <= ATTN_TOL[dtype_name], f"flash_attention {tag}: err "
+          f"{rel:.3g} > {ATTN_TOL[dtype_name]} (max abs {float(diff.max())})")
+    return float(diff.max()), rel
+
+
+def attention_bound(B, Hq, Hkv, Sq, Skv, D, window, itemsize=2):
+    """(flops, bytes, bound ms, bound_by) of one call: 4 D flops per
+    admitted pair at the bf16 tensor-core rate; q, k, v read once and the
+    output written once."""
+    from repro_torch.kernels import flash_attention as fa
+
+    flops = 4 * D * B * Hq * fa.admitted_pairs(Sq, Skv, window=window)
+    nbytes = itemsize * D * (2 * B * Hq * Sq + 2 * B * Hkv * Skv)
+    return (flops, nbytes) + bound(nbytes, flops, BF16_FLOPS_PER_S)
+
+
+def sdpa(torch, q, k, v, window: int):
+    """The library call for the same function (timed, never in the port):
+    causal, GQA without a repeat in memory, a boolean mask for a window."""
+    F = torch.nn.functional
+    if not window:
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+    S = q.shape[2]
+    i = torch.arange(S, device="cuda")
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    return lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def attention_rows(torch, gen) -> dict:
+    """flash_attention against its plain version on the card: ragged,
+    decode-shaped, GQA, windowed, D 8-256, f32 and bf16, and the four
+    timed shapes in bf16 (the 32k one too, in query blocks); the kernel's,
+    the plain version's and SDPA's times there, with the bound."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    cases = []
+    for B, Hq, Hkv, Sq, Skv, D, window in (
+            (4, 16, 16, 512, 512, 64, 0), (2, 4, 2, 1000, 1000, 64, 0),
+            (4, 16, 16, 1, 512, 64, 0), (2, 4, 4, 100, 1000, 64, 64),
+            (2, 4, 2, 77, 77, 16, 8), (1, 4, 1, 300, 300, 120, 0),
+            (1, 2, 2, 130, 130, 256, 0), (3, 2, 1, 65, 65, 8, 5),
+            (1, 4, 2, 129, 129, 128, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = attention_inputs(torch, gen, B, Hq, Hkv, Sq, Skv, D,
+                                       dtype)
+            name = str(dtype).split(".")[1]
+            tag = f"{B}x{Hq}:{Hkv}x{Sq}/{Skv}xD{D} w{window} {name}"
+            abs_e, rel_e = attention_err(
+                torch, ops.flash_attention(q, k, v, window=window),
+                fa.flash_attention_plain(q, k, v, window=window), name, tag)
+            cases.append(dict(case=tag, max_abs_err=abs_e, max_rel_err=rel_e))
+    q, k, v = attention_inputs(torch, gen, 2, 4, 2, 50, 90, 32,
+                               torch.float32)
+    attention_err(torch, ops.flash_attention(q, k, v, causal=False,
+                                             window=16),
+                  fa.flash_attention_plain(q, k, v, causal=False, window=16),
+                  "float32", "non-causal")
+
+    timed = {}
+    for name, B, Hq, Hkv, S, D, window in ATTN_TIMED:
+        q, k, v = attention_inputs(torch, gen, B, Hq, Hkv, S, S, D,
+                                   torch.bfloat16)
+        big = S > 2048
+        want = fa.flash_attention_plain(q, k, v, window=window)
+        abs_e, rel_e = attention_err(
+            torch, ops.flash_attention(q, k, v, window=window), want,
+            "bfloat16", name)
+        del want
+        ms = time_cuda(torch, lambda: fa.flash_attention_cuda(
+            q, k, v, window=window), warmup=1 if big else 2,
+            iters=3 if big else 10)
+        plain_ms = time_cuda(torch, lambda: fa.flash_attention_plain(
+            q, k, v, window=window), warmup=1 if big else 2,
+            iters=1 if big else 5)
+        library_ms = time_cuda(torch, sdpa(torch, q, k, v, window),
+                               iters=3 if big else 10)
+        flops, nbytes, b_ms, b_by = attention_bound(B, Hq, Hkv, S, S, D,
+                                                    window)
+        timed[name] = dict(shape=[B, Hq, Hkv, S, D], window=window, ms=ms,
+                           plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=b_ms, bound_by=b_by, flops=flops,
+                           bytes=nbytes, tflops=flops / ms / 1e9,
+                           max_abs_err=abs_e, max_rel_err=rel_e)
+        del q, k, v
+        torch.cuda.empty_cache()
+    emit("flash_attention", tol=ATTN_TOL, cases=cases, **timed)
+    row = timed["serve_prefill"]
+    return dict(route="cuda", source="src/repro_torch/kernels/csrc/"
+                "flash_attention.cu", replaces="src/repro/kernels/"
+                "flash_attention.py:72",
+                **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "shape")})
+
+
 def kernel_phase(torch, graph, lj_logq):
     from repro_torch import prng
     from repro_torch.kernels import coins, commit, ops
@@ -501,6 +643,7 @@ def kernel_phase(torch, graph, lj_logq):
     del hits
     torch.cuda.empty_cache()
     rows_out["ic_frontier_step"] = frontier_row(torch, gen, lj_logq)
+    rows_out["flash_attention"] = attention_rows(torch, gen)
 
     # ---- uniform_draw: the dense backends' (B, n) coin draw
     for shape in ((1, 1), (3, 7), (70, 4099), (B, lj_logq.shape[0])):
@@ -725,6 +868,14 @@ PATH_KERNELS = {
 }
 PHASE = {"bitmap": "imm_full", "packed": "packed_full",
          "compressed": "compressed_full"}
+#: the full run whose launches the kernel table reports for each kernel
+KERNEL_PATH = {
+    **{name: PHASE[kind] for kind, names in PATH_KERNELS.items()
+       for name in names},
+    "ic_sparse_hits": "imm_full",
+    "ic_frontier_step": "pallas_full", "uniform_draw": "pallas_full",
+    "flash_attention": "lm_full",
+}
 
 
 def full_phase(torch, graph, max_theta: int, store: str = "bitmap",
@@ -935,6 +1086,208 @@ def pallas_full(torch, graph, max_theta: int) -> dict:
     return out["pallas"]["launches"]
 
 
+# ------------------------------------------------------------ LM serving ----
+
+#: prefill logits, cuda vs cpu: |err| <= atol + rtol |cpu|.  f32: the same
+#: arithmetic summed in another order; bf16: every product rounds to
+#: bf16 on both devices, in other orders (the CPU tests hold the port to
+#: JAX by the same bound)
+LOGIT_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (0.05, 0.02)}
+PARITY_B, PARITY_PROMPT, PARITY_GEN = 2, 48, 16
+FULL_B, FULL_PROMPT, FULL_GEN = 4, 512, 32
+
+
+def parity_configs():
+    """The three dense smoke configs and a narrow bf16 config of
+    Qwen1.5-0.5B's shape (head dim 64, QKV bias, its vocab)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    qwen = get_arch("qwen1.5-0.5b").config
+    narrow = dataclasses.replace(qwen, name="qwen-narrow", n_layers=2,
+                                 d_model=256, n_heads=4, n_kv_heads=4,
+                                 d_ff=704)
+    return [get_arch(a).smoke_config for a in
+            ("qwen1.5-0.5b", "h2o-danube-3-4b", "minicpm-2b")] + [narrow]
+
+
+def greedy_with_gaps(torch, server, prompts, n: int):
+    """generate's tokens, step by step, with the top-2 logit gap of every
+    step (prefill's logits give token 0)."""
+    from repro_torch.models.transformer import decode_logits
+
+    logits, _ = server.prefill(prompts)
+    _, cache = server.seed_cache(prompts)
+    toks, gaps = [], []
+    for _ in range(n):
+        top2 = logits.float().topk(2, dim=-1).values
+        gaps.append(top2[:, 0] - top2[:, 1])
+        tok = torch.argmax(logits, dim=-1)[:, None].to(prompts.dtype)
+        toks.append(tok)
+        logits, cache = decode_logits(server.params, server.cfg, cache, tok)
+        logits = logits[:, 0]
+    return torch.cat(toks, dim=1), torch.stack(gaps, dim=1)
+
+
+def lm_parity_phase(torch) -> dict:
+    """Each parity config served on cuda and on cpu from the same weights
+    (drawn on the cpu): prefill logits and caches within LOGIT_TOL, prefill
+    through flash_attention on cuda only, and greedy tokens equal except
+    from a step where the cpu's top-2 gap is within the tolerance."""
+    from repro_torch import prng
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import LMServer
+    from repro_torch.models.transformer import init_lm
+
+    saved = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    out = {}
+    try:
+        for cfg in parity_configs():
+            prompts = prng.randint(prng.PRNGKey(1),
+                                   (PARITY_B, PARITY_PROMPT), 0, cfg.vocab)
+            res = {}
+            for dev in (DEV, "cpu"):
+                server = LMServer(cfg, init_lm(
+                    torch.Generator().manual_seed(0), cfg, device=dev),
+                    max_len=PARITY_PROMPT + PARITY_GEN, device=dev)
+                ops.reset_launches()
+                p = prompts.to(dev)
+                logits, cache = server.prefill(p)
+                launches = ops.launch_counts().get("flash_attention", 0)
+                toks, gaps = greedy_with_gaps(torch, server, p, PARITY_GEN)
+                check(torch.equal(toks, server.generate(p, PARITY_GEN)),
+                      f"lm_parity {cfg.name} {dev}: generate differs from "
+                      f"its own steps")
+                res[dev] = dict(logits=logits.float().cpu(),
+                                k=cache["k"].float().cpu(), toks=toks.cpu(),
+                                gaps=gaps.cpu(), launches=launches)
+            c, h = res[DEV], res["cpu"]
+            check(c["launches"] == cfg.n_layers and h["launches"] == 0,
+                  f"lm_parity {cfg.name}: flash_attention launched "
+                  f"{c['launches']} (cuda) / {h['launches']} (cpu) times")
+            atol, rtol = LOGIT_TOL[cfg.dtype]
+            lerr = (c["logits"] - h["logits"]).abs()
+            kerr = (c["k"] - h["k"]).abs()
+            check(bool((lerr <= atol + rtol * h["logits"].abs()).all()),
+                  f"lm_parity {cfg.name}: logits differ by "
+                  f"{float(lerr.max())}")
+            check(bool((kerr <= atol + rtol * h["k"].abs()).all()),
+                  f"lm_parity {cfg.name}: prefill cache differs by "
+                  f"{float(kerr.max())}")
+            diverged = []
+            for b in range(PARITY_B):
+                ne = (c["toks"][b] != h["toks"][b]).nonzero()
+                if ne.numel() == 0:
+                    continue
+                j = int(ne[0])
+                top = float(h["logits"][b].abs().max())
+                gap = float(h["gaps"][b, j])
+                check(gap <= atol + rtol * top,
+                      f"lm_parity {cfg.name}: row {b} differs at step {j} "
+                      f"with a cpu top-2 gap of {gap}")
+                diverged.append(dict(row=b, step=j, gap=gap))
+            out[cfg.name] = dict(
+                dtype=cfg.dtype, vocab=cfg.vocab, d_model=cfg.d_model,
+                logits_max_abs_err=float(lerr.max()),
+                cache_max_abs_err=float(kerr.max()),
+                tokens_equal=bool(torch.equal(c["toks"], h["toks"])),
+                diverged=diverged,
+                min_cpu_gap=float(h["gaps"].min()),
+                tokens=c["toks"][0, :8].tolist())
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            saved
+    emit("lm_parity", batch=PARITY_B, prompt=PARITY_PROMPT, gen=PARITY_GEN,
+         tol=LOGIT_TOL, allow_bf16_reduced_precision_reduction=False,
+         allow_tf32=False, **out)
+    return out
+
+
+def lm_full_phase(torch) -> dict:
+    """LMServer on the full-width Qwen1.5-0.5B config: init, one timed
+    generate with the launch counts set to 0 just before it, then its
+    pieces (prefill, the prompt replay through decode_step, the decode
+    loop) timed one by one; returns the generate's launch counts."""
+    from repro_torch import prng
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import LMServer
+
+    cfg = get_arch("qwen1.5-0.5b").config
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = LMServer(cfg, max_len=FULL_PROMPT + FULL_GEN, seed=0,
+                      device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = prng.randint(prng.PRNGKey(1), (FULL_B, FULL_PROMPT), 0,
+                           cfg.vocab, device=DEV)
+    server.generate(prompts[:, :16], 2)            # warm-up: cuBLAS, caches
+    torch.cuda.synchronize()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    ops.reset_launches()
+    out1, generate_s = timed(lambda: server.generate(prompts, FULL_GEN))
+    launches = ops.launch_counts()
+    check(launches.get("flash_attention", 0) == cfg.n_layers,
+          f"lm_full: flash_attention launched "
+          f"{launches.get('flash_attention', 0)} times in one prefill of "
+          f"{cfg.n_layers} layers")
+    (logits, _), prefill_s = timed(lambda: server.prefill(prompts))
+    (last, cache), replay_s = timed(lambda: server.seed_cache(prompts))
+    first = torch.argmax(logits, dim=-1)[:, None].to(prompts.dtype)
+    out2, decode_s = timed(lambda: server.decode(cache, first, FULL_GEN))
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(logits.float()).all()), "lm_full: logits")
+    check(tuple(out1.shape) == (FULL_B, FULL_GEN), "lm_full: shape")
+    check(bool(((out1 >= 0) & (out1 < cfg.vocab)).all()), "lm_full: ids")
+    check(torch.equal(out1, out2), "lm_full: a second generate differs")
+    # prefill (through the kernel) and the replay's last step (plain
+    # decode attention over a bf16 cache) compute the same logits in bf16
+    # by two routes: they pick the same next token, or prefill's top-2 gap
+    # is within the bf16 logit tolerance (and its bf16 step is printed)
+    top2 = logits.float().topk(2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).tolist()
+    steps = (2.0 ** (torch.floor(torch.log2(top2[:, 0].abs())) - 7)).tolist()
+    agree = (first == last).squeeze(1).tolist()
+    atol, rtol = LOGIT_TOL["bfloat16"]
+    for b in range(FULL_B):
+        check(agree[b] or gaps[b] <= atol + rtol * float(top2[b, 0].abs()),
+              f"lm_full: request {b}: prefill picks {int(first[b])}, the "
+              f"replay {int(last[b])}, with a top-2 gap of {gaps[b]}")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = attention_inputs(torch, gen, FULL_B, cfg.n_heads,
+                               cfg.n_kv_heads, FULL_PROMPT, FULL_PROMPT,
+                               cfg.head_dim, torch.bfloat16)
+    kernel_ms = time_cuda(torch, lambda: fa.flash_attention_cuda(q, k, v))
+    emit("lm_full", arch=cfg.name, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.dtype,
+         params=cfg.param_count(), batch=FULL_B, prompt=FULL_PROMPT,
+         gen=FULL_GEN, max_len=FULL_PROMPT + FULL_GEN, init_s=init_s,
+         prefill_s=prefill_s, replay_s=replay_s,
+         replay_ms_per_step=replay_s / FULL_PROMPT * 1e3,
+         decode_ms_per_token=decode_s / FULL_GEN * 1e3,
+         generate_s=generate_s, tok_per_s=FULL_B * FULL_GEN / generate_s,
+         max_memory_allocated=peak,
+         flash_attention_launches=launches.get("flash_attention", 0),
+         kernel_ms=kernel_ms,
+         kernel_share_of_prefill=kernel_ms * cfg.n_layers / 1e3 / prefill_s,
+         prefill_vs_replay_agree=agree, top2_gaps=gaps,
+         top_logit_bf16_steps=steps,
+         tokens=out1[0, :8].tolist(), launches=launches)
+    return launches
+
+
 def profile_phase(torch, graph, batches: int = 4):
     """Optional (``--phases profile``): the full-size sampler for a few
     batches, first plain and then under ``torch.profiler`` (after one
@@ -993,10 +1346,10 @@ def main(argv=None) -> int:
                          "n)")
     ap.add_argument("--phases",
                     default="kernels,parity,imm_full,packed_full,"
-                            "compressed_full,pallas_full",
+                            "compressed_full,pallas_full,lm_parity,lm_full",
                     help="comma list of kernels, parity, imm_full, "
-                         "packed_full, compressed_full, pallas_full and "
-                         "the optional profile")
+                         "packed_full, compressed_full, pallas_full, "
+                         "lm_parity, lm_full and the optional profile")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1046,18 +1399,25 @@ def main(argv=None) -> int:
                 ref = summary
     if "pallas_full" in phases:
         launches["pallas_full"] = pallas_full(torch, lj, LJ_THETA)
+    if "lm_parity" in phases:
+        lm_parity_phase(torch)
+    if "lm_full" in phases:
+        launches["lm_full"] = lm_full_phase(torch)
     if "profile" in phases:
         profile_phase(torch, graph)
     # each kernel's launches on the full run that is its path
-    path = {name: PHASE[kind] for kind, names in PATH_KERNELS.items()
-            for name in names}
-    path["ic_frontier_step"] = path["uniform_draw"] = "pallas_full"
-    table = [{"name": name,
-              **{k: v for k, v in row.items()
-                 if k not in ("shape", "terms")},
-              "launches": launches.get(path.get(name, "imm_full"),
-                                       {}).get(name, 0)}
-             for name, row in rows.items()]
+    table = []
+    for name, row in rows.items():
+        if name not in KERNEL_PATH:
+            raise KeyError(f"{name}: no full run is named as its path")
+        phase = KERNEL_PATH[name]
+        count = launches.get(phase, {}).get(name, 0)
+        check(count > 0 or phase not in phases,
+              f"{name}: launched no time on {phase}")
+        table.append({"name": name,
+                      **{k: v for k, v in row.items()
+                         if k not in ("shape", "terms")},
+                      "launches": count})
     print(json.dumps({"kernels": table}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

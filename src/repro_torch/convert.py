@@ -12,6 +12,9 @@ stream, in the store the port engine is configured with::
     engine.restore_tree(engine_state_from_tree(tree))
     engine.extend(theta2)
 
+``lm_params_from_jax`` takes the reference's ``init_lm`` parameter tree
+(numpy leaves) to the port's LM parameters, leaf for leaf.
+
 Nothing here imports JAX: the caller turns device arrays into numpy
 (``np.asarray``) first.
 """
@@ -88,3 +91,27 @@ def engine_state_from_tree(tree: dict) -> dict:
                  "model": np.asarray(str(np.asarray(meta["model"]))),
                  "sampler": np.asarray(str(np.asarray(meta["sampler"])))},
     }
+
+
+def _leaf_tensor(a, device, dtype) -> torch.Tensor:
+    """A numpy leaf as a tensor.  bfloat16 (ml_dtypes) arrays go through
+    float32, which holds every bf16 value exactly."""
+    a = np.asarray(a)
+    bf16 = a.dtype.name == "bfloat16"
+    t = torch.from_numpy(np.array(a, dtype=np.float32 if bf16 else a.dtype))
+    if bf16:
+        t = t.to(torch.bfloat16)
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def lm_params_from_jax(tree: dict, device="cpu", dtype=None) -> dict:
+    """The port's LM parameters from the reference's ``init_lm`` tree
+    (``{"embed", "layers": {...}, "ln_f", "lm_head"}`` with numpy leaves,
+    layer weights stacked on a leading L axis), in each leaf's own dtype
+    or cast to ``dtype``."""
+    out = {}
+    for name, leaf in tree.items():
+        out[name] = (lm_params_from_jax(leaf, device, dtype)
+                     if isinstance(leaf, dict)
+                     else _leaf_tensor(leaf, device, dtype))
+    return out

@@ -1,0 +1,156 @@
+"""flash_attention: causal grouped-query attention with an online softmax
+and an optional sliding window, ``q (B, Hq, Sq, D)``, ``k, v (B, Hkv, Skv,
+D)`` -> ``(B, Hq, Sq, D)`` in q's dtype.
+
+Replaces the TPU kernel ``src/repro/kernels/flash_attention.py:
+flash_attention`` (``_kernel``): the prefill attention of the LM server,
+one launch per layer.  The function is the TPU kernel's: scale
+``1/sqrt(D)``; query ``i`` sits at absolute position ``i + Skv - Sq``
+(queries right-aligned to the keys); key ``j`` is admitted when
+``j < Skv``, ``j <= qpos`` (causal) and ``j > qpos - window``
+(``window > 0``); query head ``h`` reads KV head ``h // (Hq // Hkv)``;
+f32 or bf16 in, f32 arithmetic, the output cast to q's dtype.
+
+**Fully masked rows are refused.**  A query row with no admitted key
+exists only when the mask is causal and ``Sq > Skv`` (or ``Skv == 0``).
+There the TPU kernel returns the mean of V over every key slot it walked,
+padding included, so its value depends on its tile size, and the
+reference's oracle returns NaN: there is nothing to be equal to, so the
+kernel's wrapper and the plain version both raise ``ValueError``.  The
+serving path never has such a row (prefill has ``Sq == Skv``).
+
+The equality contract is a tolerance, not bits: the kernel sums q.k and
+p.v in another order than the plain version.  In f32 the two agree to
+about 1e-6 relative; in bf16 the output's rounding adds up to one bf16
+ulp (2**-8 relative).  The tests hold the plain version to the reference
+at 1e-5 (f32, its oracle), 2e-3 (its interpreted Pallas kernel) and 3e-2
+(bf16), as ``tests/test_kernels.py`` holds the TPU kernel.
+
+Bound on an H100: operations.  Each admitted ``(q, k)`` pair costs ``4 D``
+flops; a ``(b, h)`` has ``Sq (Sq + 1) / 2`` pairs causal and
+``sum_i min(i + 1, W)`` with a window ``W`` (`admitted_pairs`).  At the
+bf16 tensor-core rate of 989 TFLOP/s, B 1 x 16 heads x S 32,768 x D 64
+(2.2 TFLOP) takes 2.2 ms; its bytes take 0.04 ms at 3.35 TB/s.  Design
+(``csrc/flash_attention.cu``): one block per ``(b * Hq + h, 64-query
+tile)`` walking 64-key tiles in ascending order between the first tile
+the window admits and the last one causality admits, K and V staged in
+shared memory as f32 with 16-byte loads, ``(m, l, acc)`` in registers,
+both products SIMT f32 FMAs.  Tensor cores, TMA and warp specialisation,
+which the bound needs, are later work.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _common as C
+from repro_torch.kernels import build
+
+KERNEL = "flash_attention"
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: score elements the plain version holds at once (f32), per query block
+_PLAIN_BLOCK_ELEMS = 1 << 27
+
+
+def admitted_pairs(Sq: int, Skv: int, *, causal: bool = True,
+                   window: int = 0) -> int:
+    """The admitted ``(q, k)`` pairs of one ``(b, h)``: the work the
+    kernel's function needs (``4 D`` flops each)."""
+    qpos = torch.arange(Sq, dtype=torch.int64) + (Skv - Sq)
+    hi = torch.minimum(qpos, torch.tensor(Skv - 1)) if causal else \
+        torch.full_like(qpos, Skv - 1)
+    lo = (qpos - window + 1).clamp(min=0) if window > 0 else \
+        torch.zeros_like(qpos)
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def check_operands(q, k, v, causal: bool) -> None:
+    """Shapes of the function, and no fully masked query row."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"{KERNEL}: q, k, v must be (B, H, S, D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Hq, Sq, D = q.shape
+    Bk, Hkv, Skv, Dk = k.shape
+    if tuple(v.shape) != tuple(k.shape) or (Bk, Dk) != (B, D):
+        raise ValueError(f"{KERNEL}: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"{KERNEL}: Hq = {Hq} is not a multiple of "
+                         f"Hkv = {Hkv}")
+    if Sq and (Skv == 0 or (causal and Sq > Skv)):
+        raise ValueError(
+            f"{KERNEL}: Sq = {Sq}, Skv = {Skv}, causal: some query rows "
+            f"admit no key; the TPU kernel's value there depends on its "
+            f"tile size and the oracle's is NaN, so neither is defined")
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          window: int = 0) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: repeat the KV heads, f32
+    einsum, mask, softmax, f32 einsum, cast.  Walks query blocks so that
+    at most ``_PLAIN_BLOCK_ELEMS`` f32 scores are live at once."""
+    check_operands(q, k, v, causal)
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    kk = k.to(torch.float32).repeat_interleave(group, dim=1)
+    vv = v.to(torch.float32).repeat_interleave(group, dim=1)
+    kpos = torch.arange(Skv, device=q.device)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    step = max(1, _PLAIN_BLOCK_ELEMS // max(B * Hq * Skv, 1))
+    for s0 in range(0, Sq, step):
+        s1 = min(Sq, s0 + step)
+        qpos = torch.arange(s0, s1, device=q.device) + (Skv - Sq)
+        mask = torch.ones((s1 - s0, Skv), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window > 0:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        s = torch.einsum("bhqd,bhkd->bhqk",
+                         q[:, :, s0:s1].to(torch.float32), kk) * scale
+        s.masked_fill_(~mask, float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        out[:, :, s0:s1] = torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+    return out
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous on a 16-byte boundary (the kernel's loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True,
+                         window: int = 0) -> torch.Tensor:
+    check_operands(q, k, v, causal)
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise TypeError(f"{KERNEL}: q, k, v must share float32 or bfloat16, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"{KERNEL}: q, k, v on {q.device}, {k.device}, "
+                         f"{v.device}")
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if D % 8 or not 0 < D <= 256:
+        raise ValueError(f"{KERNEL}: head dim {D} must be a multiple of 8 "
+                         f"up to 256")
+    if B * Hq > 65535:
+        raise ValueError(f"{KERNEL}: B * Hq = {B * Hq} exceeds the kernel's "
+                         f"grid (65,535)")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn = C.bind(build.library("flash_attention"), "repro_flash_attention",
+                (C.VOIDP, C.VOIDP, C.VOIDP, C.VOIDP) + (C.I32,) * 9
+                + (ctypes.c_float, C.VOIDP))
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             _DTYPES[q.dtype], B, Hq, Hkv, Sq, Skv, D, int(bool(causal)),
+             max(int(window), 0), 1.0 / math.sqrt(D), C.stream())
+    C.launched(KERNEL, err)
+    return out

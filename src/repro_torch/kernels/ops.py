@@ -13,6 +13,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.kernels import coins, commit, coverage_matvec as _cov
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_select as _sel
 from repro_torch.kernels import ic_frontier as _icf
 from repro_torch.kernels import packed_count as _pc
@@ -97,3 +98,13 @@ def ic_frontier_step(frontier, visited, logq, rand, *, terms=None):
     if impl_for(_icf.KERNEL, frontier, visited, logq, rand) == "cuda":
         return _icf.ic_frontier_step_cuda(frontier, visited, logq, rand)
     return _icf.ic_frontier_step_plain(frontier, visited, logq, rand, terms)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Causal GQA attention with an optional sliding window, queries
+    right-aligned to the keys: ``q (B, Hq, Sq, D)``, ``k, v (B, Hkv, Skv,
+    D)`` -> ``(B, Hq, Sq, D)`` in q's dtype
+    (`repro_torch.kernels.flash_attention`)."""
+    if impl_for(_fa.KERNEL, q, k, v) == "cuda":
+        return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    return _fa.flash_attention_plain(q, k, v, causal=causal, window=window)

@@ -14,6 +14,9 @@ from repro_torch.kernels.commit import (
 from repro_torch.kernels.coverage_matvec import (
     coverage_matvec_plain as coverage_matvec_ref,
 )
+from repro_torch.kernels.flash_attention import (
+    flash_attention_plain as attention_ref,
+)
 from repro_torch.kernels.fused_select import (
     fused_select_plain as fused_select_ref,
 )
@@ -25,7 +28,7 @@ from repro_torch.kernels.packed_count import (
     token_count_plain as token_count_ref,
 )
 
-__all__ = ["arena_commit_packed_ref", "arena_commit_ref",
+__all__ = ["arena_commit_packed_ref", "arena_commit_ref", "attention_ref",
            "coverage_matvec_ref", "fused_select_ref", "ic_frontier_ref",
            "ic_sparse_hits_ref",
            "packed_count_ref", "token_count_ref", "uniform_draw_ref"]

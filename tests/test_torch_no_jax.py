@@ -36,7 +36,10 @@ def test_no_module_imports_jax_or_repro():
     assert "repro_torch.launch.im_run" in res["modules"]
     for name in ("core.pack.codec", "core.pack.stores", "core.pack.selection",
                  "kernels.packed_count", "kernels.commit",
-                 "kernels.ic_frontier", "core.sampler", "core.ties"):
+                 "kernels.ic_frontier", "core.sampler", "core.ties",
+                 "models.transformer", "models.attention",
+                 "kernels.flash_attention", "launch.serve",
+                 "configs.qwen1_5_0_5b"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["leaked"] == []
 
@@ -57,6 +60,10 @@ def test_entry_points_default_to_cuda():
     from repro_torch.launch import im_run
     with pytest.raises(RuntimeError, match="device='cpu'"):
         im_run.run("com-Amazon", scale=0.02, log=lambda s: None)
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import LMServer
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LMServer(get_arch("qwen1.5-0.5b").smoke_config)
     assert resolve_device("cpu").type == "cpu"
 
 
