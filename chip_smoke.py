@@ -37,21 +37,37 @@ Phases, one JSON line each:
             generator on the card): 4 requests of 512 prompt tokens, 32
             generated tokens; prefill launches flash_attention once per
             layer
+  fm_parity the FM smoke config and a full-field one (39 fields x K 10,
+            vocab 64) run on cuda and on cpu from the same weights: the
+            pair term bitwise; logits, retrieval scores, loss, gradients
+            and three clipped AdamW steps within stated tolerances
+  fm_full   the FM arch at full width (39 x 1,000,000 x 10, a 1.56 GB
+            f32 table drawn on the card from a seeded generator): the
+            serve_p99 (512), serve_bulk (262,144), retrieval_cand (4 user
+            fields vs 1,000,000 candidates) and train_batch (3 AdamW steps
+            at 65,536 on the click stream) shapes; every call launches
+            fm_interaction once
+  fm_profile
+            the same serve_bulk batch and train_batch step under
+            torch.profiler: device-busy share and the kernels that take
+            the device time (the IM sampler's: the optional profile)
 
 The kernels phase also holds ic_frontier_step against its plain version
 at the com-LJ replica's logq (B = 256, frontier densities 0.1%, 1%, 30%),
 at n = 16,384, on ragged shapes and with coins on the threshold, and
 flash_attention at the serving prefill (B 4 x 16 heads x S 512 x D 64),
 Qwen's 8k prefill, Danube's (32:8 heads, D 120, window 4,096, S 8,192)
-and prefill_32k, in bf16 and f32, ragged and decode-shaped; the parity
-phase also runs the dense-path cells (IC/dense, IC/pallas, WC/pallas,
-GT/pallas, IC/pallas+stable) on cuda and cpu.
+and prefill_32k, in bf16 and f32, ragged and decode-shaped, and
+fm_interaction bitwise at the FM shapes (serve_p99, train_batch,
+serve_bulk at 39 x 10, f32 and bf16; B 1 and 1,025; F/K 6/4 and 16/8);
+the parity phase also runs the dense-path cells (IC/dense, IC/pallas,
+WC/pallas, GT/pallas, IC/pallas+stable) on cuda and cpu.
 
 Then the kernel table (each kernel's launches counted on the one full
 run that is its path: the bitmap kernels and the coins on imm_full, the
 packed commit and packed_count on packed_full, token_count on
 compressed_full, ic_frontier_step on pallas_full, flash_attention on
-lm_full), the card's name and power limit, and
+lm_full, fm_interaction on fm_full), the card's name and power limit, and
 ``{"ok": true, "device": {...}}`` last.
 Any failure exits non-zero without the ok line; so does a machine with
 no CUDA device, or a directory without the repo's src/repro_torch.
@@ -59,6 +75,7 @@ no CUDA device, or a directory without the repo's src/repro_torch.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -112,6 +129,15 @@ def time_cuda(torch, fn, *, warmup: int = 2, iters: int = 10) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def timed(torch, fn):
+    """``(fn(), seconds)`` on the host clock, between device syncs."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t
 
 
 def bound(nbytes: float, ops: float = 0.0,
@@ -511,6 +537,71 @@ def attention_rows(torch, gen) -> dict:
                                        "shape")})
 
 
+#: fm_interaction's timed shapes: the FM arch's serve_p99, train_batch and
+#: serve_bulk batches at full width (39 fields x K 10)
+FM_TIMED = (("serve_p99", 512), ("train_batch", 65_536),
+            ("serve_bulk", 262_144))
+FM_F, FM_K = 39, 10
+
+
+def fm_input(torch, gen, B, F, K, dtype):
+    """A ``(B, F, K)`` batch at the model's init scale (normal * 0.01)."""
+    return (torch.randn((B, F, K), generator=gen, device="cuda") * 0.01
+            ).to(dtype)
+
+
+def fm_bitwise(torch, got, want, tag: str) -> None:
+    check(got.dtype == want.dtype == torch.float32
+          and got.shape == want.shape, f"fm_interaction {tag}: shape/dtype")
+    bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    check(bad == 0, f"fm_interaction {tag}: {bad} rows differ from the "
+          f"plain version")
+
+
+def fm_rows(torch, gen) -> dict:
+    """fm_interaction against its plain version, bitwise: B 1 and 1,025,
+    F/K (6, 4), (16, 8) and (39, 10), and the three timed batches, each in
+    f32 and bf16; the kernel's and the plain version's times at the timed
+    batches, with the byte bound (no single PyTorch call computes this
+    function, so no library time)."""
+    from repro_torch.kernels import fm_interaction as fmk
+    from repro_torch.kernels import ops
+
+    timed = {}
+    cases = [(1, FM_F, FM_K), (1025, FM_F, FM_K), (1025, 6, 4), (1, 6, 4),
+             (1025, 16, 8), (77, 16, 8)]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for B, F, K in cases:
+            v = fm_input(torch, gen, B, F, K, dtype)
+            fm_bitwise(torch, ops.fm_interaction(v),
+                       fmk.fm_interaction_plain(v), f"{B}x{F}x{K} {name}")
+        for shape_name, B in FM_TIMED:
+            v = fm_input(torch, gen, B, FM_F, FM_K, dtype)
+            fm_bitwise(torch, ops.fm_interaction(v),
+                       fmk.fm_interaction_plain(v), f"{shape_name} {name}")
+            ms = time_cuda(torch, lambda: fmk.fm_interaction_cuda(v))
+            plain_ms = time_cuda(torch, lambda: fmk.fm_interaction_plain(v),
+                                 warmup=1, iters=3)
+            # v read once, the output written once; an add, a multiply
+            # and an add an element, four operations a (row, k)
+            nbytes = v.numel() * v.element_size() + 4 * B
+            b_ms, b_by = bound(nbytes, 3 * v.numel() + 4 * B * FM_K)
+            timed[f"{shape_name}_{name}"] = dict(
+                shape=[B, FM_F, FM_K], dtype=name, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                gbytes_per_s=nbytes / ms / 1e6)
+            del v
+    torch.cuda.empty_cache()
+    emit("fm_interaction", cases=[list(c) for c in cases], **timed)
+    row = timed["serve_bulk_float32"]
+    return dict(route="cuda", source="src/repro_torch/kernels/csrc/"
+                "fm_interaction.cu", replaces="src/repro/kernels/"
+                "fm_interaction.py:28", max_abs_err=0, library_ms=None,
+                **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "shape")})
+
+
 def kernel_phase(torch, graph, lj_logq):
     from repro_torch import prng
     from repro_torch.kernels import coins, commit, ops
@@ -644,6 +735,7 @@ def kernel_phase(torch, graph, lj_logq):
     torch.cuda.empty_cache()
     rows_out["ic_frontier_step"] = frontier_row(torch, gen, lj_logq)
     rows_out["flash_attention"] = attention_rows(torch, gen)
+    rows_out["fm_interaction"] = fm_rows(torch, gen)
 
     # ---- uniform_draw: the dense backends' (B, n) coin draw
     for shape in ((1, 1), (3, 7), (70, 4099), (B, lj_logq.shape[0])):
@@ -874,7 +966,7 @@ KERNEL_PATH = {
        for name in names},
     "ic_sparse_hits": "imm_full",
     "ic_frontier_step": "pallas_full", "uniform_draw": "pallas_full",
-    "flash_attention": "lm_full",
+    "flash_attention": "lm_full", "fm_interaction": "fm_full",
 }
 
 
@@ -1229,24 +1321,20 @@ def lm_full_phase(torch) -> dict:
     server.generate(prompts[:, :16], 2)            # warm-up: cuBLAS, caches
     torch.cuda.synchronize()
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        return res, time.perf_counter() - t
-
     ops.reset_launches()
-    out1, generate_s = timed(lambda: server.generate(prompts, FULL_GEN))
+    out1, generate_s = timed(torch,
+                             lambda: server.generate(prompts, FULL_GEN))
     launches = ops.launch_counts()
     check(launches.get("flash_attention", 0) == cfg.n_layers,
           f"lm_full: flash_attention launched "
           f"{launches.get('flash_attention', 0)} times in one prefill of "
           f"{cfg.n_layers} layers")
-    (logits, _), prefill_s = timed(lambda: server.prefill(prompts))
-    (last, cache), replay_s = timed(lambda: server.seed_cache(prompts))
+    (logits, _), prefill_s = timed(torch, lambda: server.prefill(prompts))
+    (last, cache), replay_s = timed(torch,
+                                    lambda: server.seed_cache(prompts))
     first = torch.argmax(logits, dim=-1)[:, None].to(prompts.dtype)
-    out2, decode_s = timed(lambda: server.decode(cache, first, FULL_GEN))
+    out2, decode_s = timed(torch,
+                           lambda: server.decode(cache, first, FULL_GEN))
     peak = torch.cuda.max_memory_allocated()
     check(bool(torch.isfinite(logits.float()).all()), "lm_full: logits")
     check(tuple(out1.shape) == (FULL_B, FULL_GEN), "lm_full: shape")
@@ -1288,37 +1376,297 @@ def lm_full_phase(torch) -> dict:
     return launches
 
 
-def profile_phase(torch, graph, batches: int = 4):
-    """Optional (``--phases profile``): the full-size sampler for a few
-    batches, first plain and then under ``torch.profiler`` (after one
-    profiled warm-up batch that absorbs the tracer's start-up): wall
-    time with and without tracing, device-busy share and the kernels
-    that take the device time."""
+# ---------------------------------------------------------------- FM ----
+
+#: FM tolerances, cuda vs cpu (the CPU tests hold the port to JAX by the
+#: same bounds): a logit or score within FM_REL * (mag + sum of the
+#: linear terms' magnitudes); the loss within 1e-6; a gradient within
+#: 1e-5 |cpu| + 1e-6 max |cpu| (index_add_ sums repeated rows in another
+#: order on the card); parameters and moments after the AdamW steps within
+#: 1e-4 |cpu| + 1e-5, as the CPU tests hold 60 steps against JAX
+FM_REL, FM_PARITY_B, FM_PARITY_STEPS = 4e-6, 256, 3
+
+
+def fm_params(torch, cfg, gen, device):
+    """``init_fm``'s table with ``w ~ N(0, 0.01)`` and ``b ~ N(0, 0.1)``
+    drawn on ``gen`` too, so the linear term is held (init_fm zeros them)."""
+    from repro_torch.models.recsys.fm import init_fm
+
+    p = init_fm(cfg, generator=gen, device=device)
+    p["w"] = (torch.randn(cfg.total_rows, generator=gen, device=gen.device)
+              * 0.01).to(device)
+    p["b"] = (torch.randn((), generator=gen, device=gen.device)
+              * 0.1).to(device)
+    return p
+
+
+def fm_logit_scale(torch, params, cfg, idx):
+    """``mag + sum |w| + |b|`` of each request (float64, on the host), the
+    scale of a logit's rounding (``tests/test_torch_fm.py``)."""
+    dev = params["v"].device
+    rows = (idx.long().to(dev) + cfg.field_offsets(dev)[None]).reshape(-1)
+    v = params["v"].index_select(0, rows).cpu().double().view(
+        idx.shape[0], cfg.n_sparse, cfg.embed_dim)
+    w = params["w"].index_select(0, rows).cpu().double().view(idx.shape[0],
+                                                              -1)
+    s = v.sum(1)
+    mag = 0.5 * (s * s + (v * v).sum(1)).sum(-1)
+    return mag + w.abs().sum(-1) + abs(float(params["b"]))
+
+
+def fm_within(torch, got, want, scale, tag: str) -> float:
+    err = (got.double().cpu() - want.double().cpu()).abs()
+    check(bool(torch.isfinite(got).all()), f"{tag}: not finite")
+    ratio = float((err / scale).max())
+    check(ratio <= 1.0, f"{tag}: {ratio:.3g} of its tolerance")
+    return float(err.max())
+
+
+def fm_parity_phase(torch) -> dict:
+    """SMOKE and a full-field config (39 x K 10, vocab 64) run on cuda and
+    cpu from the same weights: the pair term bitwise, logits, retrieval
+    scores, loss and gradients within the FM tolerances, and three clipped
+    AdamW steps within theirs; fm_interaction launched on cuda only."""
+    from repro_torch import prng
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.recsys import fm
+    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                                   clip_by_global_norm)
+
+    phase_t0, out = time.perf_counter(), {}
+    for cfg in (get_arch("fm").smoke_config,
+                fm.FMConfig(name="fm-wide", n_sparse=39, embed_dim=10,
+                            vocab_per_field=64)):
+        host = fm_params(torch, cfg, torch.Generator().manual_seed(0), "cpu")
+        idx = prng.randint(prng.PRNGKey(1), (FM_PARITY_B, cfg.n_sparse), 0,
+                           cfg.vocab_per_field)
+        labels = (prng.uniform(prng.PRNGKey(2), (FM_PARITY_B,)) < 0.5
+                  ).to(torch.float32)
+        cand = prng.randint(prng.PRNGKey(3), (1000,), 0, cfg.total_rows)
+        opt_cfg = AdamWConfig(lr=0.05)
+        res = {}
+        for dev in (DEV, "cpu"):
+            p = {k: t.to(dev) for k, t in host.items()}
+            i, y = idx.to(dev), labels.to(dev)
+            rows = (i.long() + cfg.field_offsets(dev)[None]).reshape(-1)
+            ops.reset_launches()
+            with torch.no_grad():
+                pair = ops.fm_interaction(p["v"].index_select(0, rows).view(
+                    FM_PARITY_B, cfg.n_sparse, cfg.embed_dim))
+                logits = fm.fm_logits(p, cfg, i)
+                scores = fm.fm_retrieval_scores(p, cfg, i[0, :4],
+                                                cand.to(dev))
+            loss, grads = fm.fm_value_and_grad(p, cfg, i, y)
+            opt = adamw_init(p, opt_cfg)
+            for _ in range(FM_PARITY_STEPS):
+                _, g = fm.fm_value_and_grad(p, cfg, i, y)
+                g, _ = clip_by_global_norm(g, 1.0)
+                p, opt = adamw_update(p, g, opt, opt_cfg)
+            res[dev] = dict(
+                pair=pair.cpu(), logits=logits.cpu(), scores=scores.cpu(),
+                loss=float(loss), grads={k: t.cpu() for k, t in grads.items()},
+                params={k: t.cpu() for k, t in p.items()},
+                mu={k: t.cpu() for k, t in opt["mu"].items()},
+                launches=ops.launch_counts().get("fm_interaction", 0))
+        c, h = res[DEV], res["cpu"]
+        check(c["launches"] > 0 and h["launches"] == 0,
+              f"fm_parity {cfg.name}: fm_interaction launched "
+              f"{c['launches']} (cuda) / {h['launches']} (cpu) times")
+        fm_bitwise(torch, c["pair"], h["pair"], f"fm_parity {cfg.name} pair")
+        scale = fm_logit_scale(torch, host, cfg, idx)
+        logit_err = fm_within(torch, c["logits"], h["logits"], FM_REL * scale,
+                              f"fm_parity {cfg.name} logits")
+        # a score is the user's logit terms plus w_c and <su, v_c>
+        user_cfg = dataclasses.replace(cfg, n_sparse=4)
+        urows = idx[0, :4].long() + cfg.field_offsets()[:4]
+        su = host["v"][urows].double().sum(0)
+        sscale = (fm_logit_scale(torch, host, user_cfg, idx[:1, :4])[0]
+                  + host["w"][cand.long()].double().abs()
+                  + (host["v"][cand.long()].double() * su).abs().sum(-1))
+        score_err = fm_within(torch, c["scores"], h["scores"],
+                              FM_REL * sscale, f"fm_parity {cfg.name} scores")
+        check(abs(c["loss"] - h["loss"]) <= 1e-6,
+              f"fm_parity {cfg.name} loss {c['loss']} vs {h['loss']}")
+        grad_err = {}
+        for k in ("v", "w", "b"):
+            want = h["grads"][k]
+            grad_err[k] = fm_within(
+                torch, c["grads"][k], want,
+                1e-5 * want.double().abs() + 1e-6 * float(want.abs().max())
+                + 1e-30, f"fm_parity {cfg.name} grad {k}")
+        step_err = {}
+        for part in ("params", "mu"):
+            for k, want in h[part].items():
+                step_err[f"{part}.{k}"] = fm_within(
+                    torch, c[part][k], want, 1e-4 * want.double().abs()
+                    + 1e-5, f"fm_parity {cfg.name} {part} {k} after "
+                    f"{FM_PARITY_STEPS} steps")
+        out[cfg.name] = dict(
+            n_sparse=cfg.n_sparse, embed_dim=cfg.embed_dim,
+            vocab=cfg.vocab_per_field, logits_max_abs_err=logit_err,
+            scores_max_abs_err=score_err, loss=[c["loss"], h["loss"]],
+            grad_max_abs_err=grad_err, step_max_abs_err=step_err,
+            launches=c["launches"])
+    emit("fm_parity", batch=FM_PARITY_B, steps=FM_PARITY_STEPS,
+         rel_tol=FM_REL, phase_s=time.perf_counter() - phase_t0, **out)
+    return out
+
+
+def fm_full_phase(torch) -> dict:
+    """The full-width FM (39 fields x 1,000,000 rows x K 10: a 39M x 10 f32
+    table, 1.56 GB, drawn on the card from a seeded generator) served and
+    trained: serve_p99 (512 requests, 50 timed batches), serve_bulk
+    (262,144), retrieval_cand (4 user fields against the 1,000,000 rows of
+    field 4, with the decomposition checked on the top 5) and train_batch
+    (3 clipped AdamW steps at batch 65,536 on the click stream), with the
+    launch counts set to 0 just before and read just after; then the
+    serve_p99 logits and pair term held against the cpu plain version."""
+    import math
+    import statistics
+
+    from repro_torch import prng
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic_click_batches
+    from repro_torch.kernels import fm_interaction as fmk
+    from repro_torch.kernels import ops
+    from repro_torch.models.recsys import fm
+    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                                   clip_by_global_norm)
+
+    phase_t0 = time.perf_counter()
+    arch = get_arch("fm")
+    cfg = arch.config
+    dims = {k: s.dims for k, s in arch.shapes.items()}
+    F, V, K = cfg.n_sparse, cfg.vocab_per_field, cfg.embed_dim
+    B99, Bbulk = dims["serve_p99"]["batch"], dims["serve_bulk"]["batch"]
+    Btrain = dims["train_batch"]["batch"]
+    C = dims["retrieval_cand"]["n_candidates"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = fm_params(torch, cfg, torch.Generator(device="cuda")
+                       .manual_seed(0), DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    idx99 = prng.randint(prng.PRNGKey(1), (B99, F), 0, V, device=DEV)
+    idx_bulk = prng.randint(prng.PRNGKey(2), (Bbulk, F), 0, V, device=DEV)
+    user = prng.randint(prng.PRNGKey(3), (4,), 0, V, device=DEV)
+    cand = torch.arange(C, device=DEV) + 4 * V          # field 4's rows
+    t0 = time.perf_counter()
+    batches = [(torch.from_numpy(i).to(DEV), torch.from_numpy(y).to(DEV))
+               for i, y in synthetic_click_batches(F, V, Btrain, 3)]
+    data_s = time.perf_counter() - t0
+
+    def serve(idx):
+        return fm.fm_logits(params, cfg, idx)
+
+    # one launch per call: 2 + 50 + 1 + 5 serving batches, 1 + 10
+    # retrieval calls, the decomposition check's batch and 3 steps
+    ops.reset_launches()
+    with torch.no_grad():
+        for _ in range(2):
+            serve(idx99)
+        p99 = [timed(torch, lambda: serve(idx99)) for _ in range(50)]
+        serve(idx_bulk)
+        bulk = [timed(torch, lambda: serve(idx_bulk)) for _ in range(5)]
+        fm.fm_retrieval_scores(params, cfg, user, cand)
+        ret = [timed(torch, lambda: fm.fm_retrieval_scores(
+            params, cfg, user, cand)) for _ in range(10)]
+        scores = ret[-1][0]
+        # score differences of the top 5 equal logit differences with the
+        # candidate's field appended (fields 0-4 share the table's layout)
+        top = torch.topk(scores, 5)
+        full = fm.fm_logits(params, dataclasses.replace(cfg, n_sparse=5),
+                            torch.cat([user.long().expand(5, 4),
+                                       top.indices[:, None]], 1))
+    serve_peak = torch.cuda.max_memory_allocated()
+    logits99 = p99[-1][0]
+    rows99 = (idx99.long() + cfg.field_offsets(DEV)[None]).reshape(-1)
+    v99 = params["v"].index_select(0, rows99).view(B99, F, K).cpu()
+    want99 = (params["b"].cpu() + params["w"].index_select(0, rows99)
+              .view(B99, F).cpu().sum(-1) + fmk.fm_interaction_plain(v99))
+    scale99 = fm_logit_scale(torch, params, cfg, idx99)
+
+    opt_cfg = AdamWConfig()
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw_init(params, opt_cfg)
+    train = []
+    for i, y in batches:
+        def step():
+            loss, grads = fm.fm_value_and_grad(params, cfg, i, y)
+            grads, gnorm = clip_by_global_norm(grads, 1.0)
+            return loss, gnorm, adamw_update(params, grads, opt, opt_cfg)
+        (loss, gnorm, (params, opt)), step_s = timed(torch, step)
+        train.append(dict(ms=step_s * 1e3, loss=float(loss),
+                          grad_norm=float(gnorm)))
+    launches = ops.launch_counts()
+    train_peak = torch.cuda.max_memory_allocated()
+
+    want = 2 + 50 + 1 + 5 + 1 + 10 + 1 + len(batches)
+    check(launches.get("fm_interaction", 0) == want,
+          f"fm_full: fm_interaction launched "
+          f"{launches.get('fm_interaction', 0)} times, not once for each of "
+          f"the {want} calls")
+    check(tuple(logits99.shape) == (B99,), "fm_full: serve_p99 shape")
+    p99_err = fm_within(torch, logits99, want99, FM_REL * scale99,
+                        "fm_full serve_p99 logits vs cpu")
+    fm_bitwise(torch, ops.fm_interaction(v99.to(DEV)).cpu(),
+               fmk.fm_interaction_plain(v99), "fm_full serve_p99 pair")
+    check(bool(torch.isfinite(bulk[-1][0]).all())
+          and bulk[-1][0].shape == (Bbulk,), "fm_full: serve_bulk")
+    check(bool(torch.isfinite(scores).all()) and scores.shape == (C,),
+          "fm_full: retrieval scores")
+    check(bool(torch.allclose(torch.diff(top.values), torch.diff(full),
+                              rtol=1e-4, atol=1e-5)),
+          f"fm_full: retrieval decomposition {top.values.tolist()} vs "
+          f"{full.tolist()}")
+    for s in train:
+        check(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]),
+              f"fm_full: training step {s}")
+    check(all(bool(torch.isfinite(t).all()) for t in params.values()),
+          "fm_full: parameters after training")
+    p99_ms, bulk_ms = [s * 1e3 for _, s in p99], [s * 1e3 for _, s in bulk]
+    ret_ms = [s * 1e3 for _, s in ret]
+    med99, med_bulk = statistics.median(p99_ms), statistics.median(bulk_ms)
+    emit("fm_full", arch=arch.arch_id, n_sparse=F, embed_dim=K,
+         vocab_per_field=V, table_rows=cfg.total_rows,
+         table_bytes=params["v"].numel() * 4, init_s=init_s,
+         click_stream_s=data_s,
+         serve_p99=dict(batch=B99, batches=len(p99_ms), median_ms=med99,
+                        max_ms=max(p99_ms), min_ms=min(p99_ms),
+                        preds_per_s=B99 / med99 * 1e3,
+                        logits_max_abs_err_vs_cpu=p99_err),
+         serve_bulk=dict(batch=Bbulk, ms=bulk_ms, median_ms=med_bulk,
+                         preds_per_s=Bbulk / med_bulk * 1e3),
+         retrieval_cand=dict(user_fields=4, candidates=C,
+                             median_ms=statistics.median(ret_ms),
+                             max_ms=max(ret_ms),
+                             top5_rows=top.indices.tolist(),
+                             top5_scores=top.values.tolist()),
+         train_batch=dict(batch=Btrain, steps=train),
+         serve_max_memory_allocated=serve_peak,
+         train_max_memory_allocated=train_peak, launches=launches,
+         phase_s=time.perf_counter() - phase_t0)
+    return launches
+
+
+def trace_device(torch, calls):
+    """Run each of ``calls`` under ``torch.profiler`` after one profiled
+    warm-up call (``calls[0]``, which absorbs the tracer's start-up):
+    ``(traced wall s, device-busy s, kernels by device time)``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    from repro_torch import prng
-    from repro_torch.core.engine import IMMConfig
-    from repro_torch.core.sampler import IC, _bind_sparse
-
-    sample = _bind_sparse(IC, graph.to("cuda"), IMMConfig())
-    keys = prng.split(prng.PRNGKey(7), batches + 1)
-    sample(keys[0])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for k in keys[1:]:
-        sample(k)
-    torch.cuda.synchronize()
-    plain_wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=batches,
+                 schedule=schedule(wait=0, warmup=1, active=len(calls) - 1,
                                    repeat=1)) as prof:
-        sample(keys[0])
+        calls[0]()
         torch.cuda.synchronize()
         prof.step()
         t0 = time.perf_counter()
-        for k in keys[1:]:
-            sample(k)
+        for fn in calls[1:]:
+            fn()
             prof.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1334,10 +1682,81 @@ def profile_phase(torch, graph, batches: int = 4):
                       and not e.key.startswith("ProfilerStep")),
                      key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in kernels) / 1e6
+    return wall, busy, [{"name": e.key[:90], "calls": e.count,
+                         "device_ms": dev_us(e) / 1e3} for e in kernels[:12]]
+
+
+def profile_phase(torch, graph, batches: int = 4):
+    """Optional (``--phases profile``): the full-size sampler for a few
+    batches, first plain and then under ``torch.profiler`` (after one
+    profiled warm-up batch that absorbs the tracer's start-up): wall
+    time with and without tracing, device-busy share and the kernels
+    that take the device time."""
+    from repro_torch import prng
+    from repro_torch.core.engine import IMMConfig
+    from repro_torch.core.sampler import IC, _bind_sparse
+
+    sample = _bind_sparse(IC, graph.to("cuda"), IMMConfig())
+    keys = prng.split(prng.PRNGKey(7), batches + 1)
+    sample(keys[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in keys[1:]:
+        sample(k)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    wall, busy, top = trace_device(
+        torch, [lambda k=k: sample(k) for k in keys])
     emit("profile", batches=batches, plain_wall_s=plain_wall,
          traced_wall_s=wall, device_busy_s=busy, idle_share=1.0 - busy / wall,
-         top=[{"name": e.key[:90], "calls": e.count,
-               "device_ms": dev_us(e) / 1e3} for e in kernels[:12]])
+         top=top)
+
+
+def fm_profile_phase(torch, steps: int = 3):
+    """The full-width FM's serve_bulk batch and train_batch step (random
+    ids and labels) under
+    ``torch.profiler``, ``steps`` of each after a profiled warm-up: wall
+    time, device-busy share and the kernels that take the device time."""
+    from repro_torch import prng
+    from repro_torch.configs import get_arch
+    from repro_torch.models.recsys import fm
+    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                                   clip_by_global_norm)
+
+    arch = get_arch("fm")
+    cfg, dims = arch.config, {k: s.dims for k, s in arch.shapes.items()}
+    F, V = cfg.n_sparse, cfg.vocab_per_field
+    state = {"params": fm_params(torch, cfg, torch.Generator(device="cuda")
+                                 .manual_seed(0), DEV)}
+    opt_cfg = AdamWConfig()
+    state["opt"] = adamw_init(state["params"], opt_cfg)
+    idx_bulk = prng.randint(prng.PRNGKey(2), (dims["serve_bulk"]["batch"],
+                                              F), 0, V, device=DEV)
+    Bt = dims["train_batch"]["batch"]
+    idx = prng.randint(prng.PRNGKey(4), (Bt, F), 0, V, device=DEV)
+    labels = (prng.uniform(prng.PRNGKey(5), (Bt,), device=DEV) < 0.5
+              ).to(torch.float32)
+
+    def serve():
+        with torch.no_grad():
+            fm.fm_logits(state["params"], cfg, idx_bulk)
+
+    def train():
+        _, grads = fm.fm_value_and_grad(state["params"], cfg, idx, labels)
+        grads, _ = clip_by_global_norm(grads, 1.0)
+        state["params"], state["opt"] = adamw_update(
+            state["params"], grads, state["opt"], opt_cfg)
+
+    out = {}
+    for name, fn in (("serve_bulk", serve), ("train_batch", train)):
+        fn()
+        torch.cuda.synchronize()
+        wall, busy, top = trace_device(torch, [fn] * (steps + 1))
+        out[name] = dict(calls=steps, traced_wall_ms=wall / steps * 1e3,
+                         device_busy_ms=busy / steps * 1e3,
+                         idle_share=1.0 - busy / wall, top=top)
+    emit("fm_profile", **out)
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1346,10 +1765,12 @@ def main(argv=None) -> int:
                          "n)")
     ap.add_argument("--phases",
                     default="kernels,parity,imm_full,packed_full,"
-                            "compressed_full,pallas_full,lm_parity,lm_full",
+                            "compressed_full,pallas_full,lm_parity,lm_full,"
+                            "fm_parity,fm_full,fm_profile",
                     help="comma list of kernels, parity, imm_full, "
                          "packed_full, compressed_full, pallas_full, "
-                         "lm_parity, lm_full and the optional profile")
+                         "lm_parity, lm_full, fm_parity, fm_full, "
+                         "fm_profile and the optional profile")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1403,8 +1824,14 @@ def main(argv=None) -> int:
         lm_parity_phase(torch)
     if "lm_full" in phases:
         launches["lm_full"] = lm_full_phase(torch)
+    if "fm_parity" in phases:
+        fm_parity_phase(torch)
+    if "fm_full" in phases:
+        launches["fm_full"] = fm_full_phase(torch)
     if "profile" in phases:
         profile_phase(torch, graph)
+    if "fm_profile" in phases:
+        fm_profile_phase(torch)
     # each kernel's launches on the full run that is its path
     table = []
     for name, row in rows.items():

@@ -13,7 +13,8 @@ stream, in the store the port engine is configured with::
     engine.extend(theta2)
 
 ``lm_params_from_jax`` takes the reference's ``init_lm`` parameter tree
-(numpy leaves) to the port's LM parameters, leaf for leaf.
+(numpy leaves) to the port's LM parameters, leaf for leaf;
+``fm_params_from_jax`` does the same for ``init_fm``'s ``{"v", "w", "b"}``.
 
 Nothing here imports JAX: the caller turns device arrays into numpy
 (``np.asarray``) first.
@@ -115,3 +116,10 @@ def lm_params_from_jax(tree: dict, device="cpu", dtype=None) -> dict:
                      if isinstance(leaf, dict)
                      else _leaf_tensor(leaf, device, dtype))
     return out
+
+
+def fm_params_from_jax(tree: dict, device="cpu", dtype=None) -> dict:
+    """The port's FM parameters from the reference's ``init_fm`` tree
+    (``{"v": (rows, K), "w": (rows,), "b": ()}``, numpy leaves)."""
+    return {name: _leaf_tensor(tree[name], device, dtype)
+            for name in ("v", "w", "b")}

@@ -14,6 +14,7 @@ import torch
 from repro_torch import prng
 from repro_torch.kernels import coins, commit, coverage_matvec as _cov
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import fm_interaction as _fm
 from repro_torch.kernels import fused_select as _sel
 from repro_torch.kernels import ic_frontier as _icf
 from repro_torch.kernels import packed_count as _pc
@@ -108,3 +109,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if impl_for(_fa.KERNEL, q, k, v) == "cuda":
         return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
     return _fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+
+
+def fm_interaction(v):
+    """The FM 2-way term ``0.5 * sum_k ((sum_f v)**2 - sum_f v**2)`` of
+    ``v (B, F, K)`` float32/bfloat16 -> ``(B,)`` float32, with the
+    reference's gradient (`repro_torch.kernels.fm_interaction`)."""
+    return _fm.FMInteraction.apply(v)

@@ -41,7 +41,7 @@ class LMServer:
         self.device = resolve_device(device)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_lm(gen, cfg)
+            params = init_lm(gen, cfg, device=self.device)
         self.params = params
         self.max_len = max_len
 

@@ -1,0 +1,114 @@
+"""Factorization Machine (Rendle, ICDM'10) over one concatenated embedding
+table (``repro.models.recsys.fm``).
+
+    logit(x) = b + sum_f w[f, x_f] + sum_{i<j} <v_i, v_j>
+
+with the pairwise term by the O(nk) sum-square trick, computed by the
+``fm_interaction`` kernel on the card (`repro_torch.kernels.ops`): one
+launch for each ``fm_logits`` batch and one for the user's
+self-interaction in ``fm_retrieval_scores``.  The reference calls the
+kernel's plain reference at the same two places; the function is the
+same.
+
+The ``n_sparse`` categorical fields share one table of ``sum_f
+vocab_f`` rows, field ``f``'s ids offset by ``f * vocab_per_field``.
+Parameters are a dict ``{"v": (rows, K), "w": (rows,), "b": ()}`` as in
+the reference.  Gradients come from ``torch.autograd``
+(`fm_value_and_grad`): the table's gradient is dense, as ``jax.grad``
+through ``jnp.take`` gives it, and AdamW then updates every row.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.engine import resolve_device
+from repro_torch.kernels import ops
+
+
+@dataclasses.dataclass(frozen=True)
+class FMConfig:
+    name: str = "fm"
+    n_sparse: int = 39
+    embed_dim: int = 10
+    vocab_per_field: int = 1_000_000
+    interaction: str = "fm-2way"
+
+    @property
+    def total_rows(self) -> int:
+        return self.n_sparse * self.vocab_per_field
+
+    def field_offsets(self, device=None) -> torch.Tensor:
+        """``(n_sparse,)`` int64: the first table row of each field."""
+        return (torch.arange(self.n_sparse, dtype=torch.int64, device=device)
+                * self.vocab_per_field)
+
+
+def init_fm(cfg: FMConfig, *, generator: torch.Generator, device=None,
+            dtype=torch.float32) -> dict:
+    """The reference's initialisation: ``v ~ normal * 0.01`` (drawn in
+    float32 on ``generator``'s device, then cast), ``w`` and ``b`` zero.
+    On ``cuda`` unless ``device`` says otherwise; raises without a GPU."""
+    dev = resolve_device(device)
+    v = torch.randn((cfg.total_rows, cfg.embed_dim), generator=generator,
+                    device=generator.device, dtype=torch.float32)
+    return {
+        "v": v.mul_(0.01).to(device=dev, dtype=dtype),
+        "w": torch.zeros((cfg.total_rows,), dtype=dtype, device=dev),
+        "b": torch.zeros((), dtype=dtype, device=dev),
+    }
+
+
+def _gather(params, rows: torch.Tensor):
+    """``(v[rows], w[rows])`` for a flat index tensor."""
+    return (params["v"].index_select(0, rows),
+            params["w"].index_select(0, rows))
+
+
+def fm_logits(params, cfg: FMConfig, sparse_idx) -> torch.Tensor:
+    """``sparse_idx (B, n_sparse)`` per-field ids -> ``(B,)`` logits."""
+    B = sparse_idx.shape[0]
+    rows = (sparse_idx.to(torch.int64)
+            + cfg.field_offsets(sparse_idx.device)[None, :]).reshape(-1)
+    v, w = _gather(params, rows)
+    pair = ops.fm_interaction(
+        v.view(B, cfg.n_sparse, cfg.embed_dim).to(torch.float32))
+    return params["b"] + w.view(B, cfg.n_sparse).sum(dim=-1) + pair
+
+
+def fm_loss(params, cfg: FMConfig, sparse_idx, labels) -> torch.Tensor:
+    """Binary cross entropy on {0, 1} CTR labels."""
+    logits = fm_logits(params, cfg, sparse_idx).to(torch.float32)
+    # torch.maximum splits the gradient at a tie as jnp.maximum does
+    return torch.mean(torch.maximum(logits, torch.zeros_like(logits))
+                      - logits * labels
+                      + torch.log1p(torch.exp(-logits.abs())))
+
+
+def fm_value_and_grad(params, cfg: FMConfig, sparse_idx, labels):
+    """``(loss, grads)`` of `fm_loss`, grads a dict like ``params``: the
+    counterpart of ``jax.value_and_grad(fm_loss)``.  ``params`` is left
+    as it is (its leaves are differentiated through detached aliases)."""
+    leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+    loss = fm_loss(leaves, cfg, sparse_idx, labels)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def fm_retrieval_scores(params, cfg: FMConfig, user_idx,
+                        candidate_rows) -> torch.Tensor:
+    """``user_idx (n_user_fields,)`` context ids, ``candidate_rows (C,)``
+    global row ids of candidate items -> ``(C,)`` scores.  The FM score
+    decomposes as ``s(c) = const_user + w_c + <sum_user v, v_c>`` (a
+    one-hot candidate has no self-interaction), so scoring C candidates is
+    one mat-vec."""
+    Fu = user_idx.shape[0]
+    user_rows = (user_idx.to(torch.int64)
+                 + cfg.field_offsets(user_idx.device)[:Fu])
+    vu, wu = _gather(params, user_rows)                       # (Fu, K)
+    su = vu.sum(dim=0)                                         # (K,)
+    user_pair = ops.fm_interaction(vu[None].to(torch.float32))[0]
+    const = params["b"] + wu.sum() + user_pair
+    vc, wc = _gather(params, candidate_rows.to(torch.int64))  # (C, K)
+    return const + wc + vc @ su

@@ -23,6 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.engine import resolve_device
 from repro_torch.models.attention import attention, rope_tables, rotate
 from repro_torch.models.common import dense_init, rms_norm
 
@@ -89,8 +90,10 @@ def init_lm(gen: torch.Generator, cfg: LMConfig, device=None) -> dict:
     """Random parameters of the reference's shapes and scales: embedding
     ``N(0, 0.02)``, projections ``N(0, 1/fan_in)``, norms one, biases
     zero; drawn in f32 on ``gen``'s device, cast to ``cfg.dtype`` and
-    moved to ``device`` (by default the generator's)."""
+    moved to ``device`` (``cuda`` unless told otherwise; without a GPU
+    that raises unless ``device="cpu"``)."""
     _dense_only(cfg)
+    target = resolve_device(device)
     dev = gen.device
     dtype = getattr(torch, cfg.dtype)
     d, hd, L = cfg.d_model, cfg.head_dim, cfg.n_layers
@@ -121,7 +124,7 @@ def init_lm(gen: torch.Generator, cfg: LMConfig, device=None) -> dict:
         "ln_f": ones(d),
         "lm_head": dense_init(gen, d, cfg.vocab, dtype),
     }
-    return params if device is None else _to(params, device)
+    return _to(params, target)
 
 
 def _to(tree, device):

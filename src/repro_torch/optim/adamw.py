@@ -1,0 +1,81 @@
+"""AdamW with dtype-configurable moments (``repro.optim.adamw``).
+
+The update math is float32 whatever the leaves' dtype, as in the
+reference: the bias corrections ``1 - b ** step`` are float32 (a 0-dim
+float32 tensor raised to the float32 step), each leaf's moments and new
+value are computed in float32 and cast back to the moment and parameter
+dtypes.  The functions are pure like the reference's: they return new
+tensors and leave their arguments as they are.  ``moment_dtype=
+"bfloat16"`` halves the optimizer state.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4                 # peak; schedules multiply this
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    moment_dtype: str = "float32"
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the tensor leaves of nested dicts of like structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def adamw_init(params, cfg: AdamWConfig) -> dict:
+    mdt = getattr(torch, cfg.moment_dtype)
+
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=mdt, device=p.device)
+
+    return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
+            "step": torch.zeros((), dtype=torch.int32)}
+
+
+def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
+    """``(new_params, new_state)`` after one AdamW step; ``lr_scale`` (a
+    number or a 0-dim tensor, a schedule's value) multiplies ``cfg.lr``."""
+    step = state["step"] + 1
+    b1, b2 = cfg.b1, cfg.b2
+    f32 = torch.float32
+    c1 = 1.0 - torch.tensor(b1, dtype=f32) ** step.to(f32)
+    c2 = 1.0 - torch.tensor(b2, dtype=f32) ** step.to(f32)
+    lr = cfg.lr * lr_scale
+    mdt = getattr(torch, cfg.moment_dtype)
+
+    def upd(p, g, mu, nu):
+        # the reference's expressions; the in-place steps act on fresh
+        # temporaries only and give the same bits, with fewer of them
+        # alive at once (a full-width FM table is 1.56 GB a copy)
+        g32 = g.to(f32)
+        mu32 = mu.to(f32) * b1
+        mu32 += (1 - b1) * g32
+        nu32 = nu.to(f32) * b2
+        nu32 += (1 - b2) * g32 * g32
+        update = (mu32 / c1).div_((nu32 / c2).sqrt_().add_(cfg.eps))
+        p32 = p.to(f32)
+        update += cfg.weight_decay * p32
+        new_p = p32 - lr * update
+        return new_p.to(p.dtype), mu32.to(mdt), nu32.to(mdt)
+
+    out = tree_map(upd, params, grads, state["mu"], state["nu"])
+    return _part(out, 0), {"mu": _part(out, 1), "nu": _part(out, 2),
+                           "step": step}
+
+
+def _part(tree, i):
+    """The ``i``-th member of every tuple leaf of ``tree``."""
+    if isinstance(tree, dict):
+        return {k: _part(v, i) for k, v in tree.items()}
+    return tree[i]

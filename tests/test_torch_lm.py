@@ -181,7 +181,7 @@ def test_param_count_matches_jax_without_allocating():
     # and it counts what init_lm builds (at smoke size)
     for arch in ARCHS:
         cfg = get_arch(arch).smoke_config
-        p = tt.init_lm(torch.Generator().manual_seed(0), cfg)
+        p = tt.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
         n = sum(t.numel() for t in jax.tree_util.tree_leaves(p))
         bias = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim \
             * cfg.n_layers if cfg.qkv_bias else 0
@@ -191,7 +191,7 @@ def test_param_count_matches_jax_without_allocating():
 def test_init_lm_is_seeded_and_scaled():
     cfg = dataclasses.replace(get_arch("qwen1.5-0.5b").smoke_config,
                               dtype="bfloat16")
-    a = tt.init_lm(torch.Generator().manual_seed(3), cfg)
+    a = tt.init_lm(torch.Generator().manual_seed(3), cfg, device="cpu")
     b = tt.init_lm(torch.Generator().manual_seed(3), cfg, device="cpu")
     assert torch.equal(a["layers"]["wq"], b["layers"]["wq"])
     assert a["embed"].dtype == torch.bfloat16

@@ -39,7 +39,9 @@ def test_no_module_imports_jax_or_repro():
                  "kernels.ic_frontier", "core.sampler", "core.ties",
                  "models.transformer", "models.attention",
                  "kernels.flash_attention", "launch.serve",
-                 "configs.qwen1_5_0_5b"):
+                 "configs.qwen1_5_0_5b", "models.recsys.fm",
+                 "kernels.fm_interaction", "configs.fm", "optim.adamw",
+                 "data.clicks"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["leaked"] == []
 
@@ -64,6 +66,12 @@ def test_entry_points_default_to_cuda():
     from repro_torch.launch.serve import LMServer
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LMServer(get_arch("qwen1.5-0.5b").smoke_config)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_arch("qwen1.5-0.5b").init_fn(torch.Generator(),
+                                         get_arch("qwen1.5-0.5b").smoke_config)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_arch("fm").init_fn(get_arch("fm").smoke_config,
+                               generator=torch.Generator())
     assert resolve_device("cpu").type == "cpu"
 
 
