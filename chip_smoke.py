@@ -31,22 +31,27 @@ Phases, one JSON line each:
             config of Qwen1.5-0.5B's shape served on cuda and on cpu from
             the same weights: prefill logits within tolerance, greedy
             tokens equal (a differing token only where the cpu run's
-            top-2 logit gap is below the tolerance)
+            top-2 logit gap is below the tolerance); a prompt and a
+            decode token out of the vocabulary give NaN rows in the same
+            places on both devices
   lm_full   LMServer on the full-width Qwen1.5-0.5B config (24 layers,
             d 1,024, vocab 151,936, bf16, random weights from a seeded
             generator on the card): 4 requests of 512 prompt tokens, 32
             generated tokens; prefill launches flash_attention once per
-            layer
+            layer, every launch through the tensor-core kernel
   fm_parity the FM smoke config and a full-field one (39 fields x K 10,
             vocab 64) run on cuda and on cpu from the same weights: the
             pair term bitwise; logits, retrieval scores, loss, gradients
-            and three clipped AdamW steps within stated tolerances
+            and three clipped AdamW steps within stated tolerances; an id
+            and a candidate past the table give NaN in the same places
+            on both devices
   fm_full   the FM arch at full width (39 x 1,000,000 x 10, a 1.56 GB
             f32 table drawn on the card from a seeded generator): the
             serve_p99 (512), serve_bulk (262,144), retrieval_cand (4 user
             fields vs 1,000,000 candidates) and train_batch (3 AdamW steps
             at 65,536 on the click stream) shapes; every call launches
-            fm_interaction once
+            fm_interaction once; the cost of the gathers' out-of-range
+            repair at serve_bulk
   fm_profile
             the same serve_bulk batch and train_batch step under
             torch.profiler: device-busy share and the kernels that take
@@ -57,7 +62,9 @@ at the com-LJ replica's logq (B = 256, frontier densities 0.1%, 1%, 30%),
 at n = 16,384, on ragged shapes and with coins on the threshold, and
 flash_attention at the serving prefill (B 4 x 16 heads x S 512 x D 64),
 Qwen's 8k prefill, Danube's (32:8 heads, D 120, window 4,096, S 8,192)
-and prefill_32k, in bf16 and f32, ragged and decode-shaped, and
+and prefill_32k (bf16: the tensor-core kernel; f32: the SIMT kernel,
+timed at the two smaller shapes), ragged and decode-shaped, with the
+host cost of the tensor-core kernel's TMA maps, and
 fm_interaction bitwise at the FM shapes (serve_p99, train_batch,
 serve_bulk at 39 x 10, f32 and bf16; B 1 and 1,025; F/K 6/4 and 16/8);
 the parity phase also runs the dense-path cells (IC/dense, IC/pallas,
@@ -77,6 +84,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -471,9 +479,13 @@ def sdpa(torch, q, k, v, window: int):
 
 def attention_rows(torch, gen) -> dict:
     """flash_attention against its plain version on the card: ragged,
-    decode-shaped, GQA, windowed, D 8-256, f32 and bf16, and the four
-    timed shapes in bf16 (the 32k one too, in query blocks); the kernel's,
-    the plain version's and SDPA's times there, with the bound."""
+    decode-shaped, GQA, windowed, D 8-256, f32 (the SIMT kernel) and bf16
+    (the tensor-core kernel), and the four timed shapes in bf16 (the 32k
+    one too, in query blocks); the kernel's, the plain version's and
+    SDPA's times there, with the bound, the share of the 989 TFLOP/s bf16
+    rate the kernel reaches and the ratio to SDPA; the SIMT kernel's f32
+    times at the two smaller shapes; and the host cost of encoding the
+    tensor-core kernel's TMA maps at the serving prefill."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
 
@@ -492,13 +504,18 @@ def attention_rows(torch, gen) -> dict:
             abs_e, rel_e = attention_err(
                 torch, ops.flash_attention(q, k, v, window=window),
                 fa.flash_attention_plain(q, k, v, window=window), name, tag)
-            cases.append(dict(case=tag, max_abs_err=abs_e, max_rel_err=rel_e))
-    q, k, v = attention_inputs(torch, gen, 2, 4, 2, 50, 90, 32,
-                               torch.float32)
-    attention_err(torch, ops.flash_attention(q, k, v, causal=False,
-                                             window=16),
-                  fa.flash_attention_plain(q, k, v, causal=False, window=16),
-                  "float32", "non-causal")
+            cases.append(dict(case=tag, impl=fa.design(q, k, v),
+                              max_abs_err=abs_e, max_rel_err=rel_e))
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = attention_inputs(torch, gen, 2, 4, 2, 50, 90, 32, dtype)
+        name = str(dtype).split(".")[1]
+        abs_e, rel_e = attention_err(
+            torch, ops.flash_attention(q, k, v, causal=False, window=16),
+            fa.flash_attention_plain(q, k, v, causal=False, window=16), name,
+            f"non-causal {name}")
+        cases.append(dict(case=f"non-causal 2x4:2x50/90xD32 w16 {name}",
+                          impl=fa.design(q, k, v), max_abs_err=abs_e,
+                          max_rel_err=rel_e))
 
     timed = {}
     for name, B, Hq, Hkv, S, D, window in ATTN_TIMED:
@@ -520,21 +537,62 @@ def attention_rows(torch, gen) -> dict:
                                iters=3 if big else 10)
         flops, nbytes, b_ms, b_by = attention_bound(B, Hq, Hkv, S, S, D,
                                                     window)
-        timed[name] = dict(shape=[B, Hq, Hkv, S, D], window=window, ms=ms,
+        timed[name] = dict(shape=[B, Hq, Hkv, S, D], window=window,
+                           impl=fa.design(q, k, v), ms=ms,
                            plain_ms=plain_ms, library_ms=library_ms,
                            bound_ms=b_ms, bound_by=b_by, flops=flops,
                            bytes=nbytes, tflops=flops / ms / 1e9,
+                           flops_share=flops / ms * 1e3 / BF16_FLOPS_PER_S,
+                           vs_sdpa=ms / library_ms,
                            max_abs_err=abs_e, max_rel_err=rel_e)
+        if name in ("serve_prefill", "qwen_8k"):
+            qf, kf, vf = q.float(), k.float(), v.float()
+            f32_ms = time_cuda(torch, lambda: fa.flash_attention_cuda(
+                qf, kf, vf, window=window), warmup=1, iters=3)
+            timed[name]["f32"] = dict(impl=fa.design(qf, kf, vf), ms=f32_ms,
+                                      tflops=flops / f32_ms / 1e9)
+            del qf, kf, vf
+        if name == "serve_prefill":
+            timed[name]["host_us"] = attention_host_us(torch, q, k, v)
         del q, k, v
         torch.cuda.empty_cache()
     emit("flash_attention", tol=ATTN_TOL, cases=cases, **timed)
     row = timed["serve_prefill"]
     return dict(route="cuda", source="src/repro_torch/kernels/csrc/"
-                "flash_attention.cu", replaces="src/repro/kernels/"
+                "flash_attention_tc.cu", replaces="src/repro/kernels/"
                 "flash_attention.py:72",
                 **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms",
                                        "shape")})
+
+
+def attention_host_us(torch, q, k, v, calls: int = 2000):
+    """Microseconds of host time a call: the tensor-core kernel's three
+    TMA maps encoded alone (its C entry point that encodes and launches
+    nothing), and the whole wrapper call (checks, maps, launch) enqueued
+    on a busy stream."""
+    from repro_torch.kernels import _common as C
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    encode = C.bind(build.library("flash_attention_tc"),
+                    "repro_flash_attention_tc_encode",
+                    (C.VOIDP,) * 3 + (C.I32,) * 6)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), B, Hq, Hkv, S, S, D)
+    check(encode(*args) == 0, "flash_attention_tc: the TMA maps")
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        encode(*args)
+    encode_us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls // 10):
+        fa.flash_attention_cuda(q, k, v)
+    call_us = (time.perf_counter() - t0) / (calls // 10) * 1e6
+    torch.cuda.synchronize()
+    return dict(encode_maps=encode_us, wrapper_call=call_us)
 
 
 #: fm_interaction's timed shapes: the FM arch's serve_p99, train_batch and
@@ -1226,11 +1284,13 @@ def lm_parity_phase(torch) -> dict:
     """Each parity config served on cuda and on cpu from the same weights
     (drawn on the cpu): prefill logits and caches within LOGIT_TOL, prefill
     through flash_attention on cuda only, and greedy tokens equal except
-    from a step where the cpu's top-2 gap is within the tolerance."""
+    from a step where the cpu's top-2 gap is within the tolerance; a
+    prompt and a decode token out of the vocabulary give NaN logits in
+    their rows on both devices, and the other rows within LOGIT_TOL."""
     from repro_torch import prng
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import LMServer
-    from repro_torch.models.transformer import init_lm
+    from repro_torch.models.transformer import decode_logits, init_lm
 
     saved = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -1248,13 +1308,25 @@ def lm_parity_phase(torch) -> dict:
                 p = prompts.to(dev)
                 logits, cache = server.prefill(p)
                 launches = ops.launch_counts().get("flash_attention", 0)
+                # an out-of-range token in row 1 of the prompt, and as the
+                # decode token of row 0: NaN in those rows only
+                bad = p.clone()
+                bad[1, PARITY_PROMPT // 2] = cfg.vocab
+                bad_logits, _ = server.prefill(bad)
+                _, bad_cache = server.seed_cache(p)
+                bad_step, _ = decode_logits(
+                    server.params, server.cfg, bad_cache,
+                    torch.tensor([[cfg.vocab], [3]], dtype=p.dtype,
+                                 device=dev))
                 toks, gaps = greedy_with_gaps(torch, server, p, PARITY_GEN)
                 check(torch.equal(toks, server.generate(p, PARITY_GEN)),
                       f"lm_parity {cfg.name} {dev}: generate differs from "
                       f"its own steps")
                 res[dev] = dict(logits=logits.float().cpu(),
                                 k=cache["k"].float().cpu(), toks=toks.cpu(),
-                                gaps=gaps.cpu(), launches=launches)
+                                gaps=gaps.cpu(), launches=launches,
+                                bad_prefill=bad_logits.float().cpu(),
+                                bad_decode=bad_step[:, 0].float().cpu())
             c, h = res[DEV], res["cpu"]
             check(c["launches"] == cfg.n_layers and h["launches"] == 0,
                   f"lm_parity {cfg.name}: flash_attention launched "
@@ -1268,6 +1340,18 @@ def lm_parity_phase(torch) -> dict:
             check(bool((kerr <= atol + rtol * h["k"].abs()).all()),
                   f"lm_parity {cfg.name}: prefill cache differs by "
                   f"{float(kerr.max())}")
+            for key, nan_row in (("bad_prefill", 1), ("bad_decode", 0)):
+                cn, hn = torch.isnan(c[key]), torch.isnan(h[key])
+                check(torch.equal(cn, hn) and bool(hn[nan_row].all())
+                      and not bool(hn[1 - nan_row].any()),
+                      f"lm_parity {cfg.name}: {key} NaN rows "
+                      f"{cn.any(-1).tolist()} (cuda), "
+                      f"{hn.any(-1).tolist()} (cpu)")
+                ok = 1 - nan_row
+                berr = (c[key][ok] - h[key][ok]).abs()
+                check(bool((berr <= atol + rtol * h[key][ok].abs()).all()),
+                      f"lm_parity {cfg.name}: {key} row {ok} differs by "
+                      f"{float(berr.max())}")
             diverged = []
             for b in range(PARITY_B):
                 ne = (c["toks"][b] != h["toks"][b]).nonzero()
@@ -1301,7 +1385,8 @@ def lm_full_phase(torch) -> dict:
     """LMServer on the full-width Qwen1.5-0.5B config: init, one timed
     generate with the launch counts set to 0 just before it, then its
     pieces (prefill, the prompt replay through decode_step, the decode
-    loop) timed one by one; returns the generate's launch counts."""
+    loop) timed one by one, and a prefill's device time under the
+    profiler; returns the generate's launch counts."""
     from repro_torch import prng
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as fa
@@ -1329,6 +1414,10 @@ def lm_full_phase(torch) -> dict:
           f"lm_full: flash_attention launched "
           f"{launches.get('flash_attention', 0)} times in one prefill of "
           f"{cfg.n_layers} layers")
+    check(launches.get("flash_attention:tc", 0) == cfg.n_layers,
+          f"lm_full: {launches.get('flash_attention:tc', 0)} of the "
+          f"{cfg.n_layers} prefill launches went through the tensor-core "
+          f"kernel")
     (logits, _), prefill_s = timed(torch, lambda: server.prefill(prompts))
     (last, cache), replay_s = timed(torch,
                                     lambda: server.seed_cache(prompts))
@@ -1358,6 +1447,13 @@ def lm_full_phase(torch) -> dict:
                                cfg.n_kv_heads, FULL_PROMPT, FULL_PROMPT,
                                cfg.head_dim, torch.bfloat16)
     kernel_ms = time_cuda(torch, lambda: fa.flash_attention_cuda(q, k, v))
+    # where a prefill's time goes: device-busy time and its kernels under
+    # torch.profiler, 3 prefills after a profiled warm-up
+    wall, busy, top = trace_device(
+        torch, [lambda: server.prefill(prompts)] * 4)
+    prefill_profile = dict(traced_wall_ms=wall / 3 * 1e3,
+                           device_busy_ms=busy / 3 * 1e3,
+                           idle_share=1.0 - busy / wall, top=top[:6])
     emit("lm_full", arch=cfg.name, n_layers=cfg.n_layers,
          d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.dtype,
          params=cfg.param_count(), batch=FULL_B, prompt=FULL_PROMPT,
@@ -1368,8 +1464,10 @@ def lm_full_phase(torch) -> dict:
          generate_s=generate_s, tok_per_s=FULL_B * FULL_GEN / generate_s,
          max_memory_allocated=peak,
          flash_attention_launches=launches.get("flash_attention", 0),
+         tensor_core_launches=launches.get("flash_attention:tc", 0),
          kernel_ms=kernel_ms,
          kernel_share_of_prefill=kernel_ms * cfg.n_layers / 1e3 / prefill_s,
+         prefill_profile=prefill_profile,
          prefill_vs_replay_agree=agree, top2_gaps=gaps,
          top_logit_bf16_steps=steps,
          tokens=out1[0, :8].tolist(), launches=launches)
@@ -1426,7 +1524,9 @@ def fm_parity_phase(torch) -> dict:
     """SMOKE and a full-field config (39 x K 10, vocab 64) run on cuda and
     cpu from the same weights: the pair term bitwise, logits, retrieval
     scores, loss and gradients within the FM tolerances, and three clipped
-    AdamW steps within theirs; fm_interaction launched on cuda only."""
+    AdamW steps within theirs; fm_interaction launched on cuda only; a
+    batch with an id past the table and a candidate past it give NaN in
+    the same places on both devices (the loss and the gradients too)."""
     from repro_torch import prng
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
@@ -1444,6 +1544,10 @@ def fm_parity_phase(torch) -> dict:
         labels = (prng.uniform(prng.PRNGKey(2), (FM_PARITY_B,)) < 0.5
                   ).to(torch.float32)
         cand = prng.randint(prng.PRNGKey(3), (1000,), 0, cfg.total_rows)
+        # one id past the table (request 3) and one candidate row past it
+        bad_idx, bad_cand = idx.clone(), cand.clone()
+        bad_idx[3, 0] = cfg.total_rows
+        bad_cand[5] = cfg.total_rows
         opt_cfg = AdamWConfig(lr=0.05)
         res = {}
         for dev in (DEV, "cpu"):
@@ -1457,6 +1561,11 @@ def fm_parity_phase(torch) -> dict:
                 logits = fm.fm_logits(p, cfg, i)
                 scores = fm.fm_retrieval_scores(p, cfg, i[0, :4],
                                                 cand.to(dev))
+                bad_logits = fm.fm_logits(p, cfg, bad_idx.to(dev))
+                bad_scores = fm.fm_retrieval_scores(p, cfg, i[0, :4],
+                                                    bad_cand.to(dev))
+            bad_loss, bad_grads = fm.fm_value_and_grad(p, cfg,
+                                                       bad_idx.to(dev), y)
             loss, grads = fm.fm_value_and_grad(p, cfg, i, y)
             opt = adamw_init(p, opt_cfg)
             for _ in range(FM_PARITY_STEPS):
@@ -1468,7 +1577,11 @@ def fm_parity_phase(torch) -> dict:
                 loss=float(loss), grads={k: t.cpu() for k, t in grads.items()},
                 params={k: t.cpu() for k, t in p.items()},
                 mu={k: t.cpu() for k, t in opt["mu"].items()},
-                launches=ops.launch_counts().get("fm_interaction", 0))
+                launches=ops.launch_counts().get("fm_interaction", 0),
+                bad=dict(logits=bad_logits.cpu(), scores=bad_scores.cpu(),
+                         loss=float(bad_loss),
+                         **{f"grad_{k}": t.cpu()
+                            for k, t in bad_grads.items()}))
         c, h = res[DEV], res["cpu"]
         check(c["launches"] > 0 and h["launches"] == 0,
               f"fm_parity {cfg.name}: fm_interaction launched "
@@ -1488,6 +1601,24 @@ def fm_parity_phase(torch) -> dict:
                               FM_REL * sscale, f"fm_parity {cfg.name} scores")
         check(abs(c["loss"] - h["loss"]) <= 1e-6,
               f"fm_parity {cfg.name} loss {c['loss']} vs {h['loss']}")
+        # the out-of-range batch: NaN in the same places on both devices,
+        # the rest within the tolerances above
+        cb, hb = c["bad"], h["bad"]
+        check(math.isnan(cb["loss"]) and math.isnan(hb["loss"]),
+              f"fm_parity {cfg.name}: loss with an id past the table "
+              f"{cb['loss']} (cuda), {hb['loss']} (cpu)")
+        check(torch.isnan(hb["logits"]).nonzero().flatten().tolist() == [3]
+              and torch.isnan(hb["scores"]).nonzero().flatten().tolist()
+              == [5], f"fm_parity {cfg.name}: NaN rows on the cpu")
+        for key in ("logits", "scores", "grad_v", "grad_w", "grad_b"):
+            check(torch.equal(torch.isnan(cb[key]), torch.isnan(hb[key])),
+                  f"fm_parity {cfg.name}: NaN masks of {key} differ")
+        ok = ~torch.isnan(hb["logits"])
+        fm_within(torch, cb["logits"][ok], hb["logits"][ok],
+                  FM_REL * scale[ok], f"fm_parity {cfg.name} bad logits")
+        ok = ~torch.isnan(hb["scores"])
+        fm_within(torch, cb["scores"][ok], hb["scores"][ok],
+                  FM_REL * sscale[ok], f"fm_parity {cfg.name} bad scores")
         grad_err = {}
         for k in ("v", "w", "b"):
             want = h["grads"][k]
@@ -1581,8 +1712,29 @@ def fm_full_phase(torch) -> dict:
                             torch.cat([user.long().expand(5, 4),
                                        top.indices[:, None]], 1))
     serve_peak = torch.cuda.max_memory_allocated()
-    logits99 = p99[-1][0]
+    # the out-of-range repair of the gathers (wrap, clamp, NaN fill) against
+    # the bare index_selects it wraps: device time at serve_bulk, and host
+    # time a call (each ending in a sync, the two taken in turns) at
+    # serve_p99
+    def bare(rows):
+        return (params["v"].index_select(0, rows),
+                params["w"].index_select(0, rows))
+
+    rows_bulk = (idx_bulk.long() + cfg.field_offsets(DEV)[None]).reshape(-1)
+    gather = dict(
+        take_ms=time_cuda(torch, lambda: fm._gather(params, rows_bulk)),
+        index_select_ms=time_cuda(torch, lambda: bare(rows_bulk)))
+    gather["repair_ms"] = gather["take_ms"] - gather["index_select_ms"]
+    del rows_bulk
     rows99 = (idx99.long() + cfg.field_offsets(DEV)[None]).reshape(-1)
+    host = {"take": [], "index_select": []}
+    for _ in range(200):
+        for name, fn in (("take", lambda: fm._gather(params, rows99)),
+                         ("index_select", lambda: bare(rows99))):
+            host[name].append(timed(torch, fn)[1] * 1e6)
+    gather.update({f"p99_{k}_us": statistics.median(v)
+                   for k, v in host.items()})
+    logits99 = p99[-1][0]
     v99 = params["v"].index_select(0, rows99).view(B99, F, K).cpu()
     want99 = (params["b"].cpu() + params["w"].index_select(0, rows99)
               .view(B99, F).cpu().sum(-1) + fmk.fm_interaction_plain(v99))
@@ -1638,7 +1790,8 @@ def fm_full_phase(torch) -> dict:
                         preds_per_s=B99 / med99 * 1e3,
                         logits_max_abs_err_vs_cpu=p99_err),
          serve_bulk=dict(batch=Bbulk, ms=bulk_ms, median_ms=med_bulk,
-                         preds_per_s=Bbulk / med_bulk * 1e3),
+                         preds_per_s=Bbulk / med_bulk * 1e3,
+                         gather=gather),
          retrieval_cand=dict(user_fields=4, candidates=C,
                              median_ms=statistics.median(ret_ms),
                              max_ms=max(ret_ms),

@@ -47,12 +47,15 @@ def impl_for(kernel: str, *tensors: torch.Tensor) -> str:
     return impl
 
 
-def launched(kernel: str, err: int) -> None:
+def launched(kernel: str, err: int, design: str | None = None) -> None:
     """Raise on a refused launch (the C entry point returns
-    ``cudaGetLastError()``), else count it."""
+    ``cudaGetLastError()``), else count it, and count it under
+    ``kernel:design`` too for a kernel with one CUDA design per dtype."""
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
-    LAUNCHES[kernel] = LAUNCHES.get(kernel, 0) + 1
+    keys = (kernel,) if design is None else (kernel, f"{kernel}:{design}")
+    for key in keys:
+        LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
 
 
 def launch_counts() -> dict[str, int]:

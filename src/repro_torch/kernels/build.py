@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("commit", "coverage_matvec", "fused_select", "coins",
            "packed_count", "token_count", "ic_frontier", "flash_attention",
-           "fm_interaction")
+           "flash_attention_tc", "fm_interaction")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -1,21 +1,25 @@
 // flash_attention: causal grouped-query attention with an online softmax
 // and an optional sliding window, q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D)
-// -> (B, Hq, Sq, D) in q's type.  Replaces the TPU kernel
-// src/repro/kernels/flash_attention.py: flash_attention (_kernel), written
-// from the math, not block by block.
+// -> (B, Hq, Sq, D), float32 only.  Replaces the TPU kernel
+// src/repro/kernels/flash_attention.py: flash_attention (_kernel) for f32,
+// written from the math, not block by block; bf16 runs on the tensor cores
+// (csrc/flash_attention_tc.cu).  f32 stays here, on SIMT FMAs: the tensor
+// cores would round its operands to TF32, outside the f32 contract (1e-4,
+// and f32 greedy tokens equal to the reference's).
 //
 // Function: scale 1/sqrt(D); query i sits at absolute position
 // i + Skv - Sq; key j is admitted when j < Skv, j <= qpos (causal) and
 // j > qpos - window (window > 0); query head h reads KV head h / (Hq/Hkv)
-// in place.  f32 or bf16 in, all arithmetic in f32, the output rounded
-// once to q's type.  Rows with no admitted key (causal and Sq > Skv) are
-// refused by the wrapper (kernels/flash_attention.py), so l > 0 here.
+// in place.  All arithmetic in f32.  Rows with no admitted key (causal
+// and Sq > Skv) are refused by the wrapper (kernels/flash_attention.py),
+// so l > 0 here.
 //
 // Bound on an H100: operations.  Each admitted (q, k) pair costs 4 D
 // flops (2 D for q.k, 2 D for p.v); a (b, h) has Sq(Sq+1)/2 pairs causal
-// and sum_i min(i+1, W) with a window W.  At the bf16 tensor-core rate of
-// 989 TFLOP/s that is 2.2 ms at B 1 x 16 heads x S 32,768 x D 64; the
-// bytes (q, k, v read once, out written once) take 0.04 ms at 3.35 TB/s.
+// and sum_i min(i+1, W) with a window W.  At the f32 rate of 67 TFLOP/s
+// outside the tensor cores that is 33 ms at B 1 x 16 heads x S 32,768 x
+// D 64; the bytes (q, k, v read once, out written once) take 0.08 ms at
+// 3.35 TB/s.
 //
 // Design, right and simple first: one block of 256 threads per
 // (b * Hq + h, 64-query tile), heaviest causal tiles first.  The block
@@ -27,11 +31,8 @@
 // registers.  Thread (ty, tx) of the 16 x 16 grid owns query rows
 // ty + 16 i (i < 4) and, for q.k, keys tx + 16 j (j < 4); for p.v, the
 // float4 column groups 4 tx + 64 g (g < DM / 64).  Both products are SIMT
-// f32 FMAs from 16-byte shared-memory loads (64 FMAs per 8 loads).  The
-// tensor cores (mma/wgmma), TMA and warp specialisation, which the bound
-// needs, are later work.
+// f32 FMAs from 16-byte shared-memory loads (64 FMAs per 8 loads).
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -45,16 +46,6 @@ __device__ __forceinline__ void stage16(const float* src, float* dst) {
   *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
 }
 
-__device__ __forceinline__ void stage16(const __nv_bfloat16* src,
-                                        float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
-  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
-}
-
 __device__ __forceinline__ void zero16(float* dst, int n) {
   for (int i = 0; i < n; i += 4)
     *reinterpret_cast<float4*>(dst + i) = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -62,15 +53,6 @@ __device__ __forceinline__ void zero16(float* dst, int n) {
 
 __device__ __forceinline__ void store4(float* dst, float4 v) {
   *reinterpret_cast<float4*>(dst) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(dst) = raw;
 }
 
 // max / sum over the 16 lanes (tx) that share a query row
@@ -93,14 +75,15 @@ constexpr size_t smem_bytes() {
          (size_t)(kTq * (DM + 4) + kTk * (DM + 4) + kTk * DM + kTq * kPStride);
 }
 
-template <typename T, int DM>
+template <int DM>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int Hq, int Hkv,
-             int Sq, int Skv, int D, int causal, int window, float scale) {
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ out, int Hq,
+             int Hkv, int Sq, int Skv, int D, int causal, int window,
+             float scale) {
   constexpr int KS = DM + 4;          // Q and K row stride (floats)
   constexpr int NG = DM / 64;         // float4 column groups a thread owns
-  constexpr int EPC = 16 / sizeof(T); // elements in a 16-byte chunk
+  constexpr int EPC = 4;              // floats in a 16-byte chunk
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* Ks = Qs + kTq * KS;
@@ -112,10 +95,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y, b = bh / Hq, h = bh % Hq;
   const int off = Skv - Sq;
   const int64_t kv_head = (int64_t)b * Hkv + h / (Hq / Hkv);
-  const T* qb = q + (int64_t)bh * Sq * D;
-  const T* kb = k + kv_head * Skv * D;
-  const T* vb = v + kv_head * Skv * D;
-  T* ob = out + (int64_t)bh * Sq * D;
+  const float* qb = q + (int64_t)bh * Sq * D;
+  const float* kb = k + kv_head * Skv * D;
+  const float* vb = v + kv_head * Skv * D;
+  float* ob = out + (int64_t)bh * Sq * D;
   const int cpr = D / EPC;            // 16-byte chunks in a row
 
   // zero Q, K and V once: the pad columns [D, DM) and the pad query rows
@@ -258,55 +241,48 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DM>
+template <int DM>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Hq, int Hkv, int Sq, int Skv, int D, int causal, int window,
            float scale, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<DM>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, DM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<DM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((Sq + kTq - 1) / kTq), (unsigned)(B * Hq));
-  flash_kernel<T, DM><<<grid, kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, Hq, Hkv, Sq, Skv, D,
-      causal, window, scale);
+  flash_kernel<DM><<<grid, kThreads, bytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, Hq,
+      Hkv, Sq, Skv, D, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* out, int B,
              int Hq, int Hkv, int Sq, int Skv, int D, int causal, int window,
              float scale, cudaStream_t stream) {
   if (D <= 64)
-    return launch<T, 64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, D, causal,
-                         window, scale, stream);
+    return launch<64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, D, causal, window,
+                      scale, stream);
   if (D <= 128)
-    return launch<T, 128>(q, k, v, out, B, Hq, Hkv, Sq, Skv, D, causal,
-                          window, scale, stream);
-  return launch<T, 256>(q, k, v, out, B, Hq, Hkv, Sq, Skv, D, causal,
-                        window, scale, stream);
+    return launch<128>(q, k, v, out, B, Hq, Hkv, Sq, Skv, D, causal,
+                       window, scale, stream);
+  return launch<256>(q, k, v, out, B, Hq, Hkv, Sq, Skv, D, causal, window,
+                     scale, stream);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  Contiguous (B, H, S, D) operands on
-// 16-byte boundaries, D a multiple of 8 up to 256, Hq a multiple of Hkv
-// (the wrapper checks all of these).
+// Contiguous (B, H, S, D) float32 operands on 16-byte boundaries, D a
+// multiple of 8 up to 256, Hq a multiple of Hkv (the wrapper checks all of
+// these).
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out, int dtype,
-                                     int batch, int hq, int hkv, int sq,
-                                     int skv, int d, int causal, int window,
-                                     float scale, void* stream) {
+                                     const void* v, void* out, int batch,
+                                     int hq, int hkv, int sq, int skv, int d,
+                                     int causal, int window, float scale,
+                                     void* stream) {
   if (batch <= 0 || sq <= 0) return 0;
   if (d <= 0 || d > 256 || d % 8 != 0 || hkv <= 0 || hq % hkv != 0)
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_d<float>(q, k, v, out, batch, hq, hkv, sq, skv, d, causal,
-                           window, scale, s);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, out, batch, hq, hkv, sq, skv, d,
-                                   causal, window, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_d(q, k, v, out, batch, hq, hkv, sq, skv, d, causal, window,
+                  scale, (cudaStream_t)stream);
 }

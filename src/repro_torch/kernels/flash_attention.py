@@ -2,14 +2,15 @@
 and an optional sliding window, ``q (B, Hq, Sq, D)``, ``k, v (B, Hkv, Skv,
 D)`` -> ``(B, Hq, Sq, D)`` in q's dtype.
 
-Replaces the TPU kernel ``src/repro/kernels/flash_attention.py:
+Replaces the TPU kernel ``src/repro/kernels/flash_attention.py:72
 flash_attention`` (``_kernel``): the prefill attention of the LM server,
 one launch per layer.  The function is the TPU kernel's: scale
 ``1/sqrt(D)``; query ``i`` sits at absolute position ``i + Skv - Sq``
 (queries right-aligned to the keys); key ``j`` is admitted when
 ``j < Skv``, ``j <= qpos`` (causal) and ``j > qpos - window``
 (``window > 0``); query head ``h`` reads KV head ``h // (Hq // Hkv)``;
-f32 or bf16 in, f32 arithmetic, the output cast to q's dtype.
+f32 or bf16 in, f32 softmax statistics and accumulators, the output cast
+to q's dtype.
 
 **Fully masked rows are refused.**  A query row with no admitted key
 exists only when the mask is causal and ``Sq > Skv`` (or ``Skv == 0``).
@@ -22,21 +23,40 @@ serving path never has such a row (prefill has ``Sq == Skv``).
 The equality contract is a tolerance, not bits: the kernel sums q.k and
 p.v in another order than the plain version.  In f32 the two agree to
 about 1e-6 relative; in bf16 the output's rounding adds up to one bf16
-ulp (2**-8 relative).  The tests hold the plain version to the reference
-at 1e-5 (f32, its oracle), 2e-3 (its interpreted Pallas kernel) and 3e-2
-(bf16), as ``tests/test_kernels.py`` holds the TPU kernel.
+ulp (2**-8 relative), and the tensor-core kernel's rounding of P to bf16
+a little more.  The tests hold the plain version to the reference at 1e-5
+(f32, its oracle), 2e-3 (its interpreted Pallas kernel) and 3e-2 (bf16),
+as ``tests/test_kernels.py`` holds the TPU kernel.
 
 Bound on an H100: operations.  Each admitted ``(q, k)`` pair costs ``4 D``
 flops; a ``(b, h)`` has ``Sq (Sq + 1) / 2`` pairs causal and
 ``sum_i min(i + 1, W)`` with a window ``W`` (`admitted_pairs`).  At the
 bf16 tensor-core rate of 989 TFLOP/s, B 1 x 16 heads x S 32,768 x D 64
-(2.2 TFLOP) takes 2.2 ms; its bytes take 0.04 ms at 3.35 TB/s.  Design
-(``csrc/flash_attention.cu``): one block per ``(b * Hq + h, 64-query
-tile)`` walking 64-key tiles in ascending order between the first tile
-the window admits and the last one causality admits, K and V staged in
-shared memory as f32 with 16-byte loads, ``(m, l, acc)`` in registers,
-both products SIMT f32 FMAs.  Tensor cores, TMA and warp specialisation,
-which the bound needs, are later work.
+(2.2 TFLOP) takes 2.2 ms; its bytes take 0.04 ms at 3.35 TB/s.
+
+**Two designs, chosen by dtype** (`design`), each the only route for its
+dtype on a CUDA tensor:
+
+- **bf16: ``csrc/flash_attention_tc.cu``**, for the bound above.  Both
+  products are ``wgmma`` on the tensor cores (S = Q.K^T from shared
+  memory, O += P.V with P in registers), fed by TMA: one producer thread
+  loads Q once and K/V tiles into a ring of shared-memory stages with an
+  mbarrier each, two consumer warpgroups of 64 query rows take them; tiles
+  are 128-byte swizzled 64-column sub-tiles whose ragged edges (D 120,
+  rows past Sq or Skv) TMA fills with zeros.  Only the tiles that straddle
+  the diagonal, the window's edge or Skv are masked.  P is rounded to bf16
+  as the A operand of P.V (the TPU kernel multiplies it in f32): a
+  relative error of at most 2**-9 a term, inside the bf16 tolerance.  Left
+  for later: a softmax/GEMM pingpong, GQA sharing of staged K/V, fp8, a
+  backward kernel.
+- **f32: ``csrc/flash_attention.cu``**, SIMT f32 FMAs (one block per
+  ``(b * Hq + h, 64-query tile)``, K and V staged in shared memory as
+  f32).  The tensor cores would round f32 operands to TF32, which the f32
+  contract (1e-4, and f32 greedy tokens equal to the reference's) does not
+  allow; its bound is the f32 rate of 67 TFLOP/s.
+
+Every CUDA launch counts once under ``flash_attention`` and once under
+``flash_attention:<design>`` (`_common.launch_counts`).
 """
 from __future__ import annotations
 
@@ -50,7 +70,6 @@ from repro_torch.kernels import build
 
 KERNEL = "flash_attention"
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: score elements the plain version holds at once (f32), per query block
 _PLAIN_BLOCK_ELEMS = 1 << 27
 
@@ -125,12 +144,31 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+#: the CUDA kernel of each dtype: bf16 on the tensor cores, f32 on SIMT
+#: FMAs (the tensor cores would round f32 to TF32)
+DESIGNS = {torch.bfloat16: "tc", torch.float32: "simt"}
+#: the csrc source of each design; its C entry point is ``repro_<source>``,
+#: and both take the same arguments
+_SOURCE = {"tc": "flash_attention_tc", "simt": "flash_attention"}
+#: query rows a tensor-core block takes, and CUDA's cap on a grid's
+#: second axis (the SIMT grid is (query tiles, B * Hq), the tensor-core
+#: one (B * Hq, query tiles))
+_TC_BLOCK_Q, _GRID_MAX = 128, 65535
+
+
+def design(q, k, v) -> str:
+    """The kernel that a CUDA call on these operands runs: ``"tc"``
+    (bf16) or ``"simt"`` (f32); raises on any other dtype."""
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DESIGNS:
+        raise TypeError(f"{KERNEL}: q, k, v must share float32 or bfloat16, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    return DESIGNS[q.dtype]
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: int = 0) -> torch.Tensor:
     check_operands(q, k, v, causal)
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
-        raise TypeError(f"{KERNEL}: q, k, v must share float32 or bfloat16, "
-                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    impl = design(q, k, v)
     if not (q.device == k.device == v.device):
         raise ValueError(f"{KERNEL}: q, k, v on {q.device}, {k.device}, "
                          f"{v.device}")
@@ -139,18 +177,21 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     if D % 8 or not 0 < D <= 256:
         raise ValueError(f"{KERNEL}: head dim {D} must be a multiple of 8 "
                          f"up to 256")
-    if B * Hq > 65535:
-        raise ValueError(f"{KERNEL}: B * Hq = {B * Hq} exceeds the kernel's "
-                         f"grid (65,535)")
+    rows = B * Hq if impl == "simt" else -(-Sq // _TC_BLOCK_Q)
+    if rows > _GRID_MAX:
+        raise ValueError(f"{KERNEL}: {'B * Hq' if impl == 'simt' else 'Sq'}"
+                         f" exceeds the {impl} kernel's grid ({rows} > "
+                         f"{_GRID_MAX:,} blocks)")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    fn = C.bind(build.library("flash_attention"), "repro_flash_attention",
-                (C.VOIDP, C.VOIDP, C.VOIDP, C.VOIDP) + (C.I32,) * 9
+    source = _SOURCE[impl]
+    fn = C.bind(build.library(source), f"repro_{source}",
+                (C.VOIDP, C.VOIDP, C.VOIDP, C.VOIDP) + (C.I32,) * 8
                 + (ctypes.c_float, C.VOIDP))
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             _DTYPES[q.dtype], B, Hq, Hkv, Sq, Skv, D, int(bool(causal)),
+             B, Hq, Hkv, Sq, Skv, D, int(bool(causal)),
              max(int(window), 0), 1.0 / math.sqrt(D), C.stream())
-    C.launched(KERNEL, err)
+    C.launched(KERNEL, err, impl)
     return out

@@ -26,3 +26,27 @@ def dense_init(gen: torch.Generator, fan_in: int, fan_out: int,
     w = torch.randn((*lead, fan_in, fan_out), generator=gen,
                     device=gen.device, dtype=torch.float32)
     return w.mul_(s).to(dtype)
+
+
+def take_index(idx: torch.Tensor, n: int):
+    """``(safe, invalid)`` for gathering from ``n`` rows as ``jnp.take``
+    does by default (mode ``fill``): an index in ``[-n, 0)`` wraps, any
+    other index outside ``[0, n)`` gives a NaN row.  ``safe`` is the index
+    modulo ``n`` (the wrap, and some row in range for an invalid index),
+    ``invalid`` where it lay outside ``[-n, n)``.  No host sync, so a bad
+    id never reaches the device as an out-of-range index (on CUDA that is
+    a device-side assert that ends the process's CUDA context)."""
+    idx = idx.to(torch.int64)
+    inside = idx.clamp(-n, n - 1)
+    return torch.remainder(inside, n), inside != idx
+
+
+def take_rows(table: torch.Tensor, safe: torch.Tensor,
+              invalid: torch.Tensor) -> torch.Tensor:
+    """``table``'s rows at `take_index`'s ``safe``, NaN where ``invalid``:
+    ``(*safe.shape, *table.shape[1:])``.  The gradient of a NaN row reaches
+    no row of ``table``, as ``jax.grad`` through the fill mode drops it."""
+    rows = table.index_select(0, safe.reshape(-1)).view(
+        *safe.shape, *table.shape[1:])
+    mask = invalid.view(*invalid.shape, *(1,) * (table.dim() - 1))
+    return rows.masked_fill(mask, float("nan"))

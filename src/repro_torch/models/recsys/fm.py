@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.models.common import take_index, take_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,8 +42,8 @@ class FMConfig:
 
     def field_offsets(self, device=None) -> torch.Tensor:
         """``(n_sparse,)`` int64: the first table row of each field."""
-        return (torch.arange(self.n_sparse, dtype=torch.int64, device=device)
-                * self.vocab_per_field)
+        return torch.arange(0, self.total_rows, self.vocab_per_field,
+                            dtype=torch.int64, device=device)
 
 
 def init_fm(cfg: FMConfig, *, generator: torch.Generator, device=None,
@@ -60,10 +61,35 @@ def init_fm(cfg: FMConfig, *, generator: torch.Generator, device=None,
     }
 
 
+class _DropGrad(torch.autograd.Function):
+    """The identity, whose gradient is 0 at the rows where ``invalid``."""
+
+    @staticmethod
+    def forward(ctx, x, invalid):
+        ctx.save_for_backward(invalid)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (invalid,) = ctx.saved_tensors
+        return g.masked_fill(invalid[:, None], 0), None
+
+
 def _gather(params, rows: torch.Tensor):
-    """``(v[rows], w[rows])`` for a flat index tensor."""
-    return (params["v"].index_select(0, rows),
-            params["w"].index_select(0, rows))
+    """``(v[rows], w[rows])`` for a flat index tensor, with the results of
+    the reference's ``jnp.take``: a row id in ``[-n, 0)`` of a table of
+    ``n`` rows wraps (`take_index`), and any other out of range makes its
+    request's logit or score NaN while the rest of the batch is served.
+    Only ``w``'s row is filled with NaN there: every logit and score adds
+    its ``w`` rows, so one NaN is enough, and a NaN fill of ``v`` would be
+    a pass over the largest tensor of a serving call.  ``v``'s row there
+    holds row ``id % n``; its gradient is dropped, as ``jax.grad``
+    through the fill mode drops it (``w``'s fill drops its own)."""
+    safe, invalid = take_index(rows, params["v"].shape[0])
+    v = params["v"].index_select(0, safe)
+    if v.requires_grad:
+        v = _DropGrad.apply(v, invalid)
+    return v, take_rows(params["w"], safe, invalid)
 
 
 def fm_logits(params, cfg: FMConfig, sparse_idx) -> torch.Tensor:

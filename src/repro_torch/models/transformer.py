@@ -25,7 +25,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.models.attention import attention, rope_tables, rotate
-from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.models.common import (dense_init, rms_norm, take_index,
+                                       take_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,7 +188,12 @@ def _block(p: dict, x: torch.Tensor, cfg: LMConfig, rope):
 
 
 def _embed(params: dict, cfg: LMConfig, tokens: torch.Tensor):
-    return _scaled(params["embed"][tokens.long()], cfg.emb_scale)
+    """The scaled embeddings of ``tokens``; a token outside ``[-vocab,
+    vocab)`` embeds as NaN, as the reference's ``jnp.take`` does, and
+    ``[-vocab, 0)`` wraps (`take_index`)."""
+    table = params["embed"]
+    return _scaled(take_rows(table, *take_index(tokens, table.shape[0])),
+                   cfg.emb_scale)
 
 
 def _head(params: dict, cfg: LMConfig, x: torch.Tensor):

@@ -20,6 +20,8 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro_torch import obs  # noqa: E402
+from repro_torch.kernels import _common as C  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
@@ -168,6 +170,63 @@ def test_dispatch_and_no_fallback():
         fa.flash_attention_cuda(q[..., :12], k[..., :12], v[..., :12])
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_attention_cuda(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention_cuda(q.bfloat16(), k, v)
+
+
+class _Lib:
+    """A stand-in for a built kernel library: records each call of an entry
+    point and returns ``err[0]`` as the C function would."""
+
+    calls: list = []
+    err = [0]
+
+    def __init__(self, source):
+        self.source = source
+
+    def __getattr__(self, entry):
+        def fn(*args):
+            _Lib.calls.append((self.source, entry, args[4:]))
+            return _Lib.err[0]
+        return fn
+
+
+def test_cuda_wrapper_picks_the_kernel_by_dtype(monkeypatch):
+    """bf16 launches the tensor-core kernel and f32 the SIMT one, with the
+    same arguments; each launch counts under ``flash_attention`` and under
+    its design; a refused launch raises and counts nothing; each design
+    refuses the grid it cannot launch."""
+    monkeypatch.setattr(build, "library", _Lib)
+    monkeypatch.setattr(C, "stream", lambda: 0)
+    monkeypatch.setattr(_Lib, "calls", [])
+    monkeypatch.setattr(_Lib, "err", [0])
+    ops.reset_launches()
+    q, k, v = (_torch(a, torch.float32)
+               for a in _qkv(2, 1, 4, 2, 10, 12, 24))
+    for dtype, impl, source in ((torch.bfloat16, "tc", "flash_attention_tc"),
+                                (torch.float32, "simt", "flash_attention")):
+        qq, kk, vv = q.to(dtype), k.to(dtype), v.to(dtype)
+        assert fa.design(qq, kk, vv) == impl
+        out = fa.flash_attention_cuda(qq, kk, vv, window=5)
+        assert out.dtype == dtype and out.shape == q.shape
+        src, entry, args = _Lib.calls[-1]
+        assert (src, entry) == (source, f"repro_{source}")
+        assert args == (1, 4, 2, 10, 12, 24, 1, 5, 1 / np.sqrt(24), 0)
+    assert ops.launch_counts() == {"flash_attention": 2,
+                                   "flash_attention:tc": 1,
+                                   "flash_attention:simt": 1}
+    _Lib.err[0] = 700
+    with pytest.raises(RuntimeError, match="error 700"):
+        fa.flash_attention_cuda(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    assert ops.launch_counts()["flash_attention:tc"] == 1
+    _Lib.err[0] = 0
+    # the SIMT grid's second axis is B * Hq, the tensor-core grid's first
+    wide = torch.zeros((1, 65536, 1, 8))
+    with pytest.raises(ValueError, match="simt kernel's grid"):
+        fa.flash_attention_cuda(wide, wide, wide)
+    fa.flash_attention_cuda(wide.bfloat16(), wide.bfloat16(),
+                            wide.bfloat16())
+    assert _Lib.calls[-1][0] == "flash_attention_tc"
 
 
 # ------------------------------------------------------------- RoPE ----
