@@ -25,7 +25,8 @@ Phases, one JSON line each:
   pallas_full
             imm() on the com-LJ Table III replica (n = 3,997, IC, k = 50,
             eps = 0.5, max_theta = 65,536) with the pallas backend (every
-            BFS step one ic_frontier_step launch), then the dense one;
+            BFS step one ic_frontier_step launch, walking the column
+            form the bound sampler built once), then the dense one;
             rows on which they differ are classified as near-ties
   lm_parity the three dense LM smoke configs (f32) and a narrow bf16
             config of Qwen1.5-0.5B's shape served on cuda and on cpu from
@@ -58,8 +59,13 @@ Phases, one JSON line each:
             the device time (the IM sampler's: the optional profile)
 
 The kernels phase also holds ic_frontier_step against its plain version
-at the com-LJ replica's logq (B = 256, frontier densities 0.1%, 1%, 30%),
-at n = 16,384, on ragged shapes and with coins on the threshold, and
+at the com-LJ replica's logq (B = 256, frontier densities 0, 0.1%, 1%,
+30%, 100%), at n = 16,384, on a fully dense logq (n 4,099), with -0.0
+entries, past the kernel's 49,152-vertex staging chunk (n 100,000), on
+ragged shapes and with coins on the threshold, timed beside
+its column form's build, torch.matmul and cuSPARSE; the coin kernels'
+bounds come from their SASS instruction counts (cuobjdump) at the
+card's issue and integer-ALU rates; and
 flash_attention at the serving prefill (B 4 x 16 heads x S 512 x D 64),
 Qwen's 8k prefill, Danube's (32:8 heads, D 120, window 4,096, S 8,192)
 and prefill_32k (bf16: the tensor-core kernel; f32: the SIMT kernel,
@@ -93,11 +99,20 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 #: H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and the
-#: float32 rate outside the tensor cores, used for the coin kernel's
-#: 32-bit integer operations (the table lists no int32 rate; the card
-#: issues int32 at half that, so the bound is a floor)
+#: float32 rate outside the tensor cores (an FMA counts two operations).
+#: The coin kernels' 32-bit integer work is bounded from their built
+#: instructions instead (`coin_bound`)
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+#: Hopper's issue rate (warp instructions a SM a clock) and its integer
+#: ALU lanes a SM a clock (IADD3, LOP3, SHF, ...: half the FP32 lanes;
+#: H100 white paper, CUDA's throughput table for compute capability 9.0)
+ISSUE_PER_SM_CLK, INT_LANES_PER_SM_CLK = 4, 64
+#: SASS opcodes that issue to the integer ALU pipe
+INT_ALU_OPS = frozenset({
+    "IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "LEA", "ISETP",
+    "SEL", "PRMT", "IMNMX", "VIMNMX", "IABS", "POPC", "FLO", "BREV",
+    "BMSK", "SGXT", "VIADD"})
 #: the bf16 tensor-core rate (dense), the bound of attention's flops
 BF16_FLOPS_PER_S = 989e12
 
@@ -139,6 +154,28 @@ def time_cuda(torch, fn, *, warmup: int = 2, iters: int = 10) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def time_graph(torch, fn, *, iters: int = 20, replays: int = 3) -> float:
+    """Mean milliseconds of ``fn`` on the card with no host launch cost:
+    ``iters`` calls captured in one CUDA graph, replayed ``replays``
+    times between CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(replays):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / (iters * replays)
+
+
 def timed(torch, fn):
     """``(fn(), seconds)`` on the host clock, between device syncs."""
     torch.cuda.synchronize()
@@ -153,6 +190,71 @@ def bound(nbytes: float, ops: float = 0.0,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sm_clock_hz() -> tuple[float, str]:
+    """The card's maximum SM clock as ``nvidia-smi`` reports it."""
+    txt = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    txt = txt.splitlines()[0]
+    return float(txt.split()[0]) * 1e6, txt
+
+
+def sass_counts(lib, kernel: str) -> dict:
+    """Instructions of one kernel of a built library (``cuobjdump
+    -sass``), up to its last EXIT (the self-branch after it and NOPs
+    left out): all of them, the integer-ALU ones, and each opcode's."""
+    import collections
+    import re
+
+    from repro_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    for part in sass.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        if kernel in name:
+            break
+    else:
+        raise KeyError(f"{kernel}: no such function in {lib}")
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Z0-9]*)", body)
+    check("EXIT" in ops, f"{kernel}: no EXIT in its SASS")
+    ops = ops[:len(ops) - ops[::-1].index("EXIT")]
+    by = collections.Counter(o for o in ops if o != "NOP")
+    return dict(total=sum(by.values()),
+                int_alu=sum(c for o, c in by.items() if o in INT_ALU_OPS),
+                by_opcode=dict(by.most_common()))
+
+
+def coin_bound(torch, kernel: str, count: int, nbytes: int) -> dict:
+    """The bound of a threefry coin kernel over ``count`` coins (one a
+    thread, so a thread issues its kernel's instructions once): the
+    larger of its bytes at the HBM rate, (a) its SASS instructions at
+    the issue rate and (b) its integer-ALU instructions at the ALU
+    lanes, at the card's maximum SM clock; beside it the nominal
+    ``OPS_PER_COIN`` at the f32 rate, the bound used before."""
+    from repro_torch.kernels import build, coins
+
+    sass = sass_counts(build.lib_path("coins"), kernel)
+    clk, clk_txt = sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    issue_s = count * sass["total"] / 32 / (ISSUE_PER_SM_CLK * sms * clk)
+    int_s = count * sass["int_alu"] / (INT_LANES_PER_SM_CLK * sms * clk)
+    b_s, b_by = max((nbytes / HBM_BYTES_PER_S, "bytes"),
+                    (issue_s, "operations"), (int_s, "operations"))
+    emit("coin_sass", kernel=kernel, sm_clock=clk_txt, sms=sms,
+         power=nvidia_smi(), **sass)
+    return dict(bound_ms=b_s * 1e3, bound_by=b_by,
+                issue_bound_ms=issue_s * 1e3, int_alu_bound_ms=int_s * 1e3,
+                nominal_bound_ms=bound(nbytes,
+                                       count * coins.OPS_PER_COIN)[0],
+                sass_per_coin=sass["total"],
+                int_alu_per_coin=sass["int_alu"],
+                ops_per_coin_nominal=coins.OPS_PER_COIN,
+                sm_clock_mhz=clk / 1e6)
 
 
 # ------------------------------------------------------------- kernels ----
@@ -301,19 +403,19 @@ def count_rows(torch, R, gen) -> dict:
     return rows
 
 
-def random_logq(torch, gen, n: int, per_col: int):
+def random_logq(torch, gen, n: int, per_col: int, pmax: float = 1.0):
     """An ``(n, n)`` log(1-p) table on the card with about ``per_col``
-    nonzeros a column (all of them when ``per_col >= n``), p ~ U(0,1)."""
+    nonzeros a column (all of them when ``per_col >= n``), p ~ U(0, pmax)."""
     L = torch.zeros((n, n), dtype=torch.float32, device="cuda")
     if per_col >= n:
-        L.copy_(torch.log1p(-torch.rand((n, n), generator=gen,
-                                        device="cuda")))
+        L.copy_(torch.log1p(-pmax * torch.rand((n, n), generator=gen,
+                                               device="cuda")))
     else:
         rows = torch.randint(0, n, (per_col * n,), generator=gen,
                              device="cuda")
         cols = torch.arange(n, device="cuda").repeat(per_col)
-        L[rows, cols] = torch.log1p(-torch.rand(per_col * n, generator=gen,
-                                                device="cuda"))
+        L[rows, cols] = torch.log1p(-pmax * torch.rand(
+            per_col * n, generator=gen, device="cuda"))
     return L.clamp_(min=-30.0)
 
 
@@ -335,15 +437,18 @@ def frontier_inputs(torch, gen, B: int, n: int, density: float,
 def frontier_row(torch, gen, lj_logq) -> dict:
     """ic_frontier_step against its plain version, bitwise: the solve's
     shape (B 256 x the com-LJ replica's logq, n 3,997) at frontier
-    densities 0.1%, 1% and 30%; B 256 x n 16,384 (logq 1.07 GB); ragged
-    shapes; coins on the threshold.  Times at both full shapes."""
+    densities 0, 0.1%, 1%, 30% and 100%; B 256 x n 16,384 (logq 1.07 GB,
+    32 nonzeros a column); a logq with -0.0 entries; a fully dense logq at
+    n 4,099; ragged shapes; coins on the threshold.  Timed at the solve's
+    shape, at n 16,384 and on the dense logq, each beside the column
+    form's build, ``torch.matmul`` and cuSPARSE (``torch.sparse.mm``)."""
     from repro_torch.core import ties
     from repro_torch.kernels import ic_frontier as icf
     from repro_torch.kernels import ops
 
-    def agree(F, V, L, R, tag):
-        got = ops.ic_frontier_step(F, V, L, R)
-        want = icf.ic_frontier_step_plain(F, V, L, R)
+    def agree(F, V, L, R, tag, cols=None):
+        got = ops.ic_frontier_step(F, V, L, R, cols=cols)
+        want = icf.ic_frontier_step_plain(F, V, L, R, cols)
         torch.cuda.synchronize()
         bad = int((got != want).sum())
         check(bad == 0, f"ic_frontier_step {tag}: {bad} cells differ")
@@ -353,6 +458,17 @@ def frontier_row(torch, gen, lj_logq) -> dict:
         check(int(whole[:, n:].sum()) == 0, f"ic_frontier_step {tag}: pad")
         return got
 
+    def near_ties(acc, F, L, R, V, got, tag):
+        """Cells where a library's sum decides otherwise than the kernel:
+        each must be a near-tie."""
+        b, u = torch.nonzero(icf.activation(acc, R, V) != got.bool(),
+                             as_tuple=True)
+        _, tie = ties.classify_cells(F, L, R, b.cpu().numpy(),
+                                     u.cpu().numpy())
+        check(bool(tie.all()), f"{tag}: {int((~tie).sum())} cells are not "
+              f"near-ties")
+        return int(b.numel())
+
     for n in (1, 7, 129, 513, 4099):
         L = random_logq(torch, gen, n, n if n <= 513 else 24)
         for B in (1, 3, 70):
@@ -360,58 +476,113 @@ def frontier_row(torch, gen, lj_logq) -> dict:
                 F, V, R = frontier_inputs(torch, gen, B, n, 0.3, padded)
                 agree(F, V, L, R, f"{B}x{n}")
     B, n = BATCH, lj_logq.shape[0]
-    for density in (0.001, 0.01, 0.3):
+    lj_cols = icf.column_form(lj_logq)
+    for density in (0.0, 0.001, 0.01, 0.3, 1.0):
         F, V, R = frontier_inputs(torch, gen, B, n, density, True)
-        agree(F, V, lj_logq, R, f"{B}x{n} density {density}")
+        if density == 1.0:
+            V = V & (torch.rand(V.shape, generator=gen, device="cuda") < 0.2)
+        agree(F, V, lj_logq, R, f"{B}x{n} density {density}", lj_cols)
+    # -0.0 and +0.0 entries: neither is a term
+    L = random_logq(torch, gen, 4099, 24)
+    L[(L == 0) & (torch.rand(L.shape, generator=gen, device="cuda") < 0.5)
+      ] = -0.0
+    check(bool(torch.signbit(L[L == 0]).any()), "a logq with -0.0 entries")
+    F, V, R = frontier_inputs(torch, gen, B, 4099, 0.3, True)
+    agree(F, V, L, R, f"{B}x4099 signed zeros")
+    # past 49,152 vertices the kernel stages the frontier in chunks: a
+    # form spread over n = 100,000, the whole table (no dense logq)
+    nc, per = 100_000, 6
+    start = torch.randint(0, nc // per, (nc, 1), generator=gen,
+                          device="cuda")
+    far = icf.ColumnForm(
+        (per * torch.arange(nc + 1, device="cuda")).to(torch.int32),
+        (start + nc // per * torch.arange(per, device="cuda")).to(
+            torch.int32).reshape(-1),
+        torch.log1p(-torch.rand(nc * per, generator=gen, device="cuda")),
+        nc, nc * per)
+    F, V, R = frontier_inputs(torch, gen, 40, nc, 0.3, True)
+    agree(F, V, None, R, f"40x{nc} chunked", far)
+    del far
     # coins on the threshold: rand = p fires nothing, p's lower f32
     # neighbour fires every live cell, its upper one none
     F, V, _ = frontier_inputs(torch, gen, B, n, 0.01, True)
     V = V & False
-    p = torch.expm1(icf.ascending_acc(F, lj_logq).double()).neg_().float()
+    p = torch.expm1(icf.ascending_acc(F, lj_logq, lj_cols).double()
+                    ).neg_().float()
     live = p > 0
     for shift, fires in ((0.0, False), (-1.0, True), (1.0, False)):
         R = p if not shift else torch.nextafter(
             p, torch.full_like(p, shift * float("inf")))
-        got = agree(F, V, lj_logq, R.contiguous(), f"tie {shift:+}")
+        got = agree(F, V, lj_logq, R.contiguous(), f"tie {shift:+}", lj_cols)
         check(bool((got[live] == fires).all()),
               f"ic_frontier_step tie {shift:+}: wrong side")
+    del L, F, V, R, p, live
 
     times, lib_ties = {}, {}
-    big = random_logq(torch, gen, 16_384, 32)
-    for name, L in (("solve", lj_logq), ("n16384", big)):
+    tables = (("solve", lambda: lj_logq, (0.3, 0.01)),
+              ("n16384", lambda: random_logq(torch, gen, 16_384, 32),
+               (0.3, 0.01)),
+              # every entry a term; p small enough that the sums do not
+              # all saturate at p = 1
+              ("dense4099", lambda: random_logq(torch, gen, 4099, 4099,
+                                                pmax=1e-3), (0.3,)))
+    for name, make, densities in tables:
+        L = make()
         nn = L.shape[0]
-        for density in (0.3, 0.01):
+        form_ms = time_cuda(torch, lambda: icf.column_form(L), warmup=1,
+                            iters=3)
+        cols = icf.column_form(L)
+        check(cols.nnz == int((L != 0).sum()), f"column form {name}: nnz")
+        # logq^T in CSR is the column form itself: cuSPARSE's SpMM
+        csr = torch.sparse_csr_tensor(cols.col_ptr.long(), cols.rows.long(),
+                                      cols.vals, (nn, nn))
+
+        def spmm(F):
+            return torch.sparse.mm(csr, F.float().t().contiguous()).t()
+
+        for density in densities:
+            tag = f"{name}_{density}"
             F, V, R = frontier_inputs(torch, gen, B, nn, density, True)
-            agree(F, V, L, R, f"{B}x{nn} density {density}")
+            got = agree(F, V, L, R, f"{B}x{nn} {tag}", cols)
+            # a loop of eager calls, as every kernel and library time
+            # here, and the device time alone from a CUDA graph (a
+            # call's host cost, ~0.05 ms, is above the kernel's at the
+            # sparse shapes)
             ms = time_cuda(torch, lambda: icf.ic_frontier_step_cuda(
-                F, V, L, R))
+                F, V, L, R, cols))
+            graph_ms = time_graph(torch, lambda: icf.ic_frontier_step_cuda(
+                F, V, L, R, cols))
             plain_ms = time_cuda(torch, lambda: icf.ic_frontier_step_plain(
-                F, V, L, R), warmup=1, iters=2)
-            # the library product sums in its own order: every cell where
-            # it disagrees with the kernel on these inputs is a near-tie
-            lib = icf.activation(F.float() @ L, R, V)
-            b, u = torch.nonzero(lib != ops.ic_frontier_step(F, V, L, R)
-                                 .bool(), as_tuple=True)
-            _, tie = ties.classify_cells(F, L, R, b.cpu().numpy(),
-                                         u.cpu().numpy())
-            check(bool(tie.all()), f"library product {name} {density}: "
-                  f"{int((~tie).sum())} cells are not near-ties")
-            lib_ties[f"{name}_{density}"] = int(b.numel())
+                F, V, L, R, cols), warmup=1, iters=2)
+            # the library products sum in their own orders: every cell
+            # where one disagrees with the kernel is a near-tie
+            lib_ties[tag] = dict(
+                matmul=near_ties(F.float() @ L, F, L, R, V, got,
+                                 f"torch.matmul {tag}"),
+                sparse_mm=near_ties(spmm(F), F, L, R, V, got,
+                                    f"torch.sparse.mm {tag}"))
             library_ms = time_cuda(torch, lambda: icf.activation(
                 F.float() @ L, R, V))
-            # the work these inputs need: logq read once, the four (B, n)
-            # operands once each, and one f32 add (an FMA's two
+            sparse_library_ms = time_cuda(torch, lambda: icf.activation(
+                spmm(F), R, V))
+            # the work these inputs need: the four (B, n) operands and
+            # the column form read once, and one f32 add (an FMA's two
             # operations) for each frontier entry and nonzero of logq's
             # row v; the zero terms are none of the function's work
             terms = int((F.sum(0, dtype=torch.int64)
                          * (L != 0).sum(1, dtype=torch.int64)).sum())
-            b_ms, b_by = bound(4 * nn * nn + 7 * B * nn, 2 * terms)
-            times[f"{name}_{density}"] = dict(
-                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=b_ms, bound_by=b_by, terms=terms, shape=[B, nn])
-        del F, V, R
-    del big
-    torch.cuda.empty_cache()
+            b_ms, b_by = bound(7 * B * nn + cols.nbytes, 2 * terms)
+            row = dict(ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
+                       library_ms=library_ms,
+                       sparse_library_ms=sparse_library_ms, bound_ms=b_ms,
+                       bound_by=b_by,
+                       dense_bound_ms=bound(4 * nn * nn + 7 * B * nn)[0],
+                       column_form_ms=form_ms,
+                       column_form_bytes=cols.nbytes, nnz=cols.nnz,
+                       terms=terms, shape=[B, nn])
+            times[tag] = row
+        del F, V, R, L, cols, csr
+        torch.cuda.empty_cache()
     emit("ic_frontier_step", library_near_ties=lib_ties, **times)
     row = times["solve_0.3"]
     return dict(route="cuda", source="src/repro_torch/kernels/csrc/"
@@ -783,12 +954,11 @@ def kernel_phase(torch, graph, lj_logq):
     ms = time_cuda(torch, lambda: coins.ic_sparse_hits_cuda(key, prob, B))
     plain_ms = time_cuda(torch, lambda: coins.ic_sparse_hits_plain(
         key, prob, B), warmup=1, iters=2)
-    b_ms, b_by = bound(B * m + 4 * m, B * m * coins.OPS_PER_COIN)
     rows_out["ic_sparse_hits"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/coins.cu",
         replaces="src/repro/core/sampler.py:470", max_abs_err=0,
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, shape=[B, m])
+        ms=ms, plain_ms=plain_ms, library_ms=None, shape=[B, m],
+        **coin_bound(torch, "ic_sparse_hits_kernel", B * m, B * m + 4 * m))
     del hits
     torch.cuda.empty_cache()
     rows_out["ic_frontier_step"] = frontier_row(torch, gen, lj_logq)
@@ -806,12 +976,11 @@ def kernel_phase(torch, graph, lj_logq):
     plain_ms = time_cuda(torch, lambda: prng.uniform(key, shape,
                                                      device="cuda"))
     count = shape[0] * shape[1]
-    b_ms, b_by = bound(4 * count, count * coins.OPS_PER_COIN)
     rows_out["uniform_draw"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/coins.cu",
         replaces="src/repro/core/sampler.py:401", max_abs_err=0,
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, shape=list(shape))
+        ms=ms, plain_ms=plain_ms, library_ms=None, shape=list(shape),
+        **coin_bound(torch, "uniform_kernel", count, 4 * count))
     emit("kernels", **{k: {kk: v[kk] for kk in ("ms", "plain_ms", "bound_ms",
                                                 "library_ms", "shape")}
                        for k, v in rows_out.items()})
@@ -1147,7 +1316,8 @@ def pallas_full(torch, graph, max_theta: int) -> dict:
     largest and densest of the six that take the dense backend) with the
     ``pallas`` backend, then the ``dense`` one, on the card: times, BFS
     steps, frontier density, the per-step cost of the coin draw, the
-    kernel and the library product, and the rows on which the two
+    kernel and the library product, the share of the pallas sampler's
+    wall in which the device is busy, and the rows on which the two
     backends differ (each classified as a near-tie)."""
     from repro_torch import obs, prng
     from repro_torch.core import sampler
@@ -1211,14 +1381,43 @@ def pallas_full(torch, graph, max_theta: int) -> dict:
     p = out["pallas"]
     gen = torch.Generator(device="cuda").manual_seed(1)
     L = sampler.make_logq(engines["pallas"].graph)
+    # the bound sampler's column form, built once in init_s, and what
+    # that build costs on its own; the form is the kernel's whole table
+    # (``logq=None``: L is a rebuild, equal to the bound logq)
+    cols = engines["pallas"]._sample.cols
+    check(cols is not None and cols.n == n, "pallas_full: no column form")
+    rebuilt, form_s = timed(torch, lambda: icf.column_form(L))
+    check(all(torch.equal(a, b) for a, b in (
+        (rebuilt.col_ptr, cols.col_ptr), (rebuilt.rows, cols.rows),
+        (rebuilt.vals, cols.vals))), "pallas_full: the bound column form")
+    p.update(column_form_s=form_s, column_form_share=form_s / p["init_s"],
+             column_form_nnz=cols.nnz)
     F, V, R = frontier_inputs(torch, gen, B, n, p["frontier_density"], True)
     key = prng.PRNGKey(3)
+    # loops of eager calls, which the shares below read; beside them the
+    # device times alone of the coin draw and the kernel (CUDA graphs:
+    # no host launch cost)
     per_step = dict(
         coin_ms=time_cuda(torch, lambda: ops.uniform(key, (B, n),
                                                      device=DEV)),
-        kernel_ms=time_cuda(torch, lambda: ops.ic_frontier_step(F, V, L, R)),
+        kernel_ms=time_cuda(torch, lambda: ops.ic_frontier_step(
+            F, V, None, R, cols=cols)),
         matmul_ms=time_cuda(torch, lambda: icf.activation(F.float() @ L, R,
-                                                          V)))
+                                                          V)),
+        coin_graph_ms=time_graph(torch, lambda: ops.uniform(
+            key, (B, n), device=DEV)),
+        kernel_graph_ms=time_graph(torch, lambda: ops.ic_frontier_step(
+            F, V, None, R, cols=cols)))
+    # the bound pallas sampler alone for a few batches, plain and under
+    # the profiler: how much of its wall the device is busy
+    sample = engines["pallas"]._sample
+    keys = prng.split(prng.PRNGKey(5), 5)
+    _, plain_s = timed(torch, lambda: [sample(k) for k in keys[1:]])
+    wall, busy, top = trace_device(torch,
+                                   [lambda k=k: sample(k) for k in keys])
+    p["sampler_profile"] = dict(batches=4, plain_wall_s=plain_s,
+                                traced_wall_s=wall, device_busy_s=busy,
+                                idle_share=1.0 - busy / wall, top=top[:6])
     for backend, step_ms in (("pallas", per_step["kernel_ms"]),
                              ("dense", per_step["matmul_ms"])):
         o = out[backend]

@@ -55,7 +55,7 @@ from repro_torch.graphs.csr import (
     Graph, dense_ic_matrix, edge_arrays, wc_edge_probs,
 )
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ic_frontier import activation, column_terms
+from repro_torch.kernels.ic_frontier import activation, column_form
 
 _LOGQ_CLAMP = -30.0  # exp(-30) ~ 1e-13: treat p=1 edges as prob 1-1e-13
 
@@ -261,11 +261,11 @@ def _frontier_count(frontier: torch.Tensor) -> int:
 # -------------------------------------------------------- traversal loops ----
 
 def _dense_loop(key, logq, positions=None, *, batch: int, max_steps: int = 0,
-                stable: bool = False, kernel: bool = False, terms=None):
+                stable: bool = False, kernel: bool = False, cols=None):
     """Dense log-semiring frontier expansion (the ``dense`` backend, or
     with ``kernel=True`` the ``pallas`` backend: each step is one
-    `kops.ic_frontier_step`, handed ``terms``, logq's `column_terms`,
-    when a CPU caller built them once).  Both share the coins and the
+    `kops.ic_frontier_step`, handed ``cols``, logq's `column_form`, when
+    the caller built it once).  Both share the coins and the
     epilogue and differ only in how ``frontier @ logq`` is summed.
 
     Returns ``(visited (K, n) uint8, counter (n,) int32, roots (K,))``,
@@ -289,7 +289,7 @@ def _dense_loop(key, logq, positions=None, *, batch: int, max_steps: int = 0,
         coin = _dense_coins(sub, K, n, uids, bb, dev)
         if kernel:
             new = kops.ic_frontier_step(frontier, visited, logq, coin,
-                                        terms=terms).view(torch.bool)
+                                        cols=cols).view(torch.bool)
         else:
             new = activation(frontier.to(torch.float32) @ logq, coin,
                              visited)
@@ -428,16 +428,19 @@ def _bind_dense(model, graph: Graph, cfg, *, stable, placement,
                 kernel=False):
     _placement_not_ported(placement)
     logq = logq_from_probs(graph, _edge_probs(model, graph))
-    # the plain step's column grouping depends on logq alone: build it
-    # once here, not at every BFS step
-    terms = (column_terms(logq) if kernel and logq.device.type == "cpu"
-             else None)
+    # the frontier step walks logq's column form, which depends on logq
+    # alone: build it once per bound sampler, not at every BFS step
+    cols = column_form(logq) if kernel else None
     if stable:
-        return lambda key, positions=None: _dense_loop(
-            key, logq, positions, batch=cfg.batch, stable=True,
-            kernel=kernel, terms=terms)
-    return lambda key: _dense_loop(key, logq, batch=cfg.batch,
-                                   kernel=kernel, terms=terms)
+        def sample(key, positions=None):
+            return _dense_loop(key, logq, positions, batch=cfg.batch,
+                               stable=True, kernel=kernel, cols=cols)
+    else:
+        def sample(key):
+            return _dense_loop(key, logq, batch=cfg.batch, kernel=kernel,
+                               cols=cols)
+    sample.cols = cols      # what every step walks (None on ``dense``)
+    return sample
 
 
 def _bind_pallas(model, graph: Graph, cfg, *, stable, placement):

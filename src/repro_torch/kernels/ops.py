@@ -90,15 +90,23 @@ def ic_sparse_hits(key, edge_prob, batch: int):
     return coins.ic_sparse_hits_plain(key, edge_prob, batch)
 
 
-def ic_frontier_step(frontier, visited, logq, rand, *, terms=None):
+def ic_frontier_step(frontier, visited, logq, rand, *, cols=None):
     """One dense IC BFS step: ``(B, n) uint8`` (a row-padded view) of
     ``rand < -expm1(frontier @ logq) & ~visited``, summed in ascending v
-    (`repro_torch.kernels.ic_frontier`).  ``terms``, logq's
-    `column_terms` built once by a caller stepping on one table, spares
-    the plain version rebuilding them; the kernel does not read them."""
-    if impl_for(_icf.KERNEL, frontier, visited, logq, rand) == "cuda":
-        return _icf.ic_frontier_step_cuda(frontier, visited, logq, rand)
-    return _icf.ic_frontier_step_plain(frontier, visited, logq, rand, terms)
+    over logq's nonzeros (`repro_torch.kernels.ic_frontier`).  ``cols``
+    is logq's `column_form`, which the kernel and the plain version both
+    walk; a caller stepping on one table builds it once and hands it to
+    every step.  Without it each call builds the form: a scan of the
+    whole ``(n, n)`` logq and a host sync, per call.  Given ``cols``,
+    ``logq`` may be None; given both, ``cols`` must be the form built
+    from ``logq`` as it stands, else the call raises."""
+    if logq is None and cols is None:
+        raise ValueError(f"{_icf.KERNEL}: give logq or its column form")
+    table = logq if logq is not None else cols.vals
+    if impl_for(_icf.KERNEL, frontier, visited, table, rand) == "cuda":
+        return _icf.ic_frontier_step_cuda(frontier, visited, logq, rand,
+                                          cols)
+    return _icf.ic_frontier_step_plain(frontier, visited, logq, rand, cols)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
