@@ -58,8 +58,16 @@ Phases, one JSON line each:
             torch.profiler: device-busy share and the kernels that take
             the device time (the IM sampler's: the optional profile)
 
-The kernels phase also holds ic_frontier_step against its plain version
-at the com-LJ replica's logq (B = 256, frontier densities 0, 0.1%, 1%,
+The kernels phase also holds packed_count and token_count against their
+plain versions and coverage_matvec on edge arenas (a row of s_pad real
+tokens and no sentinel, runs only, a run in the last superblock, hub
+columns, both sides of every 4,096-column edge, n = 1 mod 8, theta not a
+multiple of 32), on the stores' own views and on token rows at odd
+strides and offsets, prints beside their byte bounds the instruction
+floors of their built hot loops (cuobjdump), and times them on a store
+arena at compressed_full's s_pad (32,768).  It holds ic_frontier_step
+against its plain version at the com-LJ replica's logq (B = 256,
+frontier densities 0, 0.1%, 1%,
 30%, 100%), at n = 16,384, on a fully dense logq (n 4,099), with -0.0
 entries, past the kernel's 49,152-vertex staging chunk (n 100,000), on
 ragged shapes and with coins on the threshold, timed beside
@@ -201,32 +209,99 @@ def sm_clock_hz() -> tuple[float, str]:
     return float(txt.split()[0]) * 1e6, txt
 
 
-def sass_counts(lib, kernel: str) -> dict:
-    """Instructions of one kernel of a built library (``cuobjdump
-    -sass``), up to its last EXIT (the self-branch after it and NOPs
-    left out): all of them, the integer-ALU ones, and each opcode's."""
-    import collections
-    import re
-
+def sass_text(lib) -> str:
+    """``cuobjdump -sass`` of a built library."""
     from repro_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+    return subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
+
+
+def sass_function(sass: str, kernel: str) -> str:
+    """The SASS of the first function whose mangled name holds
+    ``kernel``."""
     for part in sass.split("Function : ")[1:]:
         name, _, body = part.partition("\n")
         if kernel in name:
-            break
-    else:
-        raise KeyError(f"{kernel}: no such function in {lib}")
-    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
-                     r"([A-Z][A-Z0-9]*)", body)
-    check("EXIT" in ops, f"{kernel}: no EXIT in its SASS")
-    ops = ops[:len(ops) - ops[::-1].index("EXIT")]
+            return body
+    raise KeyError(f"{kernel}: no such function in the SASS")
+
+
+def opcode_counts(ops) -> dict:
+    import collections
     by = collections.Counter(o for o in ops if o != "NOP")
     return dict(total=sum(by.values()),
                 int_alu=sum(c for o, c in by.items() if o in INT_ALU_OPS),
                 by_opcode=dict(by.most_common()))
+
+
+def sass_counts(lib, kernel: str) -> dict:
+    """Instructions of one kernel of a built library (``cuobjdump
+    -sass``), up to its last EXIT (the self-branch after it and NOPs
+    left out): all of them, the integer-ALU ones, and each opcode's."""
+    import re
+
+    body = sass_function(sass_text(lib), kernel)
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Z0-9]*)", body)
+    check("EXIT" in ops, f"{kernel}: no EXIT in its SASS")
+    return opcode_counts(ops[:len(ops) - ops[::-1].index("EXIT")])
+
+
+def loop_counts(sass: str, kernel: str, anchor: str,
+                outer: bool = False) -> dict:
+    """Instructions one pass of a kernel's hot loop issues: the innermost
+    loop (a backward branch's range) holding the first instruction that
+    starts with ``anchor`` (``outer``: the loop around that one), less
+    the loops nested in it and the branches it skips that hold an atomic
+    (the planes' expansion, at most once in kMaxSteps passes); counted
+    as `sass_counts` counts, with the loop's address range."""
+    import re
+
+    ins = []
+    for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
+                         r"([A-Z][A-Z0-9]*)([^;]*);",
+                         sass_function(sass, kernel)):
+        rest = m.group(4)
+        tgt = re.search(r"0x([0-9a-f]+)\s*$", rest) \
+            if m.group(3) == "BRA" else None
+        ins.append((int(m.group(1), 16), m.group(3),
+                    bool(m.group(2)) or rest.lstrip().startswith(("P", "!P")),
+                    (m.group(3) + rest).replace(" ", ""),
+                    int(tgt.group(1), 16) if tgt else None))
+    loops = [(t, a) for a, op, _, _, t in ins
+             if op == "BRA" and t is not None and t < a]
+    first = next(a for a, _, _, text, _ in ins if text.startswith(anchor))
+    around = sorted((lp for lp in loops if lp[0] <= first <= lp[1]),
+                    key=lambda lp: lp[1] - lp[0])
+    lo, hi = around[1 if outer else 0]
+    nested = [lp for lp in loops if lo <= lp[0] and lp[1] <= hi
+              and lp != (lo, hi)]
+    atomic = [a for a, op, _, _, _ in ins
+              if op in ("ATOMS", "ATOM", "ATOMG", "RED", "REDG")]
+    skipped = [(a, t) for a, op, cond, _, t in ins
+               if op == "BRA" and cond and t is not None and lo <= a < t <= hi
+               and any(a < x < t for x in atomic)]
+    ops = [op for a, op, _, _, _ in ins if lo <= a <= hi
+           and not any(x <= a <= y for x, y in nested)
+           and not any(x < a < y for x, y in skipped)]
+    return dict(opcode_counts(ops), loop=[hex(lo), hex(hi)])
+
+
+def instruction_floor(torch, passes) -> dict:
+    """The least time the built instructions of a data-dependent kernel
+    take: ``passes`` is ``[(loop_counts(...), warp passes), ...]``; each
+    warp pass issues the loop's instructions once (its lanes each run
+    the integer-ALU ones), at Hopper's issue rate and integer-ALU lanes
+    at the card's maximum SM clock (as `coin_bound`)."""
+    clk, _ = sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    warp = sum(c["total"] * k for c, k in passes)
+    lanes = sum(c["int_alu"] * 32 * k for c, k in passes)
+    return dict(issue_floor_ms=warp / (ISSUE_PER_SM_CLK * sms * clk) * 1e3,
+                int_alu_floor_ms=lanes / (INT_LANES_PER_SM_CLK * sms * clk)
+                * 1e3)
 
 
 def coin_bound(torch, kernel: str, count: int, nbytes: int) -> dict:
@@ -342,19 +417,106 @@ def encode_arena(torch, R, *, chunk: int = 1024):
     return pbuf[:, :nb], T, need
 
 
+def count_edge_arenas(torch, gen):
+    """``(tag, R)`` of the edge cases the decode-and-count kernels are
+    held to: ``R (theta, n)`` 0/1 row-padded uint8 views on the card."""
+    from repro_torch.kernels import ops
+
+    def blank(theta, n):
+        buf = torch.zeros((theta, ops.padded_width(n)), dtype=torch.uint8,
+                          device="cuda")
+        return buf[:, :n]
+
+    def rand(theta, n, p):
+        R = blank(theta, n)
+        R.copy_(torch.rand((theta, n), generator=gen, device="cuda") < p)
+        return R
+
+    R = blank(37, 512)
+    R[:, ::8] = 1                  # 64 literals a row: s_pad 64, no sentinel
+    yield "no_sentinel", R
+    R = blank(50, 2048)
+    R[::2] = 1                     # rows of runs only, and empty rows
+    yield "runs_only", R
+    R = rand(40, 2304, 0.2)
+    R[1::3, -256:] = 1             # a run in the last superblock
+    yield "last_superblock_run", R
+    R = rand(1000, 5000, 0.05)
+    R[:, [0, 1234, 4999]] = 1      # hub columns: count = theta
+    yield "hub_columns", R
+    n = 5 * 8192 + 3
+    R = rand(600, n, 0.02)
+    R[:, [c for k in range(0, n + 1, 4096) for c in (k - 1, k, k + 1)
+          if 0 <= c < n]] = 1      # both sides of every 4,096-column edge
+    yield "span_edges", R
+    yield "n_1_mod_8", rand(300, 4097, 0.3)
+    yield "theta_1013", rand(1013, 3000, 0.1)
+
+
+def store_arenas(torch, R, *, chunk: int = 1024):
+    """The rows of ``R (theta, n)`` written into a packed and a
+    compressed store on the card; their ``st.R`` views, as the greedy
+    rounds hand them to the kernels."""
+    from repro_torch.core.store import make_store
+
+    theta, n = R.shape
+    stores = {kind: make_store(kind, n, device="cuda")
+              for kind in ("packed", "compressed")}
+    for s in range(0, theta, chunk):
+        for st in stores.values():
+            st.add_batch(R[s:s + chunk])
+    check(all(st.count == theta for st in stores.values()), "store rows")
+    return stores["packed"], stores["compressed"]
+
+
+def segment_reads(torch, T, seg, n: int, *, chunk: int = 1024) -> int:
+    """Tokens token_count's literal reads ask for with every row alive:
+    for each row's nonempty segment of a span (``seg`` from
+    `token_segments`), the 16-byte loads from the segment's start to the
+    kernel's read limit (as many tokens as the span has bytes from the
+    first literal's block on, and one more), taking the first literal's
+    token as known (at a group's first span the kernel reads from the
+    span's first byte instead)."""
+    from repro_torch.core.pack import codec as pc
+    from repro_torch.kernels import packed_count as pcm
+
+    theta, s_pad = T.shape
+    nbp = pc.n_blocks_padded(n)
+    spans = seg.shape[1] - 1
+    b1 = (torch.arange(1, spans + 1, device=T.device) * pcm.SPAN_BYTES
+          ).clamp(max=nbp)
+    total = 0
+    for s in range(0, theta, chunk):
+        start, end = seg[s:s + chunk, :-1], seg[s:s + chunk, 1:]
+        first = T[s:s + chunk].long().gather(1, start.clamp(max=s_pad - 1))
+        limit = torch.minimum(start + (b1 - (first >> pc.TOKEN_SHIFT)) + 1,
+                              torch.full_like(start, s_pad))
+        ask = ((limit + 3) & ~3) - (start & ~3)
+        total += int(ask[end > start].sum())
+    return total
+
+
 def count_rows(torch, R, gen) -> dict:
     """packed_count and token_count against their plain versions and
     against coverage_matvec over the same rows: ragged shapes, saturated
-    runs, random, full and all-zero ``alive``; then at the main path's
+    runs, the edge arenas (`count_edge_arenas`), arenas as the stores
+    hand them over and token views at odd strides and offsets, with
+    random, full, all-zero and float ``alive``; then at the main path's
     shape, the ``(theta, n)`` arena ``R`` (with saturated rows added)
-    packed and as tokens, and their times there."""
+    packed and as tokens, their times there beside their byte bounds and
+    the built kernels' instruction floors; and their times on a store
+    arena at compressed_full's s_pad (32,768)."""
+    from repro_torch.core.pack import codec as pc
+    from repro_torch.kernels import build
     from repro_torch.kernels import coverage_matvec as cov
     from repro_torch.kernels import ops
     from repro_torch.kernels import packed_count as pcm
 
-    def agree(Rc, tag):
+    def agree(Rc, tag, P=None, T=None):
         theta, n = Rc.shape
-        P, T, need = encode_arena(torch, Rc)
+        need = None
+        if P is None:
+            P, T, need = encode_arena(torch, Rc)
         alive = torch.rand(theta, generator=gen, device="cuda") < 0.8
         for a in (alive, torch.zeros_like(alive), torch.ones_like(alive),
                   alive.to(torch.float32)):
@@ -373,6 +535,23 @@ def count_rows(torch, R, gen) -> dict:
         Rc[0] = 1                                  # a saturated row
         Rc[th // 2, :min(nc, 512)] = 1             # and a saturated span
         agree(Rc, f"{th}x{nc}")
+    for tag, Rc in count_edge_arenas(torch, gen):
+        P, T, _ = agree(Rc, tag)
+        if tag == "no_sentinel":
+            check(T.shape[1] == 64
+                  and bool((T != pc.token_sentinel(Rc.shape[1])).all()),
+                  "no_sentinel: every token real")
+        if tag == "n_1_mod_8":
+            theta, s_pad = T.shape
+            Ps, Ts = store_arenas(torch, Rc)
+            agree(Rc, f"{tag} store views", Ps.R[:theta], Ts.R[:theta])
+            wide = torch.zeros((theta + 1, s_pad + 8), dtype=torch.int32,
+                               device="cuda")
+            for off in (0, 4, 1):   # row stride s_pad + 8; 16-byte loads
+                wide.zero_()        # at offsets 0 and 4, one by one at 1
+                wide[1:, off:off + s_pad] = T
+                agree(Rc, f"{tag} tokens at offset {off}", P,
+                      wide[1:, off:off + s_pad])
 
     theta, n = R.shape
     R[5::64] = 1                           # whole rows of saturated runs
@@ -380,6 +559,26 @@ def count_rows(torch, R, gen) -> dict:
     P, T, need = agree(R, "full size")
     full = torch.ones(theta, dtype=torch.bool, device="cuda")
     nb = P.shape[1]
+    # the instruction floors: a packed_count warp pass adds 8 rows of one
+    # 512-byte slice; a token_count pass reads one row's literals of one
+    # span (its round loop) in one batch (the loop around it)
+    seg = pcm.token_segments(T, n)
+    pairs = int((seg[:, 1:] > seg[:, :-1]).sum())
+    requested = segment_reads(torch, T, seg, n)
+    del seg
+    p_sass = sass_text(build.lib_path("packed_count"))
+    t_sass = sass_text(build.lib_path("token_count"))
+    p_loop = loop_counts(p_sass, "packed_count_kernel", "LDG.E.128")
+    t_round = loop_counts(t_sass, "token_count_kernelILb1", "LDG.E.128")
+    t_batch = loop_counts(t_sass, "token_count_kernelILb1", "LDG.E.128",
+                          outer=True)
+    steps = -(-nb // 512) * -(-theta // 8)
+    floors = {"packed_count": instruction_floor(torch, [(p_loop, steps)]),
+              "token_count": instruction_floor(
+                  torch, [(t_round, pairs), (t_batch, pairs)])}
+    emit("count_sass", power=nvidia_smi(), steps=steps, segments=pairs,
+         packed_loop=p_loop, token_round_loop=t_round,
+         token_batch_loop=t_batch)
     rows = {}
     for name, fn, plain, arena, nbytes, replaces in (
             ("packed_count", pcm.packed_count_cuda, pcm.packed_count_plain,
@@ -393,13 +592,43 @@ def count_rows(torch, R, gen) -> dict:
         rows[name] = dict(
             route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
             replaces=replaces, max_abs_err=0, ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, **floors[name],
             shape=[theta, n] if name == "packed_count"
             else [theta, T.shape[1]])
     emit("count_arenas", theta=theta, n=n, packed_bytes=theta * nb,
          s_pad=T.shape[1], token_bytes=T.numel() * 4,
          real_token_bytes=4 * int(need.sum()),
+         segment_read_bytes=4 * requested,
          rows_holding_tokens=int((need > 1).sum()))
+    del P, T, need
+
+    # a store arena at compressed_full's s_pad: the dense rows hold 15%
+    # of the vertices (about 30,400 tokens), the others one vertex
+    dense = torch.arange(theta, device="cuda") % 16 >= 9
+    for s in range(0, theta, 1024):
+        d = dense[s:s + 1024].nonzero().squeeze(1) + s
+        R[d] = (torch.rand((d.numel(), n), generator=gen, device="cuda")
+                < 0.15).to(torch.uint8)
+    Ps, Ts = store_arenas(torch, R)
+    check(Ts.codec.s_pad == 32768, f"store arena s_pad {Ts.codec.s_pad}")
+    real = 4 * sum(int((Ts.R[s:s + 1024] != Ts.codec.fill).sum())
+                   for s in range(0, theta, 1024))
+    want = cov.coverage_matvec_plain(full, R).to(torch.int32)
+    check(torch.equal(ops.packed_count(Ps.R, full, n=n), want)
+          and torch.equal(ops.token_count(Ts.R, full, n=n), want),
+          "count kernels on the store arena")
+    seg = pcm.token_segments(Ts.R, n)
+    requested = segment_reads(torch, Ts.R, seg, n)
+    del seg
+    emit("count_store_arena", theta=theta, n=n, s_pad=Ts.codec.s_pad,
+         real_token_bytes=real, segment_read_bytes=4 * requested,
+         power=nvidia_smi(),
+         packed_ms=time_cuda(torch, lambda: pcm.packed_count_cuda(
+             Ps.R, full, n)),
+         packed_bound_ms=bound(theta * nb + theta + 4 * n)[0],
+         token_ms=time_cuda(torch, lambda: pcm.token_count_cuda(
+             Ts.R, full, n)),
+         token_bound_ms=bound(real + theta + 4 * n)[0])
     return rows
 
 

@@ -32,7 +32,6 @@ import inspect
 from typing import Optional, Sequence
 
 import numpy as np
-import torch
 
 from repro_torch import obs, prng
 from repro_torch.core import martingale as mg
@@ -42,22 +41,13 @@ from repro_torch.core.fused import make_fused_extender
 from repro_torch.core.sampler import default_sampler_name, get_sampler
 from repro_torch.core.selection import get_selection
 from repro_torch.core.store import make_store, next_pow2, store_from_state
+from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import Graph
 
 
 _PACK_REPS = ("packed", "compressed")
 # selection layout of each at-rest representation
 _LAYOUTS = {"bitmap": "dense", "packed": "packed", "compressed": "compressed"}
-
-
-def resolve_device(device=None) -> torch.device:
-    """``cuda`` unless told otherwise; a CUDA device without a GPU raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available: pass device='cpu' to run the "
-            "plain PyTorch versions of the kernels on the host")
-    return dev
 
 
 @dataclasses.dataclass

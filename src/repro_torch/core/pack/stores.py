@@ -43,7 +43,7 @@ class CodecStore(_ArenaBase):
     _initial_kind = "packed"
 
     def __init__(self, n: int, *, capacity: int = MIN_CAPACITY,
-                 device="cpu", s_pad: int = MIN_TOKEN_PAD):
+                 device=None, s_pad: int = MIN_TOKEN_PAD):
         super().__init__(n, capacity=capacity, device=device)
         self.codec = codec_for(self._initial_kind, self.n,
                                s_pad=next_pow2(s_pad, MIN_TOKEN_PAD))
@@ -145,7 +145,7 @@ class CodecStore(_ArenaBase):
         return st
 
     @classmethod
-    def from_state(cls, st, *, device="cpu") -> "CodecStore":
+    def from_state(cls, st, *, device=None) -> "CodecStore":
         kind = str(np.asarray(st["kind"]))
         if kind != cls._initial_kind:
             raise ValueError(f"a {kind!r} snapshot does not restore into "
@@ -168,7 +168,7 @@ class CodecStore(_ArenaBase):
         return store
 
     @classmethod
-    def from_rows(cls, rows, n: int, *, device="cpu") -> "CodecStore":
+    def from_rows(cls, rows, n: int, *, device=None) -> "CodecStore":
         """A store holding exactly ``rows (count, n) uint8`` bit rows —
         the cross-representation restore path."""
         store = cls(int(n), capacity=max(int(rows.shape[0]), MIN_CAPACITY),

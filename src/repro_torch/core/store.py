@@ -17,9 +17,10 @@ Padding rows (index >= ``count``) are all zero and masked by
 sums, so results are seed for seed those of the JAX store.  The packed
 and compressed stores live in `repro_torch.core.pack.stores`; every
 single-device kind restores from every other's snapshot
-(`store_from_state`).  Row lifecycle (kill/replace/compact), pressure
-policies and the index and sharded stores are not ported yet (ROADMAP
-A3, A6, A8).
+(`store_from_state`).  Every store and factory runs on ``cuda`` unless
+given ``device="cpu"`` (`repro_torch.device.resolve_device`).  Row
+lifecycle (kill/replace/compact), pressure policies and the index and
+sharded stores are not ported yet (ROADMAP A3, A6, A8).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import padded_width
 
 MIN_CAPACITY = 16     # matches the reference's pad floor (1 << 4)
@@ -78,9 +80,9 @@ class _ArenaBase:
     and live bits (all rows live until the row lifecycle is ported)."""
 
     def __init__(self, n: int, *, capacity: int = MIN_CAPACITY,
-                 device="cpu"):
+                 device=None):
         self.n = int(n)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.capacity = next_pow2(capacity)
         self.count = 0
         self.dead = 0
@@ -170,7 +172,7 @@ class BitmapStore(_ArenaBase):
     representation = "bitmap"
 
     def __init__(self, n: int, *, capacity: int = MIN_CAPACITY,
-                 device="cpu"):
+                 device=None):
         super().__init__(n, capacity=capacity, device=device)
         self.row_stride = padded_width(self.n)
         self._arena = torch.zeros((self.capacity, self.row_stride),
@@ -223,7 +225,7 @@ class BitmapStore(_ArenaBase):
         return st
 
     @classmethod
-    def from_state(cls, st, *, device="cpu") -> "BitmapStore":
+    def from_state(cls, st, *, device=None) -> "BitmapStore":
         R = np.asarray(st["R"], np.uint8)
         store = cls(int(st["n"]), capacity=R.shape[0], device=device)
         if store.capacity != R.shape[0]:
@@ -234,7 +236,7 @@ class BitmapStore(_ArenaBase):
         return store
 
     @classmethod
-    def from_rows(cls, rows, n: int, *, device="cpu") -> "BitmapStore":
+    def from_rows(cls, rows, n: int, *, device=None) -> "BitmapStore":
         """A store holding exactly ``rows (count, n) uint8`` — the
         cross-representation restore path."""
         store = cls(int(n), capacity=max(int(rows.shape[0]), MIN_CAPACITY),
@@ -267,7 +269,7 @@ def _store_class(kind: str):
                      f"{sorted(_KINDS + tuple(_NOT_PORTED))}")
 
 
-def make_store(kind: str, n: int, *, device="cpu"):
+def make_store(kind: str, n: int, *, device=None):
     """Store factory: ``"auto"``/``"bitmap"`` give a `BitmapStore`,
     ``"packed"`` a `PackedBitmapStore`, ``"compressed"`` a
     `CompressedStore`."""
@@ -293,7 +295,7 @@ def _live_rows_from_state(st) -> tuple[int, np.ndarray]:
     return n, rows
 
 
-def store_from_state(st, *, device="cpu", kind: str = None):
+def store_from_state(st, *, device=None, kind: str = None):
     """Rebuild a store from a `state()` tree.  ``kind`` picks the target
     representation (None keeps the snapshot's own): the same kind
     restores the arena in place, another kind re-encodes the snapshot's

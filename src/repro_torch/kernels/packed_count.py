@@ -5,21 +5,28 @@ exists.
 
 Replaces the TPU kernels ``src/repro/kernels/packed_count.py``
 (``packed_count``, ``token_count``).  ``alive`` is a 0/1 row mask (bool
-or float); rows whose flag is 0 are not read.
+or float); rows whose flag is 0 are not read.  Both kernels count with
+bit-sliced carry-save planes (``csrc/bitslice.cuh``; `bitplanes_add8`
+and `bitplanes_expand` are its arithmetic in PyTorch) and add their
+partial counts into the zeroed counter with one integer atomic a column
+a block.
 
 packed_count — bound on an H100: bytes, each alive row read once:
 ``alive_rows * ceil(n / 8)`` bytes (+ theta mask bytes + 4n output),
-686 MB with every row alive at theta = 16,384, n = 334,863 (about
-0.20 ms at 3.35 TB/s).  Design: a block owns 1,024 columns (128 packed
-bytes) and all rows; each thread reads 16 bytes a row with one load and
-counts their 128 bits in byte lanes, drained into shared memory
+686 MB with every row alive at theta = 16,384, n = 334,863 (0.205 ms at
+3.35 TB/s).  Design: 512-byte column tiles times 32-row units, split
+evenly over a persistent grid; a warp reads a unit's alive flags with
+one ballot and its alive rows with 16-byte loads, eight rows at a time
 (``csrc/packed_count.cu``).
 
 token_count — bound on an H100: bytes, the real tokens (up to each row's
-first sentinel) of the alive rows read once.  Design: a scan pass finds
-each 1,024-column tile's literals in every alive row and counts run
-tokens per superblock; a tile pass stages each row's literals of the
-tile in shared memory and counts them as packed_count does
+first sentinel) of the alive rows read once (1.17 GB at the kernel rows'
+arena, theta 16,384 x s_pad 65,536: 0.348 ms).  Design: 1,024-byte
+column spans in groups times row chunks, one block each; per span a warp
+reads a row's literal segment from its cursor (`token_segments` gives
+where each span's segment starts), scatters it into a shared-memory
+stage of the span's packed bytes and the block counts the stage; run
+tokens are counted per superblock after the literals
 (``csrc/token_count.cu``).  Rows must be in the codec's order (literals
 by block, then runs, then sentinels), as `token_encode` writes them.
 """
@@ -35,7 +42,9 @@ KERNEL_PACKED = "packed_count"
 KERNEL_TOKEN = "token_count"
 #: rows per decoded chunk of the plain versions (bounds their copy)
 PLAIN_CHUNK = 1024
-TILE_BYTES = 128     # kTileBytes of csrc/token_count.cu
+SPAN_BYTES = 1024    # kSpanBytes of csrc/token_count.cu
+PLANES = 8           # kPlanes of csrc/bitslice.cuh
+STEP_ROWS = 8        # rows a carry-save step adds (kStepRows)
 
 
 def _count_chunks(arena, alive, n: int, decode) -> torch.Tensor:
@@ -61,13 +70,76 @@ def token_count_plain(tokens, alive, n: int) -> torch.Tensor:
     return _count_chunks(tokens, alive, n, token_decode)
 
 
+def bitplanes_add8(P: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``add8`` of ``csrc/bitslice.cuh``: the planes ``P (..., PLANES)``
+    plus the eight rows' words ``x (..., STEP_ROWS)``, column by column
+    (32-bit words held in int64), through the same carry-save tree."""
+    def csa(a, b, c):
+        u = a ^ b
+        return (a & b) | (u & c), u ^ c          # (carry, sum)
+
+    P = list(P.unbind(-1))
+    x = x.unbind(-1)
+    twos_a, P[0] = csa(P[0], x[0], x[1])
+    twos_b, P[0] = csa(P[0], x[2], x[3])
+    fours_a, P[1] = csa(P[1], twos_a, twos_b)
+    twos_a, P[0] = csa(P[0], x[4], x[5])
+    twos_b, P[0] = csa(P[0], x[6], x[7])
+    fours_b, P[1] = csa(P[1], twos_a, twos_b)
+    eights, P[2] = csa(P[2], fours_a, fours_b)
+    for q in range(3, PLANES):
+        P[q], eights = P[q] ^ eights, P[q] & eights
+    return torch.stack(P, dim=-1)
+
+
+def bitplanes_expand(P: torch.Tensor) -> torch.Tensor:
+    """``expand`` of ``csrc/bitslice.cuh``: planes ``(..., PLANES)`` ->
+    the 32 column counts ``(..., 32)`` of each word (column j is bit j),
+    gathered four columns at a time into byte lanes as the kernel does."""
+    out = torch.empty(P.shape[:-1] + (32,), dtype=torch.int64,
+                      device=P.device)
+    for j in range(8):
+        v = torch.zeros(P.shape[:-1], dtype=torch.int64, device=P.device)
+        for q in range(PLANES):
+            v |= ((P[..., q] >> j) & 0x01010101) << q
+        for i in range(4):
+            out[..., 8 * i + j] = (v >> (8 * i)) & 0xFF
+    return out
+
+
+def token_segments(tokens, n: int, span_bytes: int = SPAN_BYTES):
+    """Where each span's literal segment starts in each token row:
+    ``(theta, spans + 1)`` int64, entry ``[t, j]`` the index of row t's
+    first literal at a block >= ``j * span_bytes`` and entry ``spans``
+    the row's first non-literal (where its runs start), spans =
+    ``ceil(n_blocks_padded(n) / span_bytes)``.  Row t's literals of span
+    j are tokens ``[t, j] .. [t, j + 1] - 1``; this is what
+    ``csrc/token_count.cu`` finds with a binary search at a group's
+    first span and by walking its cursor after that."""
+    from repro_torch.core.pack import codec as pc
+    nbp = pc.n_blocks_padded(n)
+    spans = -(-nbp // span_bytes)
+    bounds = torch.arange(spans + 1, dtype=torch.int64,
+                          device=tokens.device) * span_bytes
+    bounds[-1] = nbp
+    out = torch.empty((tokens.shape[0], spans + 1), dtype=torch.int64,
+                      device=tokens.device)
+    for s in range(0, tokens.shape[0], PLAIN_CHUNK):
+        blk, code = pc._split_tokens(tokens[s:s + PLAIN_CHUNK])
+        lit = (code < pc.SAT_CODE) & (blk < nbp)
+        key = torch.where(lit, blk, nbp).to(torch.int64)
+        out[s:s + PLAIN_CHUNK] = torch.searchsorted(
+            key, bounds.expand(key.shape[0], -1).contiguous())
+    return out
+
+
 def packed_count_cuda(packed, alive, n: int) -> torch.Tensor:
     packed = C.as_bytes(packed)
     theta, nb = packed.shape
     if nb != -(-n // 8):
         raise ValueError(f"{KERNEL_PACKED}: {nb} bytes per row do not hold "
                          f"n = {n} columns")
-    out = torch.empty(n, dtype=torch.int32, device=packed.device)
+    out = torch.zeros(n, dtype=torch.int32, device=packed.device)
     if n == 0:
         return out
     mask = alive_mask(alive, theta, KERNEL_PACKED)
@@ -88,20 +160,16 @@ def token_count_cuda(tokens, alive, n: int) -> torch.Tensor:
     if tokens.stride(1) != 1 and s_pad > 1:
         raise ValueError(f"{KERNEL_TOKEN}: token rows need a unit column "
                          f"stride, got strides {tokens.stride()}")
-    out = torch.empty(n, dtype=torch.int32, device=tokens.device)
+    out = torch.zeros(n, dtype=torch.int32, device=tokens.device)
     if n == 0:
         return out
     mask = alive_mask(alive, theta, KERNEL_TOKEN)
-    nb = -(-n // 8)
-    tiles = -(-nb // TILE_BYTES)
-    off = torch.empty((tiles + 1) * max(theta, 1), dtype=torch.int32,
-                      device=tokens.device)
-    run_cnt = torch.zeros(-(-nb // 32), dtype=torch.int32,
-                          device=tokens.device)
+    run_total = torch.zeros(-(-n // 256), dtype=torch.int32,
+                            device=tokens.device)
     fn = C.bind(build.library("token_count"), "repro_token_count",
                 (C.VOIDP, C.I64, C.VOIDP, C.I32, C.I32, C.I32, C.VOIDP,
-                 C.VOIDP, C.VOIDP, C.VOIDP))
+                 C.VOIDP, C.VOIDP))
     err = fn(tokens.data_ptr(), ld, mask.data_ptr(), theta, s_pad, n,
-             off.data_ptr(), run_cnt.data_ptr(), out.data_ptr(), C.stream())
+             out.data_ptr(), run_total.data_ptr(), C.stream())
     C.launched(KERNEL_TOKEN, err)
     return out

@@ -22,7 +22,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.configs import get_arch
-from repro_torch.core.engine import resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.models.transformer import (
     LMConfig, decode_step, init_kv_cache, init_lm, prefill,
 )

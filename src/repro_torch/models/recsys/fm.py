@@ -23,7 +23,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.engine import resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.common import take_index, take_rows
 

@@ -23,7 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.engine import resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.models.attention import attention, rope_tables, rotate
 from repro_torch.models.common import (dense_init, rms_norm, take_index,
                                        take_rows)

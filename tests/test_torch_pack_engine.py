@@ -148,7 +148,7 @@ def test_jax_snapshot_continues_in_each_store(src, dst, jax_snapshots):
 
     # the elastic restore itself: the snapshot's rows in the dst store
     st = state["store"]
-    restored = store_from_state(st, kind=dst)
+    restored = store_from_state(st, kind=dst, device="cpu")
     assert restored.representation == dst and restored.count == 512
     rows = restored.codec.decode(restored.R[:512]) if dst != "bitmap" \
         else restored.R[:512]
