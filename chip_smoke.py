@@ -58,12 +58,19 @@ Phases, one JSON line each:
             torch.profiler: device-busy share and the kernels that take
             the device time (the IM sampler's: the optional profile)
 
-The kernels phase also holds packed_count and token_count against their
-plain versions and coverage_matvec on edge arenas (a row of s_pad real
-tokens and no sentinel, runs only, a run in the last superblock, hub
-columns, both sides of every 4,096-column edge, n = 1 mod 8, theta not a
-multiple of 32), on the stores' own views and on token rows at odd
-strides and offsets, prints beside their byte bounds the instruction
+The kernels phase holds arena_commit (both kinds, with the batch's row
+sums written into a stale sizes slice) bitwise on all-ones and all-zero
+batches at B 255, 256, 257 and 511 and n 1, 7, 9, 15, 16, 17 and 4,099,
+on random rows and at the main batch, times it eagerly and from a CUDA
+graph beside torch's copies of the same rows, and prints a commit_step
+line: the step's device time against the parent's form (the kernel,
+then a PyTorch row sum into sizes).  It also holds packed_count and
+token_count against their plain versions and coverage_matvec on edge
+arenas (a row of s_pad real tokens and no sentinel, runs only, a run in
+the last superblock, hub columns, both sides of every 4,096-column edge,
+n = 1 mod 8, theta not a multiple of 32), on the stores' own views and
+on token rows at odd strides and offsets, prints beside their byte
+bounds the instruction
 floors of their built hot loops (cuobjdump), and times them on a store
 arena at compressed_full's s_pad (32,768).  It holds ic_frontier_step
 against its plain version at the com-LJ replica's logq (B = 256,
@@ -351,47 +358,112 @@ def bitmap_arena(torch, theta: int, n: int, gen, *, ld: int):
     return buf, R
 
 
-def packed_commit_row(torch, gen, B: int, n: int) -> dict:
-    """The packed arena commit against its plain version on ragged
-    widths (n = 1, 7, 9, 17, 1,000, 4,099) and at the main path's batch;
-    its times at that batch."""
+#: arena_commit's edge cases: all-ones and all-zero batches at each B
+#: (byte lanes of 255 rows and past) and each ragged n, then random rows
+COMMIT_EDGE_B, COMMIT_EDGE_N = (255, 256, 257, 511), (1, 7, 9, 15, 16, 17,
+                                                     4099)
+COMMIT_RANDOM = ((70, 1000), (3, 17), (5, 1), (256, 4099), (1, 334_863))
+
+
+def commit_batch(torch, gen, Bc: int, nc: int, fill: str):
+    """A ``(Bc, nc)`` view of a row-padded batch whose pad bytes hold 1s:
+    all ones, all zeros or 15% random."""
+    from repro_torch.kernels import ops
+    src = torch.ones((Bc, ops.padded_width(nc)), dtype=torch.uint8,
+                     device="cuda")
+    if fill != "ones":
+        src[:, :nc] = (0 if fill == "zeros" else torch.randint(
+            0, 100, (Bc, nc), generator=gen, device="cuda") < 15)
+    return src[:, :nc]
+
+
+def commit_case(torch, gen, kind: str, rows, lo: int):
+    """``rows`` committed into arena rows [lo, lo + B) by the kernel and
+    by the plain version, each with a stale sizes slice: the whole arena
+    (rows before lo and row padding untouched), counter and sizes
+    bitwise.  Returns the kernel's operands, the plain version's and the
+    kernel's arena."""
     from repro_torch.kernels import commit, ops
+    Bc, nc = rows.shape
+    w = nc if kind == "bitmap" else -(-nc // 8)
+    arena = torch.zeros((lo + Bc, ops.padded_width(w)), dtype=torch.uint8,
+                        device="cuda")
+    cnt = torch.randint(0, 50, (nc,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    sizes = torch.randint(-9, 9, (lo + Bc,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    whole = (arena, cnt, sizes)
+    want = [t.clone() for t in whole]
+    got = (rows, arena[lo:, :w], cnt, sizes[lo:])
+    ref = (rows, want[0][lo:, :w], want[1], want[2][lo:])
+    ops.arena_commit(*got[:3], kind=kind, sizes=got[3])
+    plain = (commit.arena_commit_plain if kind == "bitmap"
+             else commit.arena_commit_packed_plain)
+    plain(*ref)
+    for a, b, what in zip(whole, want, ("rows", "counter", "sizes")):
+        check(torch.equal(a, b), f"arena_commit {kind} {Bc}x{nc} {what}")
+    return got, ref, arena
 
-    def case(Bc, nc):
-        nbc = -(-nc // 8)
-        src = torch.zeros((Bc, ops.padded_width(nc)), dtype=torch.uint8,
-                          device="cuda")
-        src[:, :nc] = torch.randint(0, 100, (Bc, nc), generator=gen,
-                                    device="cuda") < 15
-        arena = torch.zeros((2 * Bc, ops.padded_width(nbc)),
-                            dtype=torch.uint8, device="cuda")
-        arena_ref = arena.clone()
-        cnt = torch.randint(0, 50, (nc,), generator=gen, device="cuda",
-                            dtype=torch.int32)
-        cnt_ref = cnt.clone()
-        ops.arena_commit(src[:, :nc], arena[Bc:, :nbc], cnt, kind="packed")
-        commit.arena_commit_packed_plain(src[:, :nc], arena_ref[Bc:, :nbc],
-                                         cnt_ref)
-        check(torch.equal(arena, arena_ref),
-              f"arena_commit_packed rows {Bc}x{nc}")
-        check(torch.equal(cnt, cnt_ref),
-              f"arena_commit_packed counter {Bc}x{nc}")
-        return src[:, :nc], arena, cnt, arena_ref, cnt_ref
 
-    for Bc, nc in ((5, 1), (5, 7), (5, 9), (3, 17), (70, 1000), (256, 4099)):
-        case(Bc, nc)
-    rows, arena, cnt, arena_ref, cnt_ref = case(B, n)
-    nb = -(-n // 8)
-    ms = time_cuda(torch, lambda: commit.arena_commit_packed_cuda(
-        rows, arena[B:, :nb], cnt))
-    plain_ms = time_cuda(torch, lambda: commit.arena_commit_packed_plain(
-        rows, arena_ref[B:, :nb], cnt_ref), iters=3)
-    b_ms, b_by = bound(B * n + B * nb + 8 * n)
-    return dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/commit.cu",
-        replaces="src/repro/kernels/commit.py:118", max_abs_err=0,
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, shape=[B, n])
+def commit_rows(torch, gen, B: int, n: int) -> dict:
+    """Both kinds of arena_commit against their plain versions (edge
+    cases, random rows and the main path's batch of sampler-shaped rows
+    into rows [B, 2B) of an arena); times at that batch; the bitmap row's
+    copy yardsticks; and the commit step against the parent's form."""
+    from repro_torch.kernels import commit, ops
+    out, step = {}, {}
+    buf, rows = bitmap_arena(torch, B, n, gen, ld=ops.padded_width(n))
+    for kind in ("bitmap", "packed"):
+        for Bc in COMMIT_EDGE_B:
+            for nc in COMMIT_EDGE_N:
+                for fill in ("ones", "zeros"):
+                    batch = commit_batch(torch, gen, Bc, nc, fill)
+                    got, _, _ = commit_case(torch, gen, kind, batch, 3)
+                    check(bool((got[3] == (nc if fill == "ones" else 0))
+                               .all()), f"arena_commit {kind} {fill} sizes")
+        for Bc, nc in COMMIT_RANDOM:
+            commit_case(torch, gen, kind,
+                        commit_batch(torch, gen, Bc, nc, "random"), Bc)
+        got, ref, arena = commit_case(torch, gen, kind, rows, B)
+        cuda = (commit.arena_commit_cuda if kind == "bitmap"
+                else commit.arena_commit_packed_cuda)
+        plain = (commit.arena_commit_plain if kind == "bitmap"
+                 else commit.arena_commit_packed_plain)
+        rows_, dst, cnt, sizes = got
+
+        def kernel():
+            cuda(rows_, dst, cnt, sizes)
+
+        def parent():
+            # the parent's commit step: the kernel, then a PyTorch row sum
+            cuda(rows_, dst, cnt)
+            sizes.copy_(rows_.sum(dim=1, dtype=torch.int32))
+
+        w = dst.shape[1]
+        b_ms, b_by = bound(B * n + B * w + 8 * n + 4 * B)
+        name = commit.KERNEL if kind == "bitmap" else commit.KERNEL_PACKED
+        out[name] = dict(
+            route="cuda", source="src/repro_torch/kernels/csrc/commit.cu",
+            replaces="src/repro/kernels/commit.py:"
+                     + ("75" if kind == "bitmap" else "118"),
+            max_abs_err=0, ms=time_cuda(torch, kernel, iters=20),
+            graph_ms=time_graph(torch, kernel),
+            plain_ms=time_cuda(torch, lambda: plain(*ref), iters=3),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=[B, n])
+        step[kind] = dict(parent_graph_ms=time_graph(torch, parent),
+                          graph_ms=time_graph(torch, kernel))
+        if kind == "bitmap":
+            # yardsticks, not the function: torch's copy of the same rows
+            # as one padded block (a memcpy) and as (B, n) views
+            block = arena[B:]
+            out[name].update(
+                copy_block_ms=time_cuda(torch, lambda: block.copy_(buf),
+                                        iters=20),
+                copy_view_ms=time_cuda(torch, lambda: dst.copy_(rows_),
+                                       iters=20))
+        del got, ref, arena
+    emit("commit_step", shape=[B, n], **step)
+    return out
 
 
 def encode_arena(torch, R, *, chunk: int = 1024):
@@ -1062,7 +1134,7 @@ def fm_rows(torch, gen) -> dict:
 
 def kernel_phase(torch, graph, lj_logq):
     from repro_torch import prng
-    from repro_torch.kernels import coins, commit, ops
+    from repro_torch.kernels import coins, ops
     from repro_torch.kernels import coverage_matvec as cov
     from repro_torch.kernels import fused_select as fsel
 
@@ -1071,38 +1143,8 @@ def kernel_phase(torch, graph, lj_logq):
     ld = ops.padded_width(n)
     rows_out = {}
 
-    # ---- arena_commit: one batch into rows [B, 2B) of an arena
-    def commit_case(Bc, nc):
-        ldc = ops.padded_width(nc)
-        src = torch.zeros((Bc, ldc), dtype=torch.uint8, device="cuda")
-        src[:, :nc] = torch.randint(0, 100, (Bc, nc), generator=gen,
-                                    device="cuda") < 15
-        arena = torch.zeros((2 * Bc, ldc), dtype=torch.uint8, device="cuda")
-        arena_ref = arena.clone()
-        cnt = torch.randint(0, 50, (nc,), generator=gen, device="cuda",
-                            dtype=torch.int32)
-        cnt_ref = cnt.clone()
-        ops.arena_commit(src[:, :nc], arena[Bc:, :nc], cnt)
-        commit.arena_commit_plain(src[:, :nc], arena_ref[Bc:, :nc], cnt_ref)
-        check(torch.equal(arena, arena_ref), f"arena_commit rows {Bc}x{nc}")
-        check(torch.equal(cnt, cnt_ref), f"arena_commit counter {Bc}x{nc}")
-        return src[:, :nc], arena, cnt, arena_ref, cnt_ref
-
-    for Bc, nc in ((70, 1000), (3, 17), (256, 4099)):
-        commit_case(Bc, nc)
-    rows, arena, cnt, arena_ref, cnt_ref = commit_case(B, n)
-    ms = time_cuda(torch, lambda: commit.arena_commit_cuda(
-        rows, arena[B:, :n], cnt))
-    plain_ms = time_cuda(torch, lambda: commit.arena_commit_plain(
-        rows, arena_ref[B:, :n], cnt_ref), iters=3)
-    b_ms, b_by = bound(2 * B * n + 8 * n)
-    rows_out["arena_commit"] = dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/commit.cu",
-        replaces="src/repro/kernels/commit.py:75", max_abs_err=0,
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, shape=[B, n])
-    del rows, arena, cnt, arena_ref, cnt_ref
-    rows_out["arena_commit_packed"] = packed_commit_row(torch, gen, B, n)
+    # ---- arena_commit, both kinds: one batch into rows [B, 2B)
+    rows_out.update(commit_rows(torch, gen, B, n))
 
     # ---- coverage_matvec and fused_select over a theta x n arena
     for th, nc in ((300, 1000), (1, 17), (4096, 513)):
@@ -1530,6 +1572,7 @@ def full_phase(torch, graph, max_theta: int, store: str = "bitmap",
     emit(phase, graph="com-Amazon", store=store, n=graph.n, m=graph.m, k=50,
          eps=0.5, max_theta=max_theta, theta=res.theta, rounds=res.rounds,
          imm_s=imm_s, sample_s=spans["sample"] + spans["store.write"],
+         store_write_s=spans["store.write"],
          select_s=spans["select"], fused_selects_s=fused_s,
          influences_s=influences_s, influence=res.influence,
          covered_frac=res.covered_frac,

@@ -3,8 +3,9 @@
 
 One batch: the bound sampler produces the ``(B, n)`` visited rows, then
 one ``arena_commit`` launch writes them into the arena's next ``B`` rows
-in its at-rest form (bitmap bytes or LSB-first packed bytes) and adds
-their column sums into the fused counter.  The JAX chain returns
+in its at-rest form (bitmap bytes or LSB-first packed bytes), adds
+their column sums into the fused counter and writes their row sums into
+``sizes``: one pass over the batch.  The JAX chain returns
 ``stored`` for a separate donated ``_commit_write`` copy; here
 ``arena_commit`` writes the batch straight into ``R[count:count + B]``,
 so that copy and its second pass over the batch are gone.  The PRNG
@@ -15,8 +16,6 @@ Token-compressed rows have no fused chain (the reference's
 writes through ``store.add_batch`` with the same batch key.
 """
 from __future__ import annotations
-
-import torch
 
 from repro_torch import obs
 from repro_torch.kernels import ops as kops
@@ -52,7 +51,7 @@ class _ArenaFused:
             visited, _, _ = self._sample(key)
         with obs.span("store.write", tier="store", kind=kind, fused=True):
             lo, hi = s.count, s.count + B
-            kops.arena_commit(visited, s.R[lo:hi], s.counter, kind=kind)
-            s.sizes[lo:hi] = visited.sum(dim=1, dtype=torch.int32)
+            kops.arena_commit(visited, s.R[lo:hi], s.counter, kind=kind,
+                              sizes=s.sizes[lo:hi])
         s._note_write(B)
         return True

@@ -23,11 +23,13 @@ from repro_torch.kernels._common import (          # noqa: F401
 )
 
 
-def arena_commit(rows, out, counter, *, kind: str = "bitmap") -> None:
+def arena_commit(rows, out, counter, *, kind: str = "bitmap",
+                 sizes=None) -> None:
     """Write ``rows (B, n)`` 0/1 into ``out`` (an arena slice: ``(B, n)``
     for ``kind="bitmap"``, ``(B, ceil(n/8))`` LSB-first packed bytes for
     ``kind="packed"``) and add their int32 column sums into ``counter
-    (n,)``, in place."""
+    (n,)``, in place; given ``sizes (B,) int32``, write the row sums
+    there, whatever it held."""
     if kind == "bitmap":
         name, cuda, plain = (commit.KERNEL, commit.arena_commit_cuda,
                              commit.arena_commit_plain)
@@ -38,10 +40,11 @@ def arena_commit(rows, out, counter, *, kind: str = "bitmap") -> None:
     else:
         raise ValueError(f"arena_commit kind must be bitmap|packed, "
                          f"got {kind!r}")
-    if impl_for(name, rows, out, counter) == "cuda":
-        cuda(rows, out, counter)
+    operands = (rows, out, counter) + (() if sizes is None else (sizes,))
+    if impl_for(name, *operands) == "cuda":
+        cuda(rows, out, counter, sizes)
     else:
-        plain(rows, out, counter)
+        plain(rows, out, counter, sizes)
 
 
 def coverage_matvec(alive, R):

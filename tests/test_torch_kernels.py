@@ -10,6 +10,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch import obs  # noqa: E402
+from repro_torch.core.fused import _ArenaFused  # noqa: E402
+from repro_torch.core.store import make_store  # noqa: E402
 from repro_torch.kernels import _common, ops, ref  # noqa: E402
 
 
@@ -37,11 +39,81 @@ def test_arena_commit_matches_jax(B, n):
     arena = torch.zeros((2 * B, ops.padded_width(n)), dtype=torch.uint8)
     counter = torch.from_numpy(rng.integers(0, 9, n).astype(np.int32))
     before = counter.clone()
-    ops.arena_commit(_padded(rows), arena[B:, :n], counter)
+    sizes = torch.full((2 * B,), -3, dtype=torch.int32)
+    ops.arena_commit(_padded(rows), arena[B:, :n], counter,
+                     sizes=sizes[B:])
     np.testing.assert_array_equal(arena[B:, :n].numpy(), np.asarray(stored))
     np.testing.assert_array_equal((counter - before).numpy(),
                                   np.asarray(colsum))
+    np.testing.assert_array_equal(sizes[B:].numpy(), rows.sum(axis=1))
     assert int(arena[:B].sum()) == 0 and int(arena[:, n:].sum()) == 0
+    assert bool((sizes[:B] == -3).all())
+
+
+def _expected_commit(kind, rows):
+    """What a commit of ``rows`` stores: the rows, or their LSB-first
+    packed bytes."""
+    if kind == "bitmap":
+        return rows
+    return np.packbits(rows, axis=1, bitorder="little")
+
+
+@pytest.mark.parametrize("kind", ["bitmap", "packed"])
+@pytest.mark.parametrize("B", [255, 256, 257])
+@pytest.mark.parametrize("n", [1, 7, 9, 15, 16, 17, 4099])
+@pytest.mark.parametrize("fill", [0, 1])
+def test_arena_commit_all_ones_and_zeros(kind, B, n, fill):
+    """All-ones and all-zero batches on both sides of 256 rows and at
+    ragged widths: arena rows, counter and sizes (stale before the call)
+    against numpy, nothing written past the row's width."""
+    rows = np.full((B, n), fill, np.uint8)
+    want = _expected_commit(kind, rows)
+    w = want.shape[1]
+    arena = torch.zeros((B + 2, ops.padded_width(w)), dtype=torch.uint8)
+    counter = torch.full((n,), 5, dtype=torch.int32)
+    sizes = torch.full((B + 2,), 77, dtype=torch.int32)
+    ops.arena_commit(_padded(rows), arena[1:B + 1, :w], counter, kind=kind,
+                     sizes=sizes[1:B + 1])
+    np.testing.assert_array_equal(arena[1:B + 1, :w].numpy(), want)
+    np.testing.assert_array_equal(counter.numpy(), 5 + fill * B)
+    np.testing.assert_array_equal(sizes[1:B + 1].numpy(), fill * n)
+    assert int(sizes[0]) == int(sizes[B + 1]) == 77
+    assert int(arena[0].sum()) == int(arena[B + 1].sum()) == 0
+    assert int(arena[:, w:].sum()) == 0
+
+
+class _Replay:
+    """A bound sampler that hands out given batches in turn."""
+
+    def __init__(self, batches):
+        self.batches = list(batches)
+
+    def __call__(self, key):
+        return self.batches.pop(0), None, None
+
+
+@pytest.mark.parametrize("kind", ["bitmap", "packed"])
+def test_fused_extender_matches_add_batch(kind):
+    """`_ArenaFused.extend_once` (one arena_commit with sizes) leaves the
+    arena, counter and sizes of the store's unfused `add_batch` on the
+    same rows; the second batch lands at row 300 of a grown arena."""
+    rng = np.random.default_rng(3)
+    n, B = 777, 300
+    batches = [_bitmap(rng, B, n, p) for p in (0.1, 0.6)]
+    batches[1][7] = 0
+    fused_store = make_store(kind, n, device="cpu")
+    plain_store = make_store(kind, n, device="cpu")
+    fused = _ArenaFused(fused_store, _Replay(_padded(b) for b in batches),
+                        B, sampler_name="replay")
+    for b in batches:
+        assert fused.extend_once(None)
+        plain_store.add_batch(torch.from_numpy(b))
+    assert fused_store.count == plain_store.count == 2 * B
+    for name in ("R", "counter", "sizes"):
+        assert torch.equal(getattr(fused_store, name),
+                           getattr(plain_store, name)), name
+    np.testing.assert_array_equal(fused_store.sizes[:2 * B].numpy(),
+                                  np.concatenate(batches).sum(axis=1))
 
 
 # ------------------------------------------------------- coverage_matvec ----
@@ -133,6 +205,11 @@ def test_non_cpu_operands_never_take_the_plain_version():
     with pytest.raises(ValueError, match="operands on"):
         ops.arena_commit(R, R[:, :2], torch.zeros(16, dtype=torch.int32),
                          kind="packed")
+    cpu = torch.zeros((4, 16), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="operands on"):
+        ops.arena_commit(cpu, cpu, torch.zeros(16, dtype=torch.int32),
+                         sizes=torch.zeros(4, dtype=torch.int32,
+                                           device="meta"))
     with pytest.raises(ValueError, match="operands on"):
         ops.packed_count(R, alive, n=128)
     with pytest.raises(ValueError, match="operands on"):

@@ -73,7 +73,11 @@ def test_arena_commit_packed_matches_jax(B, n):
     arena = torch.zeros((2 * B, ops.padded_width(nb)), dtype=torch.uint8)
     counter = torch.from_numpy(rng.integers(0, 9, n).astype(np.int32))
     before = counter.clone()
-    ops.arena_commit(_padded(rows), arena[B:, :nb], counter, kind="packed")
+    sizes = torch.full((2 * B,), -3, dtype=torch.int32)
+    ops.arena_commit(_padded(rows), arena[B:, :nb], counter, kind="packed",
+                     sizes=sizes[B:])
+    np.testing.assert_array_equal(sizes[B:].numpy(), rows.sum(axis=1))
+    assert bool((sizes[:B] == -3).all())
     np.testing.assert_array_equal(arena[B:, :nb].numpy(), np.asarray(stored))
     np.testing.assert_array_equal(arena[B:, :nb].numpy(),
                                   jc.pack_bits_np(rows))
