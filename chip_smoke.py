@@ -22,6 +22,17 @@ Phases, one JSON line each:
             the same solve, selections and queries on the IMPack packed
             and compressed stores: seeds, theta, influence and coverage
             equal imm_full's
+  indices_full
+            imm() on the same replica under WC (sparse backend) with
+            three engines: an IndexStore fed C4 index lists by the
+            sampler (the emission width doubling and re-emitting the
+            batch when a row comes back full), a bitmap store with the
+            C4 chooser on (index-list selection through its index view
+            when C4 picks it) and one with it off: seeds, theta,
+            influence, covered_frac, counter and four influence queries
+            identical; then a snapshot of the index engine restored into
+            a fresh engine and replicated (identical answers; two more
+            batches give identical counters)
   pallas_full
             imm() on the com-LJ Table III replica (n = 3,997, IC, k = 50,
             eps = 0.5, max_theta = 65,536) with the pallas backend (every
@@ -113,12 +124,13 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-#: H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and the
-#: float32 rate outside the tensor cores (an FMA counts two operations).
-#: The coin kernels' 32-bit integer work is bounded from their built
-#: instructions instead (`coin_bound`)
-HBM_BYTES_PER_S = 3.35e12
-ALU_OPS_PER_S = 67e12
+#: H100 SXM peaks, read in `main` from the port's roofline
+#: (`repro_torch.launch.roofline`, its ``h100`` row, NVIDIA's data
+#: sheet): HBM bytes/s, the float32 rate outside the tensor cores (an FMA
+#: counts two operations) and the dense bf16 tensor-core rate, the bound
+#: of attention's flops.  The coin kernels' 32-bit integer work is bounded
+#: from their built instructions instead (`coin_bound`)
+HBM_BYTES_PER_S = ALU_OPS_PER_S = BF16_FLOPS_PER_S = None
 #: Hopper's issue rate (warp instructions a SM a clock) and its integer
 #: ALU lanes a SM a clock (IADD3, LOP3, SHF, ...: half the FP32 lanes;
 #: H100 white paper, CUDA's throughput table for compute capability 9.0)
@@ -128,8 +140,6 @@ INT_ALU_OPS = frozenset({
     "IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "LEA", "ISETP",
     "SEL", "PRMT", "IMNMX", "VIMNMX", "IABS", "POPC", "FLO", "BREV",
     "BMSK", "SGXT", "VIADD"})
-#: the bf16 tensor-core rate (dense), the bound of attention's flops
-BF16_FLOPS_PER_S = 989e12
 
 AMAZON_N, BATCH, THETA = 334_863, 256, 16_384
 #: the com-LJ Table III replica (`IMM_EXPERIMENTS["com-LJ"].bench_scale`)
@@ -200,8 +210,20 @@ def timed(torch, fn):
     return res, time.perf_counter() - t
 
 
+def load_peaks() -> None:
+    """Set the bounds' peaks from the port's roofline h100 row."""
+    from repro_torch.launch.roofline import HW_PEAKS
+
+    global HBM_BYTES_PER_S, ALU_OPS_PER_S, BF16_FLOPS_PER_S
+    row = HW_PEAKS["h100"]
+    HBM_BYTES_PER_S = row["hbm_bytes_per_s"]
+    ALU_OPS_PER_S = row["peak_flops_f32"]
+    BF16_FLOPS_PER_S = row["peak_flops_bf16"]
+
+
 def bound(nbytes: float, ops: float = 0.0,
-          rate: float = ALU_OPS_PER_S) -> tuple[float, str]:
+          rate: float = None) -> tuple[float, str]:
+    rate = ALU_OPS_PER_S if rate is None else rate
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -956,7 +978,8 @@ def attention_rows(torch, gen) -> dict:
     one too, in query blocks); the kernel's, the plain version's and
     SDPA's times there, with the bound, the share of the 989 TFLOP/s bf16
     rate the kernel reaches and the ratio to SDPA; the SIMT kernel's f32
-    times at the two smaller shapes; and the host cost of encoding the
+    times at the two smaller shapes beside SDPA's in f32; and the host
+    cost of encoding the
     tensor-core kernel's TMA maps at the serving prefill."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -1021,7 +1044,11 @@ def attention_rows(torch, gen) -> dict:
             qf, kf, vf = q.float(), k.float(), v.float()
             f32_ms = time_cuda(torch, lambda: fa.flash_attention_cuda(
                 qf, kf, vf, window=window), warmup=1, iters=3)
+            f32_sdpa_ms = time_cuda(torch, sdpa(torch, qf, kf, vf, window),
+                                    warmup=1, iters=3)
             timed[name]["f32"] = dict(impl=fa.design(qf, kf, vf), ms=f32_ms,
+                                      library_ms=f32_sdpa_ms,
+                                      vs_sdpa=f32_ms / f32_sdpa_ms,
                                       tflops=flops / f32_ms / 1e9)
             del qf, kf, vf
         if name == "serve_prefill":
@@ -1091,9 +1118,11 @@ def fm_bitwise(torch, got, want, tag: str) -> None:
 def fm_rows(torch, gen) -> dict:
     """fm_interaction against its plain version, bitwise: B 1 and 1,025,
     F/K (6, 4), (16, 8) and (39, 10), and the three timed batches, each in
-    f32 and bf16; the kernel's and the plain version's times at the timed
-    batches, with the byte bound (no single PyTorch call computes this
-    function, so no library time)."""
+    f32 and bf16; the kernel's times at the timed batches (eager calls,
+    and ``graph_ms``, the device time from a CUDA graph: an eager call at
+    serve_p99 times the host's launch), the plain version's, with the
+    byte bound (no single PyTorch call computes this function, so no
+    library time)."""
     from repro_torch.kernels import fm_interaction as fmk
     from repro_torch.kernels import ops
 
@@ -1111,6 +1140,7 @@ def fm_rows(torch, gen) -> dict:
             fm_bitwise(torch, ops.fm_interaction(v),
                        fmk.fm_interaction_plain(v), f"{shape_name} {name}")
             ms = time_cuda(torch, lambda: fmk.fm_interaction_cuda(v))
+            graph_ms = time_graph(torch, lambda: fmk.fm_interaction_cuda(v))
             plain_ms = time_cuda(torch, lambda: fmk.fm_interaction_plain(v),
                                  warmup=1, iters=3)
             # v read once, the output written once; an add, a multiply
@@ -1118,9 +1148,10 @@ def fm_rows(torch, gen) -> dict:
             nbytes = v.numel() * v.element_size() + 4 * B
             b_ms, b_by = bound(nbytes, 3 * v.numel() + 4 * B * FM_K)
             timed[f"{shape_name}_{name}"] = dict(
-                shape=[B, FM_F, FM_K], dtype=name, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-                gbytes_per_s=nbytes / ms / 1e6)
+                shape=[B, FM_F, FM_K], dtype=name, ms=ms, graph_ms=graph_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                bytes=nbytes, gbytes_per_s=nbytes / ms / 1e6,
+                bound_share=b_ms / graph_ms)
             del v
     torch.cuda.empty_cache()
     emit("fm_interaction", cases=[list(c) for c in cases], **timed)
@@ -1468,6 +1499,15 @@ KERNEL_PATH = {
 }
 
 
+def influence_sets(torch, graph, seeds):
+    """The four influence queries of a full solve: its seeds, its first
+    10, the 50 highest out-degree vertices, 50 evenly spaced ones."""
+    deg = torch.bincount(graph.edge_src.long(), minlength=graph.n)
+    return [list(seeds), list(seeds[:10]),
+            torch.topk(deg, 50).indices.tolist(),
+            list(range(0, graph.n, graph.n // 50))[:50]]
+
+
 def full_phase(torch, graph, max_theta: int, store: str = "bitmap",
                ref: dict = None):
     """imm() on the full-size replica with ``store``, then the fused
@@ -1496,10 +1536,7 @@ def full_phase(torch, graph, max_theta: int, store: str = "bitmap",
     fd = engine.select(50, method="fused-decrement")
     torch.cuda.synchronize()
     fused_s = time.perf_counter() - t0
-    deg = torch.bincount(graph.edge_src.long(), minlength=graph.n)
-    sets = [list(res.seeds), list(res.seeds[:10]),
-            torch.topk(deg, 50).indices.tolist(),
-            list(range(0, graph.n, graph.n // 50))[:50]]
+    sets = influence_sets(torch, graph, res.seeds)
     t0 = time.perf_counter()
     infl = engine.influences(sets)
     influences_s = time.perf_counter() - t0
@@ -1707,12 +1744,184 @@ def pallas_full(torch, graph, max_theta: int) -> dict:
     return out["pallas"]["launches"]
 
 
-# ------------------------------------------------------------ LM serving ----
-
 #: prefill logits, cuda vs cpu: |err| <= atol + rtol |cpu|.  f32: the same
 #: arithmetic summed in another order; bf16: every product rounds to
 #: bf16 on both devices, in other orders (the CPU tests hold the port to
 #: JAX by the same bound)
+#: the three engines of indices_full: C4 index lists emitted natively
+#: by the sparse sampler; a bitmap store with the C4 chooser on; a bitmap
+#: store with it off
+INDICES_ENGINES = (("indices", "indices", True),
+                   ("bitmap_c4", "bitmap", True),
+                   ("bitmap", "bitmap", False))
+
+
+def indices_full(torch, graph, max_theta: int) -> dict:
+    """imm() on the full-size com-Amazon replica under WC (k 50, eps 0.5,
+    rebuild, the sparse backend) with three engines (`INDICES_ENGINES`):
+    seeds, theta, influence, covered_frac, counter and four influence
+    queries identical across them; the IndexStore's counter equal to a
+    count of its rows, its sizes to their members; C4's choice with its
+    average coverage and l_max; then a snapshot of the index engine,
+    restored into a fresh engine and replicated: identical selections
+    and influences, and two more batches on the primary and the restored
+    engine give identical counters.  Returns the index engine's
+    launches."""
+    from repro_torch import obs
+    from repro_torch.core.adaptive import choose_representation, l_pad_for
+    from repro_torch.core.engine import IMMConfig, InfluenceEngine
+    from repro_torch.kernels import ops
+    from repro_torch.sparse.scatter import bincount_weighted
+
+    out, ref = {}, None
+    for name, store, c4 in INDICES_ENGINES:
+        cfg = IMMConfig(k=50, eps=0.5, model="WC", backend="sparse",
+                        batch=BATCH, max_theta=max_theta, seed=0,
+                        selection_method="rebuild", store=store,
+                        adaptive_representation=c4)
+        obs.reset()
+        obs.enable()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        engine = InfluenceEngine(graph, cfg, device=DEV)
+        res = engine.run()
+        torch.cuda.synchronize()
+        imm_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        counters = obs.snapshot()["counters"]
+        tracer = obs.get_tracer()
+        spans = {k: sum(tracer.durations_s(k))
+                 for k in ("sample", "store.write", "select")}
+        obs.reset()
+        peak = torch.cuda.max_memory_allocated()
+        st = engine.store
+        avg_cov, l_max = st.coverage_stats()
+        chosen = choose_representation(avg_cov, graph.n, l_max,
+                                       cfg.switch_ratio)
+        sets = influence_sets(torch, graph, res.seeds)
+        infl = [float(x) for x in engine.influences(sets)]
+        row = dict(store=store, c4=c4, theta=res.theta, rounds=res.rounds,
+                   representation=res.representation, imm_s=imm_s,
+                   sample_s=spans["sample"] + spans["store.write"],
+                   select_s=spans["select"], avg_coverage=avg_cov,
+                   l_max=l_max, c4_choice=chosen,
+                   arena_bytes=st.arena_bytes, max_memory_allocated=peak,
+                   launches=launches, influence=res.influence,
+                   covered_frac=res.covered_frac, influences=infl,
+                   seeds=[int(x) for x in res.seeds[:10]])
+        check(res.theta == st.count > 0, f"indices_full {name} theta")
+        check(len(set(int(x) for x in res.seeds)) == 50,
+              f"indices_full {name} seeds unique")
+        check(0.0 < res.covered_frac <= 1.0, f"indices_full {name} cover")
+        check(infl[0] == res.influence, f"indices_full {name} influence "
+              f"of the seeds {infl[0]} vs {res.influence}")
+        check(launches.get("ic_sparse_hits", 0) > 0,
+              f"indices_full {name}: coins not launched")
+        if name == "indices":
+            check(st.representation == res.representation == "indices",
+                  "indices_full: the index store")
+            check(launches.get("arena_commit", 0) == 0,
+                  "indices_full: arena_commit on the index store")
+            check(engine._emit_l > 0 and engine._fused is None,
+                  "indices_full: native emission")
+            count = st.count
+            rows = st.R[:count]
+            check(torch.equal(bincount_weighted(
+                rows, torch.ones((), dtype=torch.int32, device=DEV),
+                graph.n), st.counter), "indices_full: counter == rows")
+            check(torch.equal((rows < graph.n).sum(dim=1,
+                                                   dtype=torch.int32),
+                              st.sizes[:count]),
+                  "indices_full: sizes == members")
+            check(bool((rows[:, :-1] <= rows[:, 1:]).all()),
+                  "indices_full: rows ascending")
+            fr = engine.select(50, method="fused-rebuild")
+            fd = engine.select(50, method="fused-decrement")
+            for sel, tag in ((fr, "fused-rebuild"), (fd, "fused-decrement")):
+                check(list(sel.seeds) == list(res.seeds)
+                      and sel.covered_frac == res.covered_frac,
+                      f"indices_full: {tag}")
+            row.update(l_pad=st.l_pad, emit_l=engine._emit_l,
+                       reemits=counters.get("engine.index_reemits", 0),
+                       ic_sparse_hits=launches.get("ic_sparse_hits", 0))
+            primary = engine
+        else:
+            check(res.representation == (chosen if c4 else store),
+                  f"indices_full {name}: representation")
+            if c4 and chosen == "indices":
+                view = st.index_view(l_pad_for(l_max))
+                row.update(index_view_l_pad=int(view.R.shape[1]))
+                del view
+            del engine, st
+        summary = dict(seeds=list(res.seeds), theta=res.theta,
+                       influence=res.influence,
+                       covered_frac=res.covered_frac, influences=infl)
+        if ref is None:
+            ref, ref_counter = summary, res.counter
+        for key in summary:
+            check(summary[key] == ref[key], f"indices_full {name} {key}: "
+                  f"{summary[key]} vs {ref[key]}")
+        check(bool((res.counter == ref_counter).all()),
+              f"indices_full {name} counter")
+        out[name] = row
+        torch.cuda.empty_cache()
+    out["snapshot"] = snapshot_check(torch, primary, graph)
+    emit("indices_full", graph="com-Amazon", model="WC", n=graph.n,
+         m=graph.m, k=50, eps=0.5, max_theta=max_theta,
+         arena_ratio=out["bitmap"]["arena_bytes"]
+         / out["indices"]["arena_bytes"], **out)
+    return out["indices"]["launches"]
+
+
+def snapshot_check(torch, engine, graph) -> dict:
+    """`snapshot` the engine to a temporary directory, `restore` it into a
+    fresh engine and `replicate` it: select(50) and the influences
+    identical on all three; two more batches on the primary and the
+    restored engine give identical counters (the PRNG stream resumes)."""
+    import tempfile
+
+    from repro_torch.core.engine import InfluenceEngine
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = engine.snapshot(d)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        fresh = InfluenceEngine(graph, engine.cfg, device=DEV)
+        t0 = time.perf_counter()
+        check(fresh.restore(d), "snapshot: restore")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    replica = engine.replicate()
+    torch.cuda.synchronize()
+    replicate_s = time.perf_counter() - t0
+    want = engine.select(50)
+    sets = influence_sets(torch, graph, want.seeds)
+    infl = list(engine.influences(sets))
+    for other, tag in ((fresh, "restored"), (replica, "replica")):
+        got = other.select(50)
+        check(list(got.seeds) == list(want.seeds)
+              and got.covered_frac == want.covered_frac,
+              f"snapshot: {tag} select")
+        check(list(other.influences(sets)) == infl,
+              f"snapshot: {tag} influences")
+        check(other.store.R.data_ptr() != engine.store.R.data_ptr(),
+              f"snapshot: {tag} shares the arena")
+    theta = engine.theta + 2 * BATCH
+    engine.extend(theta)
+    fresh.extend(theta)
+    check(torch.equal(engine.store.counter, fresh.store.counter),
+          "snapshot: counters after two more batches")
+    check(replica.theta == want.theta, "snapshot: the replica moved")
+    return dict(bytes_on_disk=nbytes, save_s=save_s, load_s=load_s,
+                replicate_s=replicate_s, theta_after=theta)
+
+
+# ------------------------------------------------------------ LM serving ----
+
 LOGIT_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (0.05, 0.02)}
 PARITY_B, PARITY_PROMPT, PARITY_GEN = 2, 48, 16
 FULL_B, FULL_PROMPT, FULL_GEN = 4, 512, 32
@@ -2389,12 +2598,12 @@ def main(argv=None) -> int:
                          "n)")
     ap.add_argument("--phases",
                     default="kernels,parity,imm_full,packed_full,"
-                            "compressed_full,pallas_full,lm_parity,lm_full,"
-                            "fm_parity,fm_full,fm_profile",
+                            "compressed_full,indices_full,pallas_full,"
+                            "lm_parity,lm_full,fm_parity,fm_full,fm_profile",
                     help="comma list of kernels, parity, imm_full, "
-                         "packed_full, compressed_full, pallas_full, "
-                         "lm_parity, lm_full, fm_parity, fm_full, "
-                         "fm_profile and the optional profile")
+                         "packed_full, compressed_full, indices_full, "
+                         "pallas_full, lm_parity, lm_full, fm_parity, "
+                         "fm_full, fm_profile and the optional profile")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -2404,6 +2613,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
+        load_peaks()
         from repro_torch.core.sampler import make_logq
         from repro_torch.graphs.datasets import scaled_snap, synthetic_snap
         from repro_torch.kernels import build
@@ -2442,6 +2652,8 @@ def main(argv=None) -> int:
                 torch, graph, args.max_theta, store, ref)
             if store == "bitmap":
                 ref = summary
+    if "indices_full" in phases:
+        launches["indices_full"] = indices_full(torch, graph, args.max_theta)
     if "pallas_full" in phases:
         launches["pallas_full"] = pallas_full(torch, lj, LJ_THETA)
     if "lm_parity" in phases:

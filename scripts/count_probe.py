@@ -85,6 +85,7 @@ def main() -> int:
     from repro_torch.kernels import packed_count as pcm
 
     build.build_all()
+    cs.load_peaks()
     power = cs.nvidia_smi()
     argtypes = (C.VOIDP, C.I64, C.VOIDP, C.I32, C.I32, C.I32, C.VOIDP,
                 C.VOIDP, C.VOIDP)

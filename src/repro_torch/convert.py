@@ -2,10 +2,12 @@
 
 ``graph_from_arrays`` builds the port's `Graph` from the arrays of a
 ``repro`` graph; ``engine_state_from_tree`` adopts the numpy tree of
-``repro``'s ``InfluenceEngine.snapshot_tree()`` (a bitmap, packed or
-compressed store, the PRNG key and meta).  A JAX engine stopped at some
-theta then continues in the port, batch for batch, on the same key
-stream, in the store the port engine is configured with::
+``repro``'s ``InfluenceEngine.snapshot_tree()`` (a bitmap, packed,
+compressed or index-list store, the PRNG key and meta).  A JAX engine
+stopped at some theta then continues in the port, batch for batch, on
+the same key stream, in the store the port engine is configured with
+(the port's `InfluenceEngine.restore` reads the reference's snapshot
+files directly)::
 
     tree = jax_engine.snapshot_tree()
     engine = InfluenceEngine(graph_from_arrays(arrays), cfg)
@@ -15,6 +17,8 @@ stream, in the store the port engine is configured with::
 ``lm_params_from_jax`` takes the reference's ``init_lm`` parameter tree
 (numpy leaves) to the port's LM parameters, leaf for leaf;
 ``fm_params_from_jax`` does the same for ``init_fm``'s ``{"v", "w", "b"}``.
+Both put the parameters on ``cuda`` unless given ``device="cpu"``
+(`repro_torch.device.resolve_device`), where the port's servers run.
 
 Nothing here imports JAX: the caller turns device arrays into numpy
 (``np.asarray``) first.
@@ -24,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import Graph
 
 _INT_FIELDS = ("src_offsets", "out_dst", "dst_offsets", "in_src",
@@ -33,7 +38,10 @@ _FLOAT_FIELDS = ("in_prob", "in_lt_cum", "in_lt_total")
 
 def graph_from_arrays(arrays, *, device="cpu") -> Graph:
     """A `Graph` from a mapping (or an object with attributes) holding a
-    reference graph's fields: ``n``, ``m`` and the CSR/CSC arrays."""
+    reference graph's fields: ``n``, ``m`` and the CSR/CSC arrays.  It
+    stays on the host unless asked otherwise, by design: an engine moves
+    its graph to its own device (``InfluenceEngine`` calls
+    ``graph.to``)."""
     get = (arrays.__getitem__ if isinstance(arrays, dict)
            else lambda k: getattr(arrays, k))
     fields = {}
@@ -48,25 +56,28 @@ def graph_from_arrays(arrays, *, device="cpu") -> Graph:
 
 
 #: element type of each snapshot kind's at-rest arena
-_DTYPES = {"bitmap": np.uint8, "packed": np.uint8, "compressed": np.int32}
+_DTYPES = {"bitmap": np.uint8, "packed": np.uint8, "compressed": np.int32,
+           "indices": np.int32}
 
 
 def engine_state_from_tree(tree: dict) -> dict:
     """Validate and normalize a reference ``snapshot_tree()`` (numpy
     leaves) into the tree `InfluenceEngine.restore_tree` adopts: a
     ``"bitmap"`` store with ``(capacity, n) uint8`` rows, a ``"packed"``
-    one with ``(capacity, ceil(n/8)) uint8`` rows or a ``"compressed"``
-    one with ``(capacity, s_pad) int32`` token rows; int32 sizes and
+    one with ``(capacity, ceil(n/8)) uint8`` rows, a ``"compressed"``
+    one with ``(capacity, s_pad) int32`` token rows or an ``"indices"``
+    one with ``(capacity, l_pad) int32`` index lists; int32 sizes and
     counter, bool live bits, and a ``uint32[2]`` key."""
     st = tree["store"]
     kind = str(np.asarray(st["kind"]))
     if kind not in _DTYPES:
         raise NotImplementedError(
-            f"only bitmap, packed and compressed snapshots carry across so "
-            f"far, got {kind!r} (index/sharded stores: ROADMAP A3, A8)")
+            f"bitmap, packed, compressed and index snapshots carry across, "
+            f"got {kind!r} (the sharded store: ROADMAP A8)")
     n = int(st["n"])
     R = np.ascontiguousarray(np.asarray(st["R"]), dtype=_DTYPES[kind])
-    # bitmap rows hold n bytes, packed ceil(n/8); token rows any s_pad
+    # bitmap rows hold n bytes, packed ceil(n/8); token rows any s_pad,
+    # index rows any l_pad
     width = {"bitmap": n, "packed": -(-n // 8)}.get(kind, R.shape[-1])
     if R.ndim != 2 or R.shape[1] != width:
         raise ValueError(f"{kind} snapshot arena {R.shape} does not have "
@@ -105,11 +116,12 @@ def _leaf_tensor(a, device, dtype) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def lm_params_from_jax(tree: dict, device="cpu", dtype=None) -> dict:
+def lm_params_from_jax(tree: dict, device=None, dtype=None) -> dict:
     """The port's LM parameters from the reference's ``init_lm`` tree
     (``{"embed", "layers": {...}, "ln_f", "lm_head"}`` with numpy leaves,
     layer weights stacked on a leading L axis), in each leaf's own dtype
-    or cast to ``dtype``."""
+    or cast to ``dtype``, on ``cuda`` unless ``device`` says otherwise."""
+    device = resolve_device(device)
     out = {}
     for name, leaf in tree.items():
         out[name] = (lm_params_from_jax(leaf, device, dtype)
@@ -118,8 +130,10 @@ def lm_params_from_jax(tree: dict, device="cpu", dtype=None) -> dict:
     return out
 
 
-def fm_params_from_jax(tree: dict, device="cpu", dtype=None) -> dict:
+def fm_params_from_jax(tree: dict, device=None, dtype=None) -> dict:
     """The port's FM parameters from the reference's ``init_fm`` tree
-    (``{"v": (rows, K), "w": (rows,), "b": ()}``, numpy leaves)."""
+    (``{"v": (rows, K), "w": (rows,), "b": ()}``, numpy leaves), on
+    ``cuda`` unless ``device`` says otherwise."""
+    device = resolve_device(device)
     return {name: _leaf_tensor(tree[name], device, dtype)
             for name in ("v", "w", "b")}

@@ -5,14 +5,21 @@
     result = engine.run()                 # Algorithm 1
     top10  = engine.select(10)            # more queries, no re-sampling
     sigma  = engine.influence([5, 17])    # sigma(S) for any seed set
+    engine.snapshot(ckpt_dir)             # resumable (checkpoint.store)
 
 Sampling goes through the sampler registry (`repro_torch.core.sampler`),
-batches land in a preallocated store — a `BitmapStore`, or with
+batches land in a preallocated store — a `BitmapStore`, with
 ``cfg.store`` ``"packed"``/``"compressed"`` an IMPack arena
-(`repro_torch.core.pack`) — through the fused sample -> write -> count
-extender where the at-rest form has one, and selection goes through the
-strategy registry (`repro_torch.core.selection`), memoized per (store
-version, k, method).  For a fixed ``cfg.seed`` every seed, theta,
+(`repro_torch.core.pack`), with ``"indices"`` an `IndexStore` of C4
+index lists — through the fused sample -> write -> count extender where
+the at-rest form has one, and selection goes through the strategy
+registry (`repro_torch.core.selection`), memoized per (store version,
+k, method).  An `IndexStore` takes the sparse sampler's batches as
+index lists straight away (``emit_l``): the emission width doubles and
+the batch is re-emitted with the same key when a row comes back full.
+The C4 chooser (``adaptive_representation``, n >= ``sparse_rep_min_n``)
+sends sparse sets of any store to index-list selection through the
+store's ``index_view``.  For a fixed ``cfg.seed`` every seed, theta,
 coverage and arena byte equals the JAX package's, on every store, with
 the sparse sampler; the dense and pallas samplers (the default for
 n <= ``dense_sampler_max_n``) equal it up to near-tie coin flips
@@ -20,10 +27,15 @@ n <= ``dense_sampler_max_n``) equal it up to near-tie coin flips
 Stable samplers re-generate row subsets of a recorded batch
 (`resample`).
 
+``snapshot``/``restore`` write and read the reference's checkpoint
+files (`repro_torch.checkpoint.store`), so either package resumes the
+other's engine; ``replicate`` builds a read replica that shares no
+tensor with the primary.
+
 The engine runs on ``cuda`` unless ``device="cpu"`` is passed; without a
 GPU and without ``device="cpu"`` it raises rather than carry on slowly
-on the host.  A mesh, or the indices or sharded store, raises
-`NotImplementedError` (ROADMAP A3, A8).
+on the host.  A mesh or the sharded store raises `NotImplementedError`
+(ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -34,9 +46,10 @@ from typing import Optional, Sequence
 import numpy as np
 
 from repro_torch import obs, prng
+from repro_torch.checkpoint import store as ckpt
 from repro_torch.core import martingale as mg
 from repro_torch.core import pack  # noqa: F401  (registers pack layouts)
-from repro_torch.core.adaptive import choose_representation
+from repro_torch.core.adaptive import choose_representation, l_pad_for
 from repro_torch.core.fused import make_fused_extender
 from repro_torch.core.sampler import default_sampler_name, get_sampler
 from repro_torch.core.selection import get_selection
@@ -46,8 +59,9 @@ from repro_torch.graphs.csr import Graph
 
 
 _PACK_REPS = ("packed", "compressed")
-# selection layout of each at-rest representation
-_LAYOUTS = {"bitmap": "dense", "packed": "packed", "compressed": "compressed"}
+# selection layout of each representation
+_LAYOUTS = {"bitmap": "dense", "packed": "packed", "compressed": "compressed",
+            "indices": "sparse"}
 
 
 @dataclasses.dataclass
@@ -71,8 +85,8 @@ class IMMConfig:
     sparse_rep_min_n: int = 65536
     fuse_counters: bool = True
     switch_ratio: int = 32
-    store: str = "auto"               # "auto" | "bitmap" | "packed" |
-    #                                  # "compressed" (indices: A3, sharded: A8)
+    store: str = "auto"               # "auto" | "bitmap" | "indices" |
+    #                                  # "packed" | "compressed" (sharded: A8)
     partition: str = "equal"
     overlap: bool = True
     fused_pipeline: str = "auto"      # "auto" | "off"
@@ -120,12 +134,27 @@ class InfluenceEngine:
         self.sampler_name = self.cfg.sampler or default_sampler_name(
             self.graph, self.cfg)
         self._sample = get_sampler(self.sampler_name)(self.graph, self.cfg)
+        self._reset_index_emission()
         self._rebind_fused()
         self._select_cache: dict = {}
 
+    def _reset_index_emission(self) -> None:
+        """The native index-emission width for the current store: zero
+        (bitmap rows) unless the store is an `IndexStore` and the bound
+        sampler emits index lists.  Called at construction and after
+        every store swap (a restore may change the store's kind)."""
+        self._emit_l = 0
+        if (self.store.representation == "indices"
+                and getattr(self._sample, "supports_index_emit", False)):
+            self._emit_l = int(getattr(self.store, "l_pad", 4))
+
     def _rebind_fused(self) -> None:
+        """The fused extender for the current (store, sampler) pair; None
+        when disabled, under index emission, or for a store kind without
+        a fused chain."""
         self._fused = None
-        if getattr(self.cfg, "fused_pipeline", "auto") != "off":
+        if getattr(self.cfg, "fused_pipeline", "auto") != "off" \
+                and not self._emit_l:
             self._fused = make_fused_extender(
                 self.store, self._sample, self.cfg,
                 sampler_name=self.sampler_name)
@@ -143,7 +172,13 @@ class InfluenceEngine:
         with obs.span("extend", tier="engine", target=theta):
             while self.store.count < theta:
                 self.key, sub = prng.split(self.key)
-                if self._fused is not None and self._fused.extend_once(sub):
+                if self._emit_l:
+                    with obs.span("sample", tier="engine",
+                                  sampler=self.sampler_name):
+                        rows_idx, counter = self._sample_index_batch(sub)
+                    self.store.add_index_batch(rows_idx, counter)
+                elif (self._fused is not None
+                        and self._fused.extend_once(sub)):
                     pass
                 else:
                     with obs.span("sample", tier="engine",
@@ -153,6 +188,19 @@ class InfluenceEngine:
                 obs.counter("engine.batches_sampled").add(1)
         obs.gauge("engine.theta").set(self.store.count)
         return self.store.count
+
+    def _sample_index_batch(self, sub):
+        """One batch as index lists.  A row that comes back full may have
+        been cut at the emission width: double the width and re-emit with
+        the same key (same coins, wider lists); the width only grows, and
+        caps at n exactly."""
+        n = self.graph.n
+        while True:
+            rows_idx, counter, _ = self._sample(sub, emit_l=self._emit_l)
+            if self._emit_l >= n or not bool((rows_idx[:, -1] < n).any()):
+                return rows_idx, counter
+            self._emit_l = min(self._emit_l * 2, n)
+            obs.counter("engine.index_reemits").add(1)
 
     @property
     def supports_row_resample(self) -> bool:
@@ -176,22 +224,20 @@ class InfluenceEngine:
     # ----------------------------------------------------------- selection
 
     def _choose_representation(self) -> str:
-        """The C4 choice: the store's own at-rest representation (bitmap,
-        packed or compressed), unless sets are sparse enough for index
-        lists, which are not ported yet."""
+        """The C4 choice: ``"indices"`` when the sets are sparse past the
+        switch ratio (or the store holds index lists), else the store's
+        own at-rest representation (bitmap, packed or compressed)."""
+        rep = self.store.representation
+        if rep == "indices":
+            return rep
         cfg = self.cfg
         if (cfg.adaptive_representation
                 and self.graph.n >= cfg.sparse_rep_min_n):
             avg_cov, l_max = self.store.coverage_stats()
             if choose_representation(avg_cov, self.graph.n, l_max,
                                      cfg.switch_ratio) == "indices":
-                raise NotImplementedError(
-                    f"C4 chose index lists (average coverage {avg_cov:.4g}, "
-                    f"largest set {l_max}): index-list selection is not "
-                    f"ported yet (ROADMAP A3); set "
-                    f"adaptive_representation=False to keep the store's "
-                    f"own layout")
-        return self.store.representation
+                return "indices"
+        return rep
 
     def select(self, k: int = None, *, method: str = None) -> Selection:
         """Greedy max-coverage over the current store, memoized."""
@@ -208,11 +254,16 @@ class InfluenceEngine:
         obs.counter("engine.select_cache_misses").add(1)
         rep = self._choose_representation()
         layout = _LAYOUTS[rep]
+        if rep == "indices" and self.store.representation != "indices":
+            _, l_max = self.store.coverage_stats()
+            view = self.store.index_view(l_pad_for(l_max))
+        else:
+            view = self.store.view()
         strategy = get_selection(method, layout)
         with obs.span("select", tier="engine", k=k, method=method,
                       layout=layout):
             seeds, frac, gains = strategy(
-                self.store.view(), k, codec=getattr(self.store, "codec", None))
+                view, k, codec=getattr(self.store, "codec", None))
             seeds, frac, gains = (seeds.cpu().numpy(), float(frac),
                                   gains.cpu().numpy())
         sel = Selection(seeds=seeds, covered_frac=frac,
@@ -266,12 +317,17 @@ class InfluenceEngine:
             },
         }
 
+    def snapshot(self, directory: str, *, tag: str = "engine") -> str:
+        """Save store + PRNG state atomically in the reference's
+        checkpoint format; returns the file's path."""
+        return ckpt.save_named(directory, tag, self.snapshot_tree())
+
     def restore_tree(self, tree: dict) -> None:
         """Adopt a `snapshot_tree` (validates n/model, rebuilds the store
         on this engine's device, resumes the PRNG stream).  A packed- or
         compressed-configured engine re-encodes whatever the snapshot
         holds; other configurations keep the snapshot's own kind, as in
-        the reference."""
+        the reference, and index emission follows the restored store."""
         meta = tree["meta"]
         if int(meta["n"]) != self.graph.n:
             raise ValueError(
@@ -284,8 +340,29 @@ class InfluenceEngine:
         self.store = store_from_state(tree["store"], device=self.device,
                                       kind=target)
         self.key = prng.as_key(tree["key"])
+        self._reset_index_emission()
         self._rebind_fused()
         self._select_cache.clear()
+
+    def restore(self, directory: str, *, tag: str = "engine") -> bool:
+        """Resume from `snapshot`; False when no snapshot exists."""
+        tree = ckpt.load_named(directory, tag)
+        if tree is None:
+            return False
+        self.restore_tree(tree)
+        return True
+
+    def replicate(self, tree: dict = None) -> "InfluenceEngine":
+        """A read replica: a new engine over the same graph, config and
+        device, restored from a host copy of ``tree`` (default: this
+        engine's `snapshot_tree`), so it shares no tensor with the
+        primary and answers ``select``/``influence`` as the primary did
+        at the snapshot."""
+        if tree is None:
+            tree = self.snapshot_tree()
+        replica = InfluenceEngine(self.graph, self.cfg, device=self.device)
+        replica.restore_tree(ckpt.clone_tree(tree))
+        return replica
 
     # ---------------------------------------------------- Algorithm 1
 

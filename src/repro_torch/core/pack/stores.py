@@ -17,8 +17,10 @@ so the kernels read them with 16-byte loads; ``R`` is the
 store widens ``s_pad`` by powers of two when a batch needs more tokens
 (`_widen_tokens`), holding the old and the new arena for a moment.
 
-The pressure ladder that morphs a codec in place (``_compress_step``) and
-the C4 index view are not ported yet (ROADMAP A6, A3).
+``index_view`` decodes the arena a block of rows at a time into C4 index
+lists (`repro_torch.core.adaptive.bitmap_to_indices`), cached until the
+arena next changes.  The pressure ladder that morphs a codec in place
+(``_compress_step``) is not ported yet (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from repro_torch.core.pack.codec import (
     MIN_TOKEN_PAD, TokenCodec, codec_for, tokens_needed,
 )
 from repro_torch.core.store import (
-    MIN_CAPACITY, StoreView, _ArenaBase, next_pow2,
+    MIN_CAPACITY, StoreView, _ArenaBase, _cached_index_view, next_pow2,
 )
 from repro_torch.kernels.ops import padded_width
 
@@ -95,9 +97,10 @@ class CodecStore(_ArenaBase):
             "(ROADMAP A6)")
 
     def index_view(self, l_pad: int) -> StoreView:
-        raise NotImplementedError(
-            "the C4 index view of an encoded arena is not ported yet "
-            "(ROADMAP A3)")
+        """The decoded arena as C4 index lists ``(capacity, l_pad)
+        int32``, cached until the arena next changes."""
+        return _cached_index_view(
+            self, l_pad, lambda lo, hi: self.codec.decode(self.R[lo:hi]))
 
     # -------------------------------------------------------- RRR store ----
 

@@ -34,9 +34,11 @@ reference's for the same key; dense and pallas activations equal the
 reference's up to classified near-ties (the reference sums in XLA's
 order with f32 ``expm1``).
 
+The sparse backend also emits a batch natively as C4 index lists
+(``emit_l``, tagged ``supports_index_emit``) for an `IndexStore`.
+
 Not ported yet, and raising `NotImplementedError` with the ROADMAP item:
-the LT walk backend (A4), native index-list emission ``emit_l`` (C4
-index lists, A3) and mesh ``placement`` (A8).  ``overlap`` and
+the LT walk backend (A4) and mesh ``placement`` (A8).  ``overlap`` and
 ``pallas_interpret`` are inert (no mesh, no Pallas).
 """
 from __future__ import annotations
@@ -50,6 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs, prng
+from repro_torch.core.adaptive import bitmap_to_indices
 from repro_torch.core.store import next_pow2
 from repro_torch.graphs.csr import (
     Graph, dense_ic_matrix, edge_arrays, wc_edge_probs,
@@ -306,7 +309,7 @@ STABLE_ROWS = 32
 
 def _sparse_loop(key, edge_src, edge_dst, edge_prob, positions=None, *,
                  n_nodes: int, batch: int, max_steps: int = 0,
-                 stable: bool = False):
+                 stable: bool = False, emit_l: int = 0):
     """CSC edge-list frontier expansion (the ``sparse`` backend).
 
     An edge ``u -> v`` is usable when ``v`` is in the frontier, its coin
@@ -316,6 +319,13 @@ def _sparse_loop(key, edge_src, edge_dst, edge_prob, positions=None, *,
     edge's identity ``u * n + v`` (uint32, wrapping as the reference's),
     so pow2 padding edges (prob 0) never fire.  ``edge_src``/``edge_dst``
     are int64 tensors on the sampling device.
+
+    ``emit_l > 0`` returns the batch as index lists ``(K, emit_l)
+    int32`` (ascending, sentinel ``n_nodes``) instead of bitmaps: the
+    same coins, so the rows equal the bitmap rows converted after the
+    fact.  A row with more than ``emit_l`` members keeps its smallest
+    ``emit_l``; the engine widens and re-emits when a row comes back
+    full.
     """
     m = edge_src.shape[0]
     max_steps = max_steps or n_nodes
@@ -348,6 +358,8 @@ def _sparse_loop(key, edge_src, edge_dst, edge_prob, positions=None, *,
         frontier = new
         step += 1
     counter = visited.sum(dim=0, dtype=torch.int32)
+    if emit_l:
+        return bitmap_to_indices(visited, emit_l), counter, roots
     return visited.view(torch.uint8), counter, roots
 
 
@@ -448,13 +460,6 @@ def _bind_pallas(model, graph: Graph, cfg, *, stable, placement):
                        placement=placement, kernel=True)
 
 
-def _no_emit(emit_l: int) -> None:
-    if emit_l:
-        raise NotImplementedError(
-            "native index-list emission (emit_l, C4 index lists) is not "
-            "ported yet (ROADMAP A3)")
-
-
 def _bind_sparse(model, graph: Graph, cfg, *, stable=False, placement=None):
     _placement_not_ported(placement)
     src, dst = graph.edge_src.long(), graph.edge_dst.long()
@@ -465,15 +470,16 @@ def _bind_sparse(model, graph: Graph, cfg, *, stable=False, placement=None):
         src, dst, prob = _pad_edges_pow2(src, dst, prob)
 
         def fn(key, positions=None, emit_l=0):
-            _no_emit(emit_l)
             return _sparse_loop(key, src, dst, prob, positions,
                                 n_nodes=graph.n, batch=cfg.batch,
-                                stable=True)
+                                stable=True, emit_l=emit_l)
     else:
         def fn(key, emit_l=0):
-            _no_emit(emit_l)
             return _sparse_loop(key, src, dst, prob, n_nodes=graph.n,
-                                batch=cfg.batch)
+                                batch=cfg.batch, emit_l=emit_l)
+    # the engine routes C4 through this tag: an IndexStore asks a tagged
+    # sampler for index rows (``emit_l``) instead of bitmaps
+    fn.supports_index_emit = True
     return fn
 
 

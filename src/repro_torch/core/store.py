@@ -1,5 +1,6 @@
-"""Persistent RRR-set arena — the resident store behind `InfluenceEngine`
-(``repro.core.store``: ``BitmapStore`` and its bookkeeping).
+"""Persistent RRR-set arenas — the resident store behind `InfluenceEngine`
+(``repro.core.store``: ``BitmapStore``, ``IndexStore`` and their
+bookkeeping).
 
 ``BitmapStore`` is a single-device ``(capacity, n) uint8`` bitmap arena
 with a power-of-two capacity grown by doubling, a fused per-vertex
@@ -12,15 +13,24 @@ pad bytes zero) so the selection and commit kernels read rows with
 16-byte loads; ``R`` is the ``[:, :n]`` view, and snapshots carry plain
 ``(capacity, n)`` rows — the reference's format.
 
-Padding rows (index >= ``count``) are all zero and masked by
-``view().valid``; selection, ``hits`` and the counter are exact integer
-sums, so results are seed for seed those of the JAX store.  The packed
-and compressed stores live in `repro_torch.core.pack.stores`; every
-single-device kind restores from every other's snapshot
+``IndexStore`` keeps the paper's C4 index lists: ``(capacity, l_pad)
+int32`` rows of ascending member ids padded with the sentinel ``n``;
+``l_pad`` widens by powers of two when a longer set arrives.  Batches
+come as bitmaps (converted on write) or, from the sparse sampler, as
+index rows already (`add_index_batch`).  A bitmap or encoded store
+derives the same lists lazily for index-list selection
+(``index_view``, cached until the arena changes).
+
+Padding rows (index >= ``count``) are all zero (all sentinel) and masked
+by ``view().valid``; selection, ``hits`` and the counter are exact
+integer sums, so results are seed for seed those of the JAX store.  The
+packed and compressed stores live in `repro_torch.core.pack.stores`;
+the bitmap, packed and compressed kinds restore from each other's
+snapshots, an index store from an index snapshot only
 (`store_from_state`).  Every store and factory runs on ``cuda`` unless
 given ``device="cpu"`` (`repro_torch.device.resolve_device`).  Row
-lifecycle (kill/replace/compact), pressure policies and the index and
-sharded stores are not ported yet (ROADMAP A3, A6, A8).
+lifecycle (kill/replace/compact), pressure policies and the sharded
+store are not ported yet (ROADMAP A6, A8).
 """
 from __future__ import annotations
 
@@ -30,10 +40,13 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.core.adaptive import CONVERT_BLOCK_ELEMS, bitmap_to_indices
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import padded_width
+from repro_torch.sparse.scatter import bincount_weighted
 
 MIN_CAPACITY = 16     # matches the reference's pad floor (1 << 4)
+MIN_INDEX_PAD = 4     # matches the reference's l_pad floor (1 << 2)
 
 
 def next_pow2(x: int, floor: int = MIN_CAPACITY) -> int:
@@ -75,6 +88,45 @@ def _bitmap_hits(R, valid, S):
     return hit.sum(dim=0, dtype=torch.int32).to(torch.float32) / n_valid
 
 
+def _index_hits(R_idx, valid, S, n: int):
+    """`_bitmap_hits` over index lists ``R_idx (capacity, L)`` (sentinel
+    ``n``): one query at a time, its members marked in an ``(n + 2,)``
+    mask that is gathered at every list entry, so the ``(capacity, L,
+    Lq)`` compare is never built.  A query id of ``n`` matches the
+    sentinel padding, as the reference's compare does; ids outside
+    ``[0, n]`` match nothing (they mark the spare slot ``n + 1``)."""
+    flat = R_idx.reshape(-1)
+    n_valid = valid.sum(dtype=torch.float32).clamp_min(1.0)
+    hits = torch.empty(S.shape[0], dtype=torch.int32, device=R_idx.device)
+    for q in range(S.shape[0]):
+        s = S[q]
+        s = torch.where((s >= 0) & (s <= n), s, n + 1)
+        mask = torch.zeros(n + 2, dtype=torch.bool, device=R_idx.device)
+        mask[s] = True
+        memb = mask.index_select(0, flat).view(R_idx.shape).any(dim=1)
+        hits[q] = (memb & valid).sum(dtype=torch.int32)
+    return hits.to(torch.float32) / n_valid
+
+
+def _cached_index_view(store, l_pad: int, rows) -> StoreView:
+    """A dense store's index view: ``rows(lo, hi)`` gives its bit rows
+    ``[lo, hi)`` as ``(hi - lo, n) uint8``, converted a block at a time
+    into one ``(capacity, l_pad)`` list arena, kept while
+    ``(version, l_pad)`` holds."""
+    key = (store.version, int(l_pad))
+    if store._idx_cache is None or store._idx_cache[0] != key:
+        store._idx_cache = None     # drop the old lists before building
+        out = torch.empty((store.capacity, int(l_pad)), dtype=torch.int32,
+                          device=store.device)
+        step = max(1, CONVERT_BLOCK_ELEMS // max(store.n, 1))
+        for lo in range(0, store.capacity, step):
+            hi = min(lo + step, store.capacity)
+            bitmap_to_indices(rows(lo, hi), int(l_pad), out=out[lo:hi])
+        store._idx_cache = (key, out)
+    return StoreView("indices", store._idx_cache[1], store._valid(),
+                     store.n, store.count)
+
+
 class _ArenaBase:
     """Arena bookkeeping: pow2 capacity, doubling, fused counter, sizes
     and live bits (all rows live until the row lifecycle is ported)."""
@@ -93,6 +145,7 @@ class _ArenaBase:
                                    device=self.device)
         self.live = torch.ones(self.capacity, dtype=torch.bool,
                                device=self.device)
+        self._idx_cache = None      # ((version, l_pad), index lists)
 
     @property
     def live_count(self) -> int:
@@ -210,6 +263,11 @@ class BitmapStore(_ArenaBase):
     def view(self) -> StoreView:
         return StoreView("bitmap", self.R, self._valid(), self.n, self.count)
 
+    def index_view(self, l_pad: int) -> StoreView:
+        """The arena as C4 index lists ``(capacity, l_pad) int32``, cached
+        until the arena next changes."""
+        return _cached_index_view(self, l_pad, lambda lo, hi: self.R[lo:hi])
+
     def hits(self, S) -> torch.Tensor:
         """Covered fraction per query: ``S (Q, L) int`` -> ``(Q,) f32``."""
         with obs.span("count", tier="store", kind="bitmap"):
@@ -246,17 +304,131 @@ class BitmapStore(_ArenaBase):
         return store
 
 
-_NOT_PORTED = {
-    "indices": "the index-list store (ROADMAP A3)",
-    "sharded": "the sharded store (ROADMAP A8)",
-}
-_KINDS = ("bitmap", "packed", "compressed")
+class IndexStore(_ArenaBase):
+    """Index-list arena: ``(capacity, l_pad) int32`` rows of ascending
+    member ids, sentinel ``n``.  ``l_pad`` widens by powers of two when a
+    batch holds a larger set (new columns are sentinel, so old rows keep
+    their meaning); bitmap batches are converted on write, so resident
+    memory is O(theta * L), not O(theta * n)."""
+
+    representation = "indices"
+
+    def __init__(self, n: int, *, capacity: int = MIN_CAPACITY,
+                 l_pad: int = MIN_INDEX_PAD, device=None):
+        super().__init__(n, capacity=capacity, device=device)
+        self.l_pad = next_pow2(l_pad, MIN_INDEX_PAD)
+        self._arena = self._new_arena(self.capacity, self.l_pad)
+
+    def _new_arena(self, capacity: int, l_pad: int) -> torch.Tensor:
+        return torch.full((capacity, l_pad), self.n, dtype=torch.int32,
+                          device=self.device)
+
+    @property
+    def R(self) -> torch.Tensor:
+        return self._arena
+
+    def _realloc(self, new_cap: int):
+        arena = self._new_arena(new_cap, self.l_pad)
+        arena[:self.capacity] = self._arena
+        self._arena = arena
+
+    def _widen(self, l_need: int):
+        new_l = next_pow2(l_need, self.l_pad)
+        if new_l == self.l_pad:
+            return
+        arena = self._new_arena(self.capacity, new_l)
+        arena[:, :self.l_pad] = self._arena
+        self._arena = arena
+        self.l_pad = new_l
+
+    def _row_bytes(self) -> int:
+        return 4 * self.l_pad
+
+    def add_batch(self, visited, counter=None) -> np.ndarray:
+        """Convert and append ``visited (B, n)`` 0/1 rows, widening to the
+        batch's largest set first; returns the slots they landed in."""
+        with obs.span("store.write", tier="store", kind="indices"):
+            visited = visited.to(self.device, torch.uint8)
+            B = int(visited.shape[0])
+            batch_sizes = visited.sum(dim=1, dtype=torch.int32)
+            self._widen(int(batch_sizes.max()))
+            self._grow_rows(self.count + B)
+            if counter is None:
+                counter = visited.sum(dim=0, dtype=torch.int32)
+            slots = np.arange(self.count, self.count + B, dtype=np.int64)
+            bitmap_to_indices(visited, self.l_pad,
+                              out=self.R[self.count:self.count + B])
+            self._finish_add(batch_sizes, counter)
+        return slots
+
+    def add_index_batch(self, rows, counter=None) -> np.ndarray:
+        """Append index rows ``(B, L) int32`` (ascending, sentinel >= n),
+        the sparse sampler's native emission: no ``(B, n)`` bitmap lies
+        between the sampler and the arena.  ``counter`` is the sampler's
+        ``(n,) int32`` contribution (a scatter of the rows when absent);
+        the arena widens to ``L`` if needed, narrower rows pad with the
+        sentinel.  Returns the slots, as `add_batch` does."""
+        with obs.span("store.write", tier="store", kind="indices"):
+            rows = torch.as_tensor(rows).to(self.device, torch.int32)
+            B, L = int(rows.shape[0]), int(rows.shape[1])
+            batch_sizes = (rows < self.n).sum(dim=1, dtype=torch.int32)
+            self._widen(L)
+            # any emitter sentinel (>= n) becomes the store's (== n)
+            rows = torch.where(rows < self.n, rows, self.n)
+            self._grow_rows(self.count + B)
+            if counter is None:
+                counter = bincount_weighted(
+                    rows, torch.ones((), dtype=torch.int32,
+                                     device=self.device), self.n)
+            lo, hi = self.count, self.count + B
+            slots = np.arange(lo, hi, dtype=np.int64)
+            self.R[lo:hi, :L] = rows
+            self.R[lo:hi, L:] = self.n
+            self._finish_add(batch_sizes, counter)
+        return slots
+
+    def view(self) -> StoreView:
+        return StoreView("indices", self.R, self._valid(), self.n, self.count)
+
+    def hits(self, S) -> torch.Tensor:
+        """Covered fraction per query: ``S (Q, L) int`` -> ``(Q,) f32``."""
+        with obs.span("count", tier="store", kind="indices"):
+            S = torch.as_tensor(np.asarray(S, np.int64), device=self.device)
+            return _index_hits(self.R, self._valid(), S, self.n)
+
+    def state(self) -> dict:
+        """Host snapshot: the ``(capacity, l_pad)`` lists plus counters
+        (kind tag ``"indices"``), the reference's format."""
+        st = self._base_state()
+        st["kind"] = np.asarray("indices")
+        st["R"] = self.R.cpu().numpy()
+        return st
+
+    @classmethod
+    def from_state(cls, st, *, device=None) -> "IndexStore":
+        R = np.asarray(st["R"], np.int32)
+        store = cls(int(st["n"]), capacity=R.shape[0], l_pad=R.shape[1],
+                    device=device)
+        if store.R.shape != R.shape:
+            raise ValueError(f"snapshot index arena {R.shape} is not a "
+                             f"power of two >= {MIN_CAPACITY} rows by a "
+                             f"power of two >= {MIN_INDEX_PAD} columns")
+        store.R.copy_(torch.from_numpy(np.require(R, None, ("C", "W"))))
+        store._restore_base(st)
+        return store
+
+
+_NOT_PORTED = {"sharded": "the sharded store (ROADMAP A8)"}
+_KINDS = ("bitmap", "packed", "compressed", "indices")
+_ROW_KINDS = ("bitmap", "packed", "compressed")
 
 
 def _store_class(kind: str):
     """The single-device store class of ``kind`` (``auto`` is bitmap)."""
     if kind in ("auto", "bitmap"):
         return BitmapStore
+    if kind == "indices":
+        return IndexStore
     if kind in ("packed", "compressed"):
         from repro_torch.core.pack.stores import (
             CompressedStore, PackedBitmapStore,
@@ -271,8 +443,8 @@ def _store_class(kind: str):
 
 def make_store(kind: str, n: int, *, device=None):
     """Store factory: ``"auto"``/``"bitmap"`` give a `BitmapStore`,
-    ``"packed"`` a `PackedBitmapStore`, ``"compressed"`` a
-    `CompressedStore`."""
+    ``"indices"`` an `IndexStore`, ``"packed"`` a `PackedBitmapStore`,
+    ``"compressed"`` a `CompressedStore`."""
     return _store_class(kind)(n, device=device)
 
 
@@ -300,7 +472,9 @@ def store_from_state(st, *, device=None, kind: str = None):
     representation (None keeps the snapshot's own): the same kind
     restores the arena in place, another kind re-encodes the snapshot's
     live rows (`from_rows`), so bitmap, packed and compressed snapshots
-    each restore into any of the three."""
+    each restore into any of the three; an index snapshot restores only
+    as an `IndexStore`, and only an index snapshot does (lists are not
+    re-encoded, as in the reference)."""
     snap_kind = str(np.asarray(st["kind"]))
     target = snap_kind if kind is None else kind
     for k in (snap_kind, target):
@@ -310,6 +484,11 @@ def store_from_state(st, *, device=None, kind: str = None):
                     f"restoring a {snap_kind!r} snapshot as {target!r} "
                     f"needs {_NOT_PORTED[k]}")
             raise ValueError(f"unknown store kind {k!r}")
+    if "indices" in (snap_kind, target) and snap_kind != target:
+        raise ValueError(
+            f"cannot restore a {snap_kind!r} snapshot as {target!r}: "
+            f"{_ROW_KINDS} each restore from any of them, 'indices' only "
+            f"from an 'indices' snapshot")
     cls = _store_class(target)
     if target == snap_kind:
         return cls.from_state(st, device=device)

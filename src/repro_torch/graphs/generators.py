@@ -1,5 +1,5 @@
-"""The R-MAT generator (numpy) of ``repro.graphs.generators``: the same
-``seed`` gives the same edges and weights."""
+"""The R-MAT and path generators (numpy) of ``repro.graphs.generators``:
+the same ``seed`` gives the same edges and weights."""
 from __future__ import annotations
 
 import numpy as np
@@ -29,3 +29,12 @@ def rmat_graph(n: int, m: int, *, seed: int = 0, a=0.57, b=0.19, c=0.19,
     src, dst = src[uniq], dst[uniq]
     return build_graph(src, dst, n, seed=seed, **kw)
 
+
+
+def path_graph(n: int, *, p: float = 1.0, seed: int = 0) -> Graph:
+    """0 -> 1 -> ... -> n-1 with a fixed edge probability (closed-form
+    tests)."""
+    src = np.arange(0, n - 1, dtype=np.int32)
+    dst = np.arange(1, n, dtype=np.int32)
+    prob = np.full(n - 1, p, dtype=np.float32)
+    return build_graph(src, dst, n, ic_prob=prob, seed=seed)

@@ -8,13 +8,16 @@ Runs Algorithm 1 on a synthetic SNAP stand-in and prints one JSON line:
 the reference's keys plus ``"device"``.  Runs on ``cuda`` unless
 ``--device cpu`` is given.  ``--select-k`` answers extra queries from the
 same store; ``--store packed|compressed`` keeps the RRR sets in an IMPack
-arena, and ``"arena_bytes"`` reports the arena's device bytes.
+arena, ``--store indices`` as C4 index lists, and ``"arena_bytes"``
+reports the arena's device bytes.  ``--snapshot-dir`` resumes from the
+engine snapshot there when one exists and saves one at the end (the
+reference's checkpoint format: either package resumes the other's).
 ``--model IC|WC|GT``, ``--backend dense|sparse|pallas`` and ``--sampler``
 (e.g. ``"IC/pallas+stable"``) pick the sampler; graphs with n <= 4096
 take the dense backend by default, as in the reference.  Flags of
-features not ported yet (``--mesh``, ``--store indices|sharded``,
-``--snapshot-dir``, ``--model LT`` / ``--backend walk``) raise
-`NotImplementedError` naming their ROADMAP item.
+features not ported yet (``--mesh``, ``--store sharded``, ``--model LT``
+/ ``--backend walk``) raise `NotImplementedError` naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -44,9 +47,6 @@ def run(graph: str, *, scale: float = None, model: str = "IC", k: int = 50,
     if mesh is not None:
         raise NotImplementedError("--mesh: the sharded store is not ported "
                                   "yet (ROADMAP A8)")
-    if snapshot_dir is not None:
-        raise NotImplementedError("--snapshot-dir: the checkpoint format is "
-                                  "not ported yet (ROADMAP A2)")
     dev = resolve_device(device)
     if metrics_out or trace_out:
         obs.enable()
@@ -64,6 +64,8 @@ def run(graph: str, *, scale: float = None, model: str = "IC", k: int = 50,
         adaptive_representation=not baseline,
     )
     engine = InfluenceEngine(g, cfg, device=dev)
+    if snapshot_dir:
+        engine.restore(snapshot_dir)       # resume if a snapshot exists
     t0 = time.time()
     res = engine.run()
     _sync(dev)
@@ -76,6 +78,9 @@ def run(graph: str, *, scale: float = None, model: str = "IC", k: int = 50,
         for q in select_ks
     }
     t_queries = time.time() - t0
+
+    if snapshot_dir:
+        engine.snapshot(snapshot_dir)
 
     out = {
         "graph": graph, "scale": scale, "n": g.n, "m": g.m, "model": model,
@@ -116,7 +121,8 @@ def main(argv=None):
     ap.add_argument("--baseline", action="store_true")
     ap.add_argument("--max-theta", type=int, default=1 << 14)
     ap.add_argument("--select-k", type=int, action="append", default=[])
-    ap.add_argument("--snapshot-dir", default=None)
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="resume from / persist the engine store here")
     ap.add_argument("--store", default="auto",
                     choices=("auto", "bitmap", "indices", "packed",
                              "compressed", "sharded"))

@@ -1,4 +1,5 @@
-"""Observability switchboard (``repro.obs``): metrics and phase spans.
+"""Observability switchboard (``repro.obs``): metrics (counters, gauges,
+histograms) and phase spans.
 
 Instrumented code calls the module-level helpers unconditionally::
 
@@ -7,6 +8,7 @@ Instrumented code calls the module-level helpers unconditionally::
         ...
     obs.counter("store.rows_written").add(B)
     obs.gauge("store.arena_bytes").set(nbytes)
+    obs.histogram("serve.latency_ms").observe(ms)
 
 Disabled (the default), every helper is one flag check returning a
 shared no-op; enabled, records are host-side only and never touch a
@@ -17,7 +19,8 @@ from __future__ import annotations
 import contextlib
 
 from repro_torch.obs.metrics import (                     # noqa: F401
-    Counter, Gauge, MetricsRegistry, series_key,
+    LATENCY_BUCKETS_MS, SIZE_BUCKETS, Counter, Gauge, Histogram,
+    MetricsRegistry, series_key,
 )
 from repro_torch.obs.tracer import Span, Tracer           # noqa: F401
 
@@ -36,8 +39,16 @@ class _NoopInstrument:
     def set(self, v: float) -> None:
         pass
 
+    def observe(self, v: float) -> None:
+        pass
+
+    def percentile(self, p: float) -> float:
+        return 0.0
+
     value = 0
     max = 0.0
+    count = 0
+    sum = 0.0
 
 
 _NOOP = _NoopInstrument()
@@ -79,6 +90,15 @@ def counter(name: str, **labels):
 
 def gauge(name: str, **labels):
     return _registry.gauge(name, **labels) if _enabled else _NOOP
+
+
+def histogram(name: str, buckets=None, **labels):
+    """`Histogram` for ``(name, labels)``, the shared no-op when disabled;
+    ``buckets`` applies on first creation (default
+    `LATENCY_BUCKETS_MS`)."""
+    if not _enabled:
+        return _NOOP
+    return _registry.histogram(name, buckets=buckets, **labels)
 
 
 def span(name: str, *, tier: str = "", **args):

@@ -59,7 +59,7 @@ def _pair(cfg, seed=0):
                   ).astype(np.float32),
             "b": np.float32(0.3)}
     return ({k: jnp.asarray(a) for k, a in tree.items()},
-            fm_params_from_jax(tree))
+            fm_params_from_jax(tree, device="cpu"))
 
 
 def _ids(cfg, B, seed=1):
@@ -222,13 +222,13 @@ def test_bf16_table_reads_the_pair_term_in_f32():
 def test_params_carry_across():
     jp, _ = _pair(SMOKE)
     tree = {k: np.asarray(a) for k, a in jp.items()}
-    tp = fm_params_from_jax(tree)
+    tp = fm_params_from_jax(tree, device="cpu")
     for k in ("v", "w", "b"):
         assert tp[k].dtype == torch.float32
         np.testing.assert_array_equal(tp[k].numpy(), tree[k])
     bf = fm_params_from_jax({k: np.asarray(jnp.asarray(a, jnp.bfloat16))
-                             for k, a in tree.items()})
+                             for k, a in tree.items()}, device="cpu")
     assert bf["v"].dtype == torch.bfloat16
     assert torch.equal(bf["v"], tp["v"].to(torch.bfloat16))
-    half = fm_params_from_jax(tree, dtype=torch.bfloat16)
+    half = fm_params_from_jax(tree, device="cpu", dtype=torch.bfloat16)
     assert half["w"].dtype == torch.bfloat16

@@ -145,8 +145,8 @@ def test_unfused_write_path_matches_fused():
 
 def test_unported_configurations_raise():
     g = generators.rmat_graph(256, 1024, seed=0)
-    with pytest.raises(NotImplementedError, match="A3"):
-        InfluenceEngine(g, IMMConfig(store="indices"), device="cpu")
+    with pytest.raises(NotImplementedError, match="A8"):
+        InfluenceEngine(g, IMMConfig(store="sharded"), device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         InfluenceEngine(g, IMMConfig(), mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="A4"):

@@ -50,7 +50,8 @@ def _pair(arch, **changes):
     jcfg = dataclasses.replace(jax_arch(arch).smoke_config, **changes)
     cfg = dataclasses.replace(get_arch(arch).smoke_config, **changes)
     jp = jt.init_lm(jax.random.PRNGKey(0), jcfg)
-    return jcfg, cfg, jp, lm_params_from_jax(jax.tree.map(np.asarray, jp))
+    return jcfg, cfg, jp, lm_params_from_jax(jax.tree.map(np.asarray, jp),
+                                             device="cpu")
 
 
 def _prompts(B, S, vocab):
@@ -84,9 +85,10 @@ def test_params_carry_across_leaf_for_leaf():
             t = t[key.key]
         assert np.array_equal(t.numpy(), np.asarray(leaf))
     bf = lm_params_from_jax(jax.tree.map(np.asarray, jt.init_lm(
-        jax.random.PRNGKey(0), dataclasses.replace(jcfg, dtype="bfloat16"))))
+        jax.random.PRNGKey(0), dataclasses.replace(jcfg, dtype="bfloat16"))),
+        device="cpu")
     assert bf["layers"]["wq"].dtype == torch.bfloat16
-    assert lm_params_from_jax({"w": np.ones(3, np.float32)},
+    assert lm_params_from_jax({"w": np.ones(3, np.float32)}, device="cpu",
                               dtype=torch.bfloat16)["w"].dtype \
         == torch.bfloat16
 

@@ -41,7 +41,10 @@ def test_no_module_imports_jax_or_repro():
                  "kernels.flash_attention", "launch.serve",
                  "configs.qwen1_5_0_5b", "models.recsys.fm",
                  "kernels.fm_interaction", "configs.fm", "optim.adamw",
-                 "data.clicks"):
+                 "data.clicks", "checkpoint", "checkpoint.store",
+                 "core.adaptive", "core.store", "core.selection",
+                 "launch.roofline", "obs.metrics", "sparse",
+                 "sparse.segment", "sparse.scatter", "convert"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["leaked"] == []
 
@@ -72,6 +75,19 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         get_arch("fm").init_fn(get_arch("fm").smoke_config,
                                generator=torch.Generator())
+    from repro_torch import convert
+    import numpy as np
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.lm_params_from_jax({"w": np.ones(3, np.float32)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.fm_params_from_jax({"v": np.ones((4, 2), np.float32),
+                                    "w": np.ones(4, np.float32),
+                                    "b": np.float32(0)})
+    from repro_torch.core.store import make_store
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_store("indices", 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InfluenceEngine(g, store=make_store("indices", g.n, device="cpu"))
     assert resolve_device("cpu").type == "cpu"
 
 

@@ -160,7 +160,7 @@ def test_fm_training_follows_jax_and_learns():
     cfg = fm.FMConfig(n_sparse=4, embed_dim=4, vocab_per_field=32)
     jcfg = jfm.FMConfig(n_sparse=4, embed_dim=4, vocab_per_field=32)
     jp = jfm.init_fm(jax.random.PRNGKey(0), jcfg)
-    tp = fm_params_from_jax(jax.tree.map(np.asarray, jp))
+    tp = fm_params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     opt_cfg = AdamWConfig(lr=0.05, weight_decay=0.0)
     jopt_cfg = jadamw.AdamWConfig(lr=0.05, weight_decay=0.0)
     topt, jopt = adamw_init(tp, opt_cfg), jadamw.adamw_init(jp, jopt_cfg)

@@ -288,8 +288,9 @@ def test_unported_axes_raise_with_their_roadmap_item():
             factory(g, cfg)
     with pytest.raises(NotImplementedError, match="A4"):
         smp.sample_lt(prng.PRNGKey(0), None, None, None, None, batch=8)
-    with pytest.raises(NotImplementedError, match="A3"):
-        smp.get_sampler("IC/sparse")(g, cfg)(prng.PRNGKey(0), emit_l=8)
+    rows, _, _ = smp.get_sampler("IC/sparse")(g, cfg)(prng.PRNGKey(0),
+                                                      emit_l=8)
+    assert rows.shape == (8, 8) and rows.dtype == torch.int32
     with pytest.raises(NotImplementedError, match="A8"):
         smp.bind_sampler(smp.get_sampler("IC/dense"), g, cfg,
                          placement=object())

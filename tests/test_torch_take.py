@@ -79,7 +79,7 @@ def _fm_pair(cfg, seed=0):
                   ).astype(np.float32),
             "b": np.float32(0.3)}
     return ({k: jnp.asarray(a) for k, a in tree.items()},
-            fm_params_from_jax(tree))
+            fm_params_from_jax(tree, device="cpu"))
 
 
 def _mixed_ids(cfg, B, seed):
@@ -161,7 +161,8 @@ def _lm_pair():
     arch = "qwen1.5-0.5b"
     jcfg, cfg = jax_arch(arch).smoke_config, get_arch(arch).smoke_config
     jp = jt.init_lm(jax.random.PRNGKey(0), jcfg)
-    return jcfg, cfg, jp, lm_params_from_jax(jax.tree.map(np.asarray, jp))
+    return jcfg, cfg, jp, lm_params_from_jax(jax.tree.map(np.asarray, jp),
+                                             device="cpu")
 
 
 def test_lm_prefill_and_decode_with_an_out_of_range_token():
