@@ -14,7 +14,8 @@ Phases, one JSON line each:
   parity    a small cell (rmat n = 2,048) run by the port on cuda with
             each store and on cpu: seeds, theta, coverage, counter and
             arena identical (on the sparse sampler; the dense-path cells
-            below)
+            below), and imm() under LT with the positional and the stable
+            walk on cuda and on cpu, identical
   imm_full  imm() on the full-size com-Amazon replica (IC, k = 50,
             eps = 0.5, max_theta = 16,384, rebuild), then the fused
             selections and four influence queries on its store
@@ -33,6 +34,28 @@ Phases, one JSON line each:
             identical; then a snapshot of the index engine restored into
             a fresh engine and replicated (identical answers; two more
             batches give identical counters)
+  lt_full   imm() on the same replica under LT (positional walk, k = 50,
+            eps = 0.5, max_theta = 16,384, bitmap store, C4 off so its
+            "rebuild" selection runs coverage_matvec): the walk's coins
+            through uniform_draw, the arena_commit writes, its first four
+            batches equal to the port's walk on the host; as a check
+            after it (launches printed apart), the fused selection
+            (fused_select) and the C4 one equal; walk steps, timings,
+            peak memory and the walk's device idle share (torch.profiler)
+  stream_full
+            a StreamEngine on the same replica under LT (LT/walk+stable,
+            packed store: its batches and repairs written by
+            arena_commit_packed, its kills counted by packed_count)
+            extended to 16,384 rows, four fringe deltas (256 inserts,
+            deletes and reweights each, destinations of in-degree <= 8),
+            refreshed until drained and equal to a fresh engine on the
+            post-delta graph (seeds, counter; the fresh engine's launches
+            counted apart); a bounded stream whose byte cap sends the
+            packed arena down the ladder to tokens once and then evicts,
+            checked against the cap after every add_batch and
+            replace_rows; IMServer over the stream (refresh budget 512),
+            synchronous and with its async worker from one snapshot,
+            equal once drained
   pallas_full
             imm() on the com-LJ Table III replica (n = 3,997, IC, k = 50,
             eps = 0.5, max_theta = 65,536) with the pallas backend (every
@@ -1336,14 +1359,47 @@ def parity_phase(torch):
         for q in ("fr", "fd"):
             check(list(o[q].seeds) == list(rh.seeds), f"parity {q} {key}")
     dense = dense_parity(torch, g)
+    lt = lt_parity(torch, g)
     emit("parity", n=g.n, m=g.m, theta=rh.theta, rounds=rh.rounds,
-         dense=dense,
+         dense=dense, lt=lt,
          seeds=[int(s) for s in rh.seeds], covered_frac=rh.covered_frac,
          cuda_s=c["s"], cpu_s=h["s"], launches=c["launches"],
          packed_s=out[DEV, "packed"]["s"],
          compressed_s=out[DEV, "compressed"]["s"],
          packed_launches=out[DEV, "packed"]["launches"],
          compressed_launches=out[DEV, "compressed"]["launches"])
+
+
+def lt_parity(torch, g) -> dict:
+    """imm() under LT on ``g`` with the positional and the stable walk,
+    on the card and on the host: seeds, theta, coverage, counter and
+    arena identical."""
+    from repro_torch.core.engine import IMMConfig, InfluenceEngine
+    from repro_torch.kernels import ops
+
+    out = {}
+    for name in ("LT/walk", "LT/walk+stable"):
+        got = {}
+        for dev in (DEV, "cpu"):
+            cfg = IMMConfig(k=10, model="LT", sampler=name, max_theta=4096,
+                            seed=0)
+            ops.reset_launches()
+            eng = InfluenceEngine(g, cfg, device=dev)
+            res = eng.run()
+            got[dev] = (res, eng.store.R[:res.theta].cpu(),
+                        ops.launch_counts())
+        (rc, Rc, lc), (rh, Rh, _) = got[DEV], got["cpu"]
+        check(list(rc.seeds) == list(rh.seeds) and rc.theta == rh.theta
+              and rc.covered_frac == rh.covered_frac
+              and (rc.counter == rh.counter).all() and torch.equal(Rc, Rh),
+              f"parity {name}: card and host differ")
+        check(lc.get("uniform_draw", 0) > 0 if name == "LT/walk"
+              else lc.get("uniform_draw", 0) == 0,
+              f"parity {name}: uniform_draw launches {lc}")
+        out[name] = dict(seeds=[int(s) for s in rc.seeds], theta=rc.theta,
+                         covered_frac=rc.covered_frac,
+                         uniform_draw=lc.get("uniform_draw", 0))
+    return out
 
 
 def batch_keys(seed: int, count: int):
@@ -1918,6 +1974,349 @@ def snapshot_check(torch, engine, graph) -> dict:
     check(replica.theta == want.theta, "snapshot: the replica moved")
     return dict(bytes_on_disk=nbytes, save_s=save_s, load_s=load_s,
                 replicate_s=replicate_s, theta_after=theta)
+
+
+# ------------------------------------------------------ LT and streaming ----
+
+#: the lt_full cell: imm() under LT with the positional walk, bitmap store
+LT_CFG = dict(k=50, eps=0.5, model="LT", sampler="LT/walk", batch=BATCH,
+              store="bitmap", seed=0, selection_method="rebuild")
+#: the kernels lt_full's imm() must launch: the walk's coins, the bitmap
+#: commit and the counter rebuild (its selection is "rebuild": the fused
+#: argmax runs only in the check selection after it)
+LT_KERNELS = ("uniform_draw", "arena_commit", "coverage_matvec")
+#: stream_full's deltas: fringe edits (destinations of in-degree <= 8)
+STREAM_DELTA = dict(inserts=256, deletes=256, reweights=256,
+                    max_dst_indeg=8)
+STREAM_DELTAS, STREAM_SEED = 4, 21
+#: the bounded stream's byte cap: 12 packed rows (41,858 bytes each), so
+#: its first batch sends the arena down the ladder; at any token width
+#: (4 * s_pad bytes, s_pad a power of two >= 8) the cap is 2**k - 1 rows,
+#: below theta and no multiple of the batch, so the batch that crosses
+#: it evicts
+BOUNDED_BYTES = (1 << 19) - 1
+#: the kernels stream_full prints, and those its streams must launch
+#: (packed and then token rows: no bitmap commit or coverage count); the
+#: fresh engine it is held against and the check selections count apart
+STREAM_KERNELS = ("packed_count", "token_count", "coverage_matvec",
+                  "arena_commit", "arena_commit_packed")
+STREAM_LAUNCHED = ("packed_count", "token_count", "arena_commit_packed")
+
+
+def dispatch_counts(snapshot: dict) -> dict:
+    """``{kernel: calls}`` from the ``kernels.dispatch`` counters of an
+    obs snapshot (the card's dispatches only)."""
+    out = {}
+    for key, v in snapshot["counters"].items():
+        if key.startswith("kernels.dispatch") and "impl=cuda" in key:
+            name = key.split("kernel=")[1].split(",")[0].rstrip("}")
+            out[name] = out.get(name, 0) + v
+    return out
+
+
+def arena_sums(torch, st, count: int):
+    """Column and row sums of a store's first ``count`` rows, decoded a
+    block at a time."""
+    colsum = torch.zeros(st.n, dtype=torch.int32, device=DEV)
+    rowsum = torch.empty(count, dtype=torch.int32, device=DEV)
+    for s in range(0, count, 1024):
+        blk = st.R[s:min(s + 1024, count)]
+        if st.representation != "bitmap":
+            blk = st.codec.decode(blk)
+        colsum += blk.sum(dim=0, dtype=torch.int32)
+        rowsum[s:s + blk.shape[0]] = blk.sum(dim=1, dtype=torch.int32)
+    return colsum, rowsum
+
+
+def lt_full(torch, graph, max_theta: int) -> dict:
+    """imm() on the full-size com-Amazon replica under LT (positional
+    walk, bitmap store, C4 off so selection runs the bitmap kernels),
+    then, as a check, the fused selection and the C4 chooser's on the
+    same store (same seeds); the first four batches' rows against the
+    port on the host; and a device profile of the walk.  Returns imm()'s
+    own launches; the check selections' are printed apart."""
+    from repro_torch import obs
+    from repro_torch.core.engine import IMMConfig, InfluenceEngine
+    from repro_torch.core.sampler import get_sampler, search_iters
+    from repro_torch.kernels import ops
+
+    cfg = IMMConfig(max_theta=max_theta, adaptive_representation=False,
+                    **LT_CFG)
+    obs.reset()
+    obs.enable()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    engine = InfluenceEngine(graph, cfg, device=DEV)
+    res = engine.run()
+    torch.cuda.synchronize()
+    imm_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    snap = obs.snapshot()
+    tracer = obs.get_tracer()
+    spans = {name: sum(tracer.durations_s(name))
+             for name in ("sample", "store.write", "select")}
+    obs.reset()
+    peak = torch.cuda.max_memory_allocated()
+    for name in LT_KERNELS:
+        check(launches.get(name, 0) > 0, f"lt_full: imm() launched no "
+              f"{name}")
+    st = engine.store
+    count = st.count
+    check(res.theta == count > 0, "lt_full theta")
+    check(len(set(int(s) for s in res.seeds)) == 50, "lt_full seeds unique")
+    check(0.0 < res.covered_frac <= 1.0, "lt_full covered_frac")
+    check(res.representation == "bitmap", "lt_full representation")
+    colsum, rowsum = arena_sums(torch, st, count)
+    check(torch.equal(colsum, st.counter), "lt_full counter == arena sums")
+    check(torch.equal(rowsum, st.sizes[:count]), "lt_full sizes == row sums")
+    ops.reset_launches()
+    fr = engine.select(50, method="fused-rebuild")
+    engine.cfg.adaptive_representation = True
+    c4 = engine.select(50)
+    check_launches = ops.launch_counts()
+    for sel, tag in ((fr, "fused-rebuild"), (c4, "C4")):
+        check(list(sel.seeds) == list(res.seeds)
+              and sel.covered_frac == res.covered_frac,
+              f"lt_full {tag} selection differs")
+    check(check_launches.get("fused_select", 0) > 0,
+          "lt_full: the fused check selection launched no fused_select")
+    # the first four batches against the port's walk on the host
+    host = get_sampler("LT/walk")(graph.to("cpu"), cfg)
+    for i, key in enumerate(batch_keys(0, 4)):
+        rows = host(key)[0]
+        check(torch.equal(st.R[i * BATCH:(i + 1) * BATCH].cpu(), rows),
+              f"lt_full batch {i}: card rows differ from the host's")
+    sample = engine._sample
+    keys = batch_keys(99, 5)
+    wall, busy, top = trace_device(torch, [lambda k=k: sample(k)
+                                           for k in keys])
+    emit("lt_full", graph="com-Amazon", model="LT", sampler=cfg.sampler,
+         store="bitmap", n=graph.n, m=graph.m, k=50, eps=0.5,
+         max_theta=max_theta, theta=res.theta, rounds=res.rounds,
+         imm_s=imm_s, sample_s=spans["sample"] + spans["store.write"],
+         store_write_s=spans["store.write"], select_s=spans["select"],
+         walk_steps=snap["counters"].get("sampler.steps", 0),
+         walk_rows_stepped=snap["counters"].get("sampler.frontier_cells", 0),
+         search_iters=search_iters(engine.graph.dst_offsets),
+         influence=res.influence, covered_frac=res.covered_frac,
+         seeds=[int(s) for s in res.seeds],
+         avg_set_size=float(st.sizes[:count].sum()) / count,
+         arena_bytes=st.arena_bytes, max_memory_allocated=peak,
+         profile=dict(batches=len(keys) - 1, traced_wall_s=wall,
+                      device_busy_s=busy, idle_share=1.0 - busy / wall,
+                      top=top[:6]),
+         dispatch=dispatch_counts(snap), launches=launches,
+         check_select_launches=check_launches)
+    return launches
+
+
+def stream_cfg(store: str):
+    from repro_torch.core.engine import IMMConfig
+
+    return IMMConfig(k=50, eps=0.5, model="LT", sampler="LT/walk+stable",
+                     batch=BATCH, seed=0, store=store,
+                     adaptive_representation=False)
+
+
+def stream_deltas(stream, rng, count: int, apply):
+    """``count`` fringe deltas drawn from ``rng`` on the stream's graph,
+    each handed to ``apply``; returns what ``apply`` returned."""
+    from repro_torch.stream import random_delta
+
+    return [apply(random_delta(stream.graph, rng, **STREAM_DELTA))
+            for _ in range(count)]
+
+
+def serve_through(torch, server, stream, probe, seed: int) -> list:
+    """Two deltas through an IMServer, three tickets of ``probe`` around
+    each (all three answered alike: one flush, one store state), then a
+    drain; returns each flush's answer."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    answers = []
+    for _ in range(2):
+        t0 = server.submit(probe)
+        stream_deltas(stream, rng, 1, server.apply_delta)
+        t1, t2 = server.submit(probe), server.submit(probe)
+        got = server.flush()
+        check(got[t0] == got[t1] == got[t2], "stream_full: a flush mixed "
+              "two store states")
+        answers.append(got[t0])
+    check(server.drain(timeout=600.0), "stream_full: the server did not "
+          "drain")
+    torch.cuda.synchronize()
+    return answers
+
+
+def stream_full(torch, graph, max_theta: int) -> dict:
+    """The streaming slice at full size on the com-Amazon replica under
+    LT: a StreamEngine on a packed store extended to ``max_theta``, four
+    fringe deltas, refresh until drained, equal to a fresh engine on the
+    post-delta graph; a bounded stream that steps down the ladder and
+    evicts under a byte cap; IMServer over the stream, synchronous and
+    with its async worker, equal once drained.  Returns the launches."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.core.engine import InfluenceEngine
+    from repro_torch.core.store import StorePressurePolicy
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import IMServer
+    from repro_torch.stream import StreamEngine
+
+    obs.reset()
+    obs.enable()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    cfg = stream_cfg("packed")
+    stream, init_s = timed(torch, lambda: StreamEngine(graph, cfg,
+                                                       device=DEV))
+    _, extend_s = timed(torch, lambda: stream.extend(max_theta))
+    check(stream.theta == max_theta, "stream_full theta")
+    rng = np.random.default_rng(STREAM_SEED)
+    stale, delta_s = [], []
+    for _ in range(STREAM_DELTAS):
+        n_stale, s = timed(torch, lambda: stream_deltas(
+            stream, rng, 1, stream.apply_delta)[0])
+        stale.append(n_stale)
+        delta_s.append(s)
+    backlog = stream.stale
+    check(backlog == sum(stale) > 0, "stream_full backlog")
+    left, refresh_s = timed(torch, stream.refresh)
+    check(left == 0 and stream.consistent, "stream_full: refresh drained")
+    sel, stream_select_s = timed(torch, lambda: stream.select(50))
+    main_launches = ops.launch_counts()
+    counters = obs.snapshot()["counters"]
+    peak = torch.cuda.max_memory_allocated()
+    # the reference it is held against: a fresh engine, counted apart
+    ops.reset_launches()
+    fresh = InfluenceEngine(stream.graph, stream.cfg, device=DEV)
+    _, fresh_s = timed(torch, lambda: fresh.extend(stream.theta))
+    want = fresh.select(50)
+    fresh_launches = ops.launch_counts()
+    check(list(sel.seeds) == list(want.seeds)
+          and sel.covered_frac == want.covered_frac,
+          "stream_full: the drained stream's seeds differ from a fresh "
+          "engine's")
+    check(torch.equal(stream.store.counter, fresh.store.counter),
+          "stream_full: counter differs from a fresh engine's")
+    colsum, _ = arena_sums(torch, stream.store, stream.store.count)
+    check(torch.equal(colsum, stream.store.counter),
+          "stream_full counter == arena sums")
+    del fresh
+
+    # bounded: packed rows down the ladder to tokens, then evictions
+    obs.reset()
+    obs.enable()
+    ops.reset_launches()
+    policy = StorePressurePolicy(max_bytes=BOUNDED_BYTES,
+                                 ladder=("compressed",))
+    bounded = StreamEngine(graph, stream_cfg("packed"), policy=policy,
+                           device=DEV)
+    st = bounded.store
+    writes = [0]
+
+    def capped(write):
+        def run(*a):
+            out = write(*a)
+            writes[0] += 1
+            check(st.capacity * st._row_bytes() <= BOUNDED_BYTES,
+                  f"bounded: {st.capacity} rows x {st._row_bytes()} bytes "
+                  f"over the cap after write {writes[0]} ({write.__name__})")
+            return out
+        return run
+    st.add_batch = capped(st.add_batch)
+    st.replace_rows = capped(st.replace_rows)
+    _, bounded_extend_s = timed(torch, lambda: (bounded.extend(max_theta),
+                                                bounded.extend(max_theta)))
+    b_counters = obs.snapshot()["counters"]
+    check(st.representation == "compressed"
+          and b_counters.get("store.compress_steps", 0) == 1,
+          "bounded: the ladder did not step once")
+    check(b_counters.get("store.rows_evicted", 0) > 0,
+          "bounded: nothing was evicted")
+    b_stale = stream_deltas(bounded, np.random.default_rng(STREAM_SEED), 2,
+                            bounded.apply_delta)
+    bounded.refresh()
+    check(st.capacity * st._row_bytes() <= BOUNDED_BYTES
+          and bounded.stale == 0 and st.count == st.row_cap,
+          "bounded: over its cap or not drained after the refresh")
+    colsum, _ = arena_sums(torch, st, st.count)
+    check(torch.equal(colsum, st.counter), "bounded counter == arena sums")
+    b_counters = obs.snapshot()["counters"]
+    bounded_launches = ops.launch_counts()
+    bounded_sel = bounded.select(50)
+
+    # IMServer: the same stream state served twice, from a snapshot
+    obs.reset()
+    obs.enable()
+    ops.reset_launches()
+    probe = np.asarray(sel.seeds)
+    with tempfile.TemporaryDirectory() as d:
+        stream.snapshot(d)
+        twin = StreamEngine(stream.graph, stream.cfg, device=DEV)
+        check(twin.restore(d), "stream_full: snapshot restore")
+    runs = {}
+    for mode, eng in (("sync", stream), ("async", twin)):
+        with IMServer(eng, refresh_budget=512,
+                      async_refresh=mode == "async") as server:
+            t0 = time.perf_counter()
+            answers = serve_through(torch, server, eng, probe, seed=33)
+            runs[mode] = dict(
+                s=time.perf_counter() - t0, answers=answers,
+                drained=server.influence(probe), epoch=server.served_epoch,
+                worker_slices=server.refreshes_run)
+    serve_launches = ops.launch_counts()
+    check(runs["sync"]["drained"] == runs["async"]["drained"]
+          and runs["sync"]["epoch"] == runs["async"]["epoch"],
+          "stream_full: the sync and async servers disagree once drained")
+    check(torch.equal(stream.store.counter, twin.store.counter)
+          and list(stream.select(50).seeds) == list(twin.select(50).seeds),
+          "stream_full: sync and async stores differ once drained")
+    check(runs["async"]["worker_slices"] > 0, "async worker idle")
+    obs.reset()
+    launches = {k: main_launches.get(k, 0) + bounded_launches.get(k, 0)
+                + serve_launches.get(k, 0)
+                for k in set(main_launches) | set(bounded_launches)
+                | set(serve_launches)}
+    for name in STREAM_LAUNCHED:
+        check(launches.get(name, 0) > 0, f"stream_full: {name} not launched")
+    emit("stream_full", graph="com-Amazon", model="LT",
+         sampler=stream.cfg.sampler, store="packed", n=graph.n, m=graph.m,
+         theta=stream.theta, deltas=STREAM_DELTAS, delta=STREAM_DELTA,
+         init_s=init_s, extend_s=extend_s, delta_s=delta_s,
+         stale_per_delta=stale, refresh_s=refresh_s,
+         select_s=stream_select_s, fresh_extend_s=fresh_s,
+         seeds=[int(s) for s in sel.seeds[:10]], influence=sel.influence,
+         kills=counters.get("store.rows_killed", 0),
+         replaced=counters.get("store.rows_replaced", 0),
+         compactions=counters.get("store.compactions", 0),
+         repaired=counters.get("stream.rows_repaired", 0),
+         arena_bytes=stream.store.arena_bytes, max_memory_allocated=peak,
+         bounded=dict(max_bytes=BOUNDED_BYTES, extend_s=bounded_extend_s,
+                      representation=st.representation,
+                      s_pad=st.codec.s_pad, row_bytes=st._row_bytes(),
+                      capacity=st.capacity, row_cap=st.row_cap,
+                      count=st.count, writes_checked=writes[0],
+                      compress_steps=b_counters.get("store.compress_steps",
+                                                    0),
+                      evicted=b_counters.get("store.rows_evicted", 0),
+                      kills=b_counters.get("store.rows_killed", 0),
+                      compactions=b_counters.get("store.compactions", 0),
+                      stale_per_delta=b_stale,
+                      arena_bytes=st.arena_bytes,
+                      influence=bounded_sel.influence),
+         serve={m: {k: v for k, v in r.items()} for m, r in runs.items()},
+         launches={k: launches.get(k, 0) for k in STREAM_KERNELS},
+         launches_main=main_launches, launches_bounded=bounded_launches,
+         launches_serve=serve_launches, launches_fresh=fresh_launches)
+    return launches
 
 
 # ------------------------------------------------------------ LM serving ----
@@ -2598,12 +2997,14 @@ def main(argv=None) -> int:
                          "n)")
     ap.add_argument("--phases",
                     default="kernels,parity,imm_full,packed_full,"
-                            "compressed_full,indices_full,pallas_full,"
-                            "lm_parity,lm_full,fm_parity,fm_full,fm_profile",
+                            "compressed_full,indices_full,lt_full,"
+                            "stream_full,pallas_full,lm_parity,lm_full,"
+                            "fm_parity,fm_full,fm_profile",
                     help="comma list of kernels, parity, imm_full, "
                          "packed_full, compressed_full, indices_full, "
-                         "pallas_full, lm_parity, lm_full, fm_parity, "
-                         "fm_full, fm_profile and the optional profile")
+                         "lt_full, stream_full, pallas_full, lm_parity, "
+                         "lm_full, fm_parity, fm_full, fm_profile and the "
+                         "optional profile")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -2654,6 +3055,10 @@ def main(argv=None) -> int:
                 ref = summary
     if "indices_full" in phases:
         launches["indices_full"] = indices_full(torch, graph, args.max_theta)
+    if "lt_full" in phases:
+        launches["lt_full"] = lt_full(torch, graph, args.max_theta)
+    if "stream_full" in phases:
+        launches["stream_full"] = stream_full(torch, graph, args.max_theta)
     if "pallas_full" in phases:
         launches["pallas_full"] = pallas_full(torch, lj, LJ_THETA)
     if "lm_parity" in phases:

@@ -168,9 +168,16 @@ class InfluenceEngine:
     def extend(self, theta: int) -> int:
         """Sample batches until the store holds >= ``theta`` RRR sets.
         The key stream is ``(key, sub) = split(key)`` per batch, as in the
-        reference, so a fixed seed gives a bitwise-identical stream."""
-        with obs.span("extend", tier="engine", target=theta):
-            while self.store.count < theta:
+        reference, so a fixed seed gives a bitwise-identical stream.
+        Under a `StorePressurePolicy` the target clamps to the store's
+        row cap (the store evicts to make room), read again after every
+        batch: a ladder step or a token widening moves it."""
+        def target():
+            cap = getattr(self.store, "row_cap", None)
+            return theta if cap is None else min(theta, cap)
+
+        with obs.span("extend", tier="engine", target=target()):
+            while self.store.count < target():
                 self.key, sub = prng.split(self.key)
                 if self._emit_l:
                     with obs.span("sample", tier="engine",
@@ -202,6 +209,15 @@ class InfluenceEngine:
             self._emit_l = min(self._emit_l * 2, n)
             obs.counter("engine.index_reemits").add(1)
 
+    def sample_batch(self):
+        """Advance the PRNG stream by one batch without writing to the
+        store: ``(batch_key, visited, counter)``.  The key chain is the
+        one `extend` walks, so a caller that records ``batch_key`` (the
+        streaming refresh) can `resample` the same batch later."""
+        self.key, sub = prng.split(self.key)
+        visited, counter, _ = self._sample(sub)
+        return np.asarray(sub), visited, counter
+
     @property
     def supports_row_resample(self) -> bool:
         """Whether the bound sampler can re-generate an arbitrary subset
@@ -220,6 +236,16 @@ class InfluenceEngine:
             visited, counter, _ = self._sample(
                 key, positions=np.asarray(positions, np.int32))
         return visited, counter
+
+    def rebind_graph(self, graph: Graph) -> None:
+        """Point the engine at a mutated graph (the streaming delta
+        path): later sampling uses the new edges while the store's
+        resident sets stay (`repro_torch.stream` kills the stale ones).
+        The select memo is kept: the store's version, which every kill
+        and replace bumps, keys it."""
+        self.graph = graph.to(self.device)
+        self._sample = get_sampler(self.sampler_name)(self.graph, self.cfg)
+        self._rebind_fused()
 
     # ----------------------------------------------------------- selection
 

@@ -13,7 +13,11 @@ stream and every stored byte are those of the unfused path.
 
 Token-compressed rows have no fused chain (the reference's
 ``_FUSED_KINDS``): `make_fused_extender` returns None and the engine
-writes through ``store.add_batch`` with the same batch key.
+writes through ``store.add_batch`` with the same batch key.  The
+extender also declines a batch that a `StorePressurePolicy` must make
+room for: the store's ``add_batch`` alone enforces the policy (it may
+compact, morph the codec down the ladder or evict), and the engine's
+unfused path takes the batch with the same key.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ from repro_torch import obs
 from repro_torch.kernels import ops as kops
 
 # the at-rest forms arena_commit covers
-_FUSED_KINDS = ("bitmap", "packed")
+_FUSED_KINDS = kops.COMMIT_KINDS
 
 
 def make_fused_extender(store, sample, cfg, *, sampler_name: str):
@@ -43,15 +47,21 @@ class _ArenaFused:
         self.sampler_name = sampler_name
 
     def extend_once(self, key) -> bool:
+        """Sample and commit one batch; False (nothing sampled) when the
+        arena's form has no fused chain or the batch would cross the
+        policy's row cap."""
         s, B = self.store, self.batch
         kind = s.representation
+        cap = s.row_cap
+        if kind not in _FUSED_KINDS or (cap is not None
+                                        and s.count + B > cap):
+            return False
         s._grow_rows(s.count + B)
         with obs.span("sample", tier="engine", sampler=self.sampler_name,
                       fused=True):
             visited, _, _ = self._sample(key)
         with obs.span("store.write", tier="store", kind=kind, fused=True):
             lo, hi = s.count, s.count + B
-            kops.arena_commit(visited, s.R[lo:hi], s.counter, kind=kind,
-                              sizes=s.sizes[lo:hi])
+            s._commit(visited, s.R[lo:hi], s.sizes[lo:hi])
         s._note_write(B)
         return True

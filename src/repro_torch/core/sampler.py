@@ -20,7 +20,10 @@ a diffusion model and a traversal backend (``repro.core.sampler``).
       - ``sparse``: per-edge coins and a scatter over the CSC edge list
         (positional coins through the ``ic_sparse_hits`` kernel); exact,
         bitwise the reference for every coin model;
-      - ``walk``: the LT random walk.
+      - ``walk``: the LT random walk (`_walk_loop`), one uniform a row a
+        step (positional draws through the ``uniform_draw`` kernel) and
+        the reference's unguarded binary search over the dst's
+        cumulative weights; bitwise the reference's.
 
   * **stable** — positional coins (``uniform(key, shape)``) or
     identity-keyed counter-mode coins (a hash of step key, row position
@@ -38,7 +41,7 @@ The sparse backend also emits a batch natively as C4 index lists
 (``emit_l``, tagged ``supports_index_emit``) for an `IndexStore`.
 
 Not ported yet, and raising `NotImplementedError` with the ROADMAP item:
-the LT walk backend (A4) and mesh ``placement`` (A8).  ``overlap`` and
+mesh ``placement`` (A8).  ``overlap`` and
 ``pallas_interpret`` are inert (no mesh, no Pallas).
 """
 from __future__ import annotations
@@ -252,8 +255,9 @@ def dense_coins(key, step: int, *, batch: int, n_nodes: int,
 
 
 def _frontier_count(frontier: torch.Tensor) -> int:
-    """Members of the frontier (one host sync a BFS step), also counted
-    on ``sampler.frontier_cells`` / ``sampler.steps``."""
+    """Members of the frontier (one host sync a BFS step; a walk's
+    frontier is its active rows), also counted on
+    ``sampler.frontier_cells`` / ``sampler.steps``."""
     cells = int(frontier.sum())
     if cells:
         obs.counter("sampler.steps").add(1)
@@ -363,6 +367,89 @@ def _sparse_loop(key, edge_src, edge_dst, edge_prob, positions=None, *,
     return visited.view(torch.uint8), counter, roots
 
 
+def search_iters(dst_offsets, max_indeg_log2: int = 32) -> int:
+    """Iterations after which the walk's binary search stops moving.
+
+    The reference runs ``max_indeg_log2`` (32) unguarded iterations.  A
+    segment of length L shrinks to ``lo == hi`` within ``L.bit_length()``
+    of them; the next one leaves ``lo`` at ``hi`` or ``hi + 1`` (the
+    overrun: ``in_cum[hi]`` is the next vertex's first weight), and
+    every later one repeats that same comparison.  So this many
+    iterations, capped at the reference's count, give its answer.
+    """
+    deg = dst_offsets[1:] - dst_offsets[:-1]
+    dmax = int(deg.max()) if deg.numel() else 0
+    return min(int(max_indeg_log2), dmax.bit_length() + 2)
+
+
+def _pick_in_neighbor(offs, in_src, in_cum, cur, r, iters: int):
+    """The reference's binary search over the CSC segment of each row's
+    ``cur`` for the first cumulative weight >= ``r``: ``iters`` unguarded
+    iterations with the probe clipped into the edge array, so a search
+    that runs off its segment's end lands where the reference's does."""
+    m = in_src.shape[0]
+    lo, hi = offs[cur], offs[cur + 1]
+    for _ in range(iters):
+        mid = (lo + hi) >> 1
+        right = in_cum[mid.clamp(0, m - 1)] < r
+        lo = torch.where(right, mid + 1, lo)
+        hi = torch.where(right, hi, mid)
+    return in_src[lo.clamp(0, m - 1)].long()
+
+
+def _walk_loop(key, dst_offsets, in_src, in_cum, in_total, positions=None,
+               *, batch: int, max_steps: int = 0, max_indeg_log2: int = 32,
+               stable: bool = False, iters: int = None):
+    """Pick-at-most-one random walk (the ``walk`` backend, `WalkModel`).
+
+    Each step the walk at ``cur`` draws one uniform ``r``: ``r >=
+    total(cur)`` stops it, otherwise a binary search over the dst's
+    cumulative weights picks the in-neighbour; a revisit ends the walk.
+    Positional draws are ``uniform(sub, (batch,))`` (the ``uniform_draw``
+    kernel on the card); stable draws key on the row identity,
+    ``_u01(_mix32(_mix32(row ^ k0) ^ k1))``.  Every comparison is an f32
+    ``<`` of the reference's values, so the rows are bitwise its own.
+    A step marks only the B chosen cells (the reference ORs a ``(B, n)``
+    one-hot).  ``iters`` is the search's iteration count
+    (`search_iters`, computed here when absent).
+
+    Returns ``(visited (K, n) uint8, counter (n,) int32, roots (K,))``.
+    """
+    n = dst_offsets.shape[0] - 1
+    m = in_src.shape[0]
+    dev = in_total.device
+    max_steps = max_steps or n
+    if iters is None:
+        iters = search_iters(dst_offsets, max_indeg_log2)
+    k, roots, visited, bb = _setup(key, batch, n, dev, positions, stable)
+    K = visited.shape[0]
+    rows = torch.arange(K, device=dev)
+    offs = dst_offsets.long()
+    cur = roots.long()
+    active = torch.ones(K, dtype=torch.bool, device=dev)
+    step = 0
+    while step < max_steps and _frontier_count(active):
+        k, sub = prng.split(k)
+        if stable:
+            k0, k1 = (prng.u32_to_i32(int(w)) for w in prng.as_key(sub))
+            r = _u01(_mix32(_mix32(bb[:, 0] ^ k0) ^ k1))
+        else:
+            r = kops.uniform(sub, (batch,), device=dev)
+        go = active & (r < in_total[cur])
+        # an edgeless graph has no segment to search; its totals are 0,
+        # so no walk moves
+        nxt = (_pick_in_neighbor(offs, in_src, in_cum, cur, r, iters)
+               if m else cur)
+        revisit = visited[rows, nxt]
+        go &= ~revisit
+        visited[rows, nxt] = revisit | go
+        cur = torch.where(go, nxt, cur)
+        active = go
+        step += 1
+    counter = visited.sum(dim=0, dtype=torch.int32)
+    return visited.view(torch.uint8), counter, roots
+
+
 # ------------------------------------------------ historical entry points ----
 
 def sample_ic_dense(key, logq, *, batch: int, max_steps: int = 0,
@@ -398,12 +485,24 @@ def sample_ic_sparse_stable(key, edge_src, edge_dst, edge_prob,
                         max_steps=max_steps, stable=True)
 
 
-def _walk_not_ported(*_, **__):
-    raise NotImplementedError(
-        "the LT random-walk backend is not ported yet (ROADMAP A4)")
+def sample_lt(key, dst_offsets, in_src, in_lt_cum, in_lt_total, *,
+              batch: int, max_steps: int = 0, max_indeg_log2: int = 32,
+              placement=None):
+    """Positional LT RRR random walk (see `_walk_loop`)."""
+    _placement_not_ported(placement)
+    return _walk_loop(key, dst_offsets, in_src, in_lt_cum, in_lt_total,
+                      batch=batch, max_steps=max_steps,
+                      max_indeg_log2=max_indeg_log2)
 
 
-sample_lt = sample_lt_stable = _walk_not_ported
+def sample_lt_stable(key, dst_offsets, in_src, in_lt_cum, in_lt_total,
+                     positions=None, *, batch: int, max_steps: int = 0,
+                     max_indeg_log2: int = 32, placement=None):
+    """Identity-keyed LT walk with ``positions`` row subsets."""
+    _placement_not_ported(placement)
+    return _walk_loop(key, dst_offsets, in_src, in_lt_cum, in_lt_total,
+                      positions, batch=batch, max_steps=max_steps,
+                      max_indeg_log2=max_indeg_log2, stable=True)
 
 
 # -------------------------------------------------------------- backends ----
@@ -484,7 +583,19 @@ def _bind_sparse(model, graph: Graph, cfg, *, stable=False, placement=None):
 
 
 def _bind_walk(model, graph: Graph, cfg, *, stable, placement):
-    _walk_not_ported()
+    _placement_not_ported(placement)
+    tables = tuple(t.to(graph.device) for t in model.walk_tables(graph))
+    # the search's iteration count needs the largest in-degree: read it
+    # once per bound sampler, not at every step
+    iters = search_iters(tables[0])
+    if stable:
+        def sample(key, positions=None):
+            return _walk_loop(key, *tables, positions, batch=cfg.batch,
+                              stable=True, iters=iters)
+    else:
+        def sample(key):
+            return _walk_loop(key, *tables, batch=cfg.batch, iters=iters)
+    return sample
 
 
 DENSE_BACKEND = TraversalBackend("dense", "coins", _bind_dense)

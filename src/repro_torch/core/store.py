@@ -28,13 +28,29 @@ packed and compressed stores live in `repro_torch.core.pack.stores`;
 the bitmap, packed and compressed kinds restore from each other's
 snapshots, an index store from an index snapshot only
 (`store_from_state`).  Every store and factory runs on ``cuda`` unless
-given ``device="cpu"`` (`repro_torch.device.resolve_device`).  Row
-lifecycle (kill/replace/compact), pressure policies and the sharded
-store are not ported yet (ROADMAP A6, A8).
+given ``device="cpu"`` (`repro_torch.device.resolve_device`).
+
+Streaming (`repro_torch.stream`) drives a **row lifecycle** on every
+store, in place: ``kill_rows(mask)`` marks rows dead and subtracts their
+counter contribution (`_row_contrib`: the ``coverage_matvec`` kernel
+over a bitmap arena, ``packed_count``/``token_count`` over an encoded
+one, so no float copy of the arena is made), ``replace_rows(idx, rows)``
+writes fresh rows into dead slots and revives them (bitmap and packed
+rows, like every bitmap or packed ``add_batch``, through one
+``arena_commit`` launch), and ``compact()``
+moves the live rows to the arena head a block of rows at a time and
+returns the old -> new slot remap.  A `StorePressurePolicy` caps the
+arena's rows or bytes: a write over the cap first compacts
+(staleness-first), then walks the policy's codec ladder
+(compress-before-evict, `_compress_step`), then evicts the oldest live
+rows.  The policy is enforced by the store's write entry points
+(``add_batch``, ``replace_rows``) alone.  The sharded store is not
+ported yet (ROADMAP A8).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -42,6 +58,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core.adaptive import CONVERT_BLOCK_ELEMS, bitmap_to_indices
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ops import padded_width
 from repro_torch.sparse.scatter import bincount_weighted
 
@@ -55,6 +72,56 @@ def next_pow2(x: int, floor: int = MIN_CAPACITY) -> int:
     while cap < x:
         cap <<= 1
     return cap
+
+
+@dataclasses.dataclass(frozen=True)
+class StorePressurePolicy:
+    """Bounded-memory contract for an indefinite stream of batches.
+
+    ``max_rows`` caps the arena's row capacity directly; ``max_bytes``
+    caps it through the store's at-rest bytes per row (``n`` for
+    bitmaps, ``4 * l_pad`` for index lists, ``ceil(n/8)`` packed,
+    ``4 * s_pad`` compressed); when both are set the tighter one wins.
+    Victims under pressure: dead rows first (compaction), then the
+    oldest live rows, FIFO.  ``ladder`` is an ordered tuple of codec
+    kinds (of ``("packed", "compressed")``) the arena may morph *down*
+    through before it evicts a live row (compress-before-evict); stores
+    with a fixed layout ignore it.
+    """
+    max_rows: int | None = None
+    max_bytes: int | None = None
+    ladder: tuple = ()
+
+    def row_cap(self, row_bytes: int) -> int | None:
+        """Row capacity for a store of ``row_bytes`` a row, or None when
+        the policy is unbounded."""
+        caps = []
+        if self.max_rows is not None:
+            caps.append(int(self.max_rows))
+        if self.max_bytes is not None:
+            caps.append(int(self.max_bytes) // max(int(row_bytes), 1))
+        if not caps:
+            return None
+        cap = min(caps)
+        if cap < 1:
+            raise ValueError(
+                f"StorePressurePolicy resolves to a row cap of {cap} "
+                f"(row_bytes={row_bytes}); the cap must hold >= 1 row")
+        return cap
+
+
+_LADDER_RANK = {"bitmap": 0, "packed": 1, "compressed": 2}
+
+
+def _ladder_next(current_kind: str, ladder) -> str | None:
+    """The next codec kind a pressure ladder may morph ``current_kind``
+    down to, or None when the ladder is exhausted; only strictly denser
+    kinds qualify, so a ladder never decompresses an arena."""
+    rank = _LADDER_RANK.get(current_kind, 0)
+    for kind in ladder:
+        if _LADDER_RANK.get(kind, -1) > rank:
+            return kind
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,18 +194,50 @@ def _cached_index_view(store, l_pad: int, rows) -> StoreView:
                      store.n, store.count)
 
 
+@runtime_checkable
+class RRRStore(Protocol):
+    """What `InfluenceEngine` and `repro_torch.stream` ask of a store:
+    ``add_batch(visited, counter=None)`` appends ``(B, n)`` 0/1 rows in
+    place and returns the slots they landed in; ``view()`` is a
+    `StoreView` aliasing the arena; ``hits(S)`` answers ``(Q, L)``
+    seed-set queries as covered fractions; ``state()`` is a host tree
+    for `repro_torch.checkpoint`.  Streaming adds the row lifecycle
+    (``kill_rows``, ``replace_rows``, ``compact``, ``live_count``,
+    ``row_cap``)."""
+    representation: str
+    n: int
+    count: int
+    capacity: int
+    version: int
+    counter: torch.Tensor
+    sizes: torch.Tensor
+
+    def add_batch(self, visited, counter=None) -> np.ndarray: ...
+    def view(self) -> StoreView: ...
+    def hits(self, S) -> torch.Tensor: ...
+    def coverage_stats(self) -> tuple[float, int]: ...
+    def state(self) -> dict: ...
+
+
 class _ArenaBase:
-    """Arena bookkeeping: pow2 capacity, doubling, fused counter, sizes
-    and live bits (all rows live until the row lifecycle is ported)."""
+    """Arena bookkeeping: pow2 capacity, doubling, fused counter, sizes,
+    live bits and the row lifecycle (kill, replace, compact, pressure
+    policy).  A store class supplies ``_arena`` (the padded buffer),
+    ``R``, ``_realloc``, ``_row_bytes``, ``_fill_value``,
+    ``_row_contrib`` and, for an at-rest form that ``arena_commit`` does
+    not write, ``_rows_for_storage``."""
 
     def __init__(self, n: int, *, capacity: int = MIN_CAPACITY,
-                 device=None):
+                 policy: StorePressurePolicy | None = None, device=None):
         self.n = int(n)
         self.device = resolve_device(device)
         self.capacity = next_pow2(capacity)
         self.count = 0
-        self.dead = 0
+        self.dead = 0           # filled rows whose live bit is cleared
         self.version = 0
+        self.policy = policy
+        self.track_remaps = False   # StreamEngine logs compaction remaps
+        self._remaps: list[np.ndarray] = []
         self.sizes = torch.zeros(self.capacity, dtype=torch.int32,
                                  device=self.device)
         self.counter = torch.zeros(self.n, dtype=torch.int32,
@@ -153,6 +252,11 @@ class _ArenaBase:
 
     def _grow_rows(self, need: int):
         new_cap = next_pow2(need, self.capacity)
+        cap = self.row_cap
+        if cap is not None:
+            # clamped to the policy cap (possibly not a power of two);
+            # _ensure_room already made need <= cap
+            new_cap = min(new_cap, max(cap, self.capacity))
         if new_cap == self.capacity:
             return
         self._realloc(new_cap)
@@ -162,6 +266,14 @@ class _ArenaBase:
         self.live = torch.cat([self.live, torch.ones(
             new_cap - self.capacity, dtype=torch.bool, device=self.device)])
         self.capacity = new_cap
+
+    def _commit(self, rows, out, sizes) -> None:
+        """Write ``rows (B, n)`` 0/1 into ``out`` (``B`` rows of the
+        arena's at-rest form, bitmap or packed, over a padded stride)
+        with one ``arena_commit`` launch, which adds their column sums
+        into the counter and writes their row sums into ``sizes``."""
+        kops.arena_commit(kops.commit_rows(rows), out, self.counter,
+                          kind=self.representation, sizes=sizes)
 
     def _finish_add(self, batch_sizes, counter):
         B = batch_sizes.shape[0]
@@ -179,6 +291,8 @@ class _ArenaBase:
             arena = self.capacity * self._row_bytes()
             obs.gauge("store.arena_bytes").set(arena)
             obs.gauge("store.bytes_per_device").set(arena)
+            obs.gauge("store.compress_ratio").set(
+                self.capacity * self.n / max(arena, 1))
 
     def _valid(self):
         iota = torch.arange(self.capacity, device=self.device)
@@ -192,6 +306,169 @@ class _ArenaBase:
     def coverage_stats(self) -> tuple[float, int]:
         """(avg fractional set coverage, max set size) over live sets."""
         return _coverage_stats(self.sizes, self.live_count, self.n)
+
+    # ---------------------------------------------------- row lifecycle ----
+
+    @property
+    def row_cap(self) -> int | None:
+        """The policy's row capacity for this store, or None."""
+        if self.policy is None:
+            return None
+        return self.policy.row_cap(self._row_bytes())
+
+    def live_mask(self) -> torch.Tensor:
+        """``(capacity,) bool`` live bits (True for unfilled slots too:
+        mask by the fill prefix, as ``view().valid`` does)."""
+        return self.live
+
+    def drain_remaps(self) -> list[np.ndarray]:
+        """Pop the slot remaps recorded since the last drain (recorded
+        only while ``track_remaps`` is set): old slot -> new slot, -1 for
+        a reclaimed slot, to apply in order."""
+        out, self._remaps = self._remaps, []
+        return out
+
+    def kill_rows(self, dead) -> int:
+        """Mark rows dead (stale or evicted): they leave ``view().valid``,
+        ``hits`` and the fused counter at once, and the next `compact`
+        reclaims their slots.  ``dead`` is a ``(capacity,)`` bool mask
+        (host or device); bits outside the filled, live rows are
+        ignored.  Returns the number of newly dead rows."""
+        dead = torch.as_tensor(dead, device=self.device).to(torch.bool) \
+            & self._valid()
+        k = int(dead.sum())
+        if k == 0:
+            return 0
+        self.counter -= self._row_contrib(dead)
+        self.sizes.masked_fill_(dead, 0)
+        self.live &= ~dead
+        self.dead += k
+        self.version += 1
+        obs.counter("store.rows_killed").add(k)
+        return k
+
+    def replace_rows(self, idx, rows) -> None:
+        """Write fresh ``rows (K, n)`` 0/1 into the dead slots ``idx (K,)``
+        and revive them (the streaming refresh write).  Targets must be
+        filled, dead slots; entries of -1 are padding: their rows are
+        neither stored nor counted.  Bitmap and packed rows go through
+        one ``arena_commit`` launch into a block, then into their slots.
+        Under a policy the store then fits its cap again (a token
+        widening lowers the row cap), which may compact and evict."""
+        idx = np.asarray(idx, np.int64).reshape(-1)
+        real = idx >= 0
+        k = int(real.sum())
+        if k == 0:
+            return
+        tgt = idx[real]
+        if (tgt >= self.count).any() or self.live.cpu().numpy()[tgt].any():
+            raise ValueError("replace_rows targets must be filled, dead "
+                             "slots (kill_rows them first)")
+        with obs.span("store.write", tier="store", kind="replace"):
+            rows = torch.as_tensor(rows).to(self.device)
+            if k != rows.shape[0]:
+                rows = rows.index_select(0, torch.as_tensor(
+                    np.flatnonzero(real), device=self.device))
+            if self.representation in kops.COMMIT_KINDS:
+                stored = torch.empty(
+                    (k, self._arena.shape[1]), dtype=self._arena.dtype,
+                    device=self.device)[:, :self.R.shape[1]]
+                row_sizes = torch.empty(k, dtype=torch.int32,
+                                        device=self.device)
+                self._commit(rows, stored, row_sizes)
+            else:
+                rows = rows.to(torch.uint8)
+                row_sizes = rows.sum(dim=1, dtype=torch.int32)
+                self.counter += rows.sum(dim=0, dtype=torch.int32)
+                stored = self._rows_for_storage(rows)
+            t = torch.as_tensor(tgt, device=self.device)
+            self.R[t] = stored
+            self.sizes[t] = row_sizes
+            self.live[t] = True
+            self.dead -= k
+            self.version += 1
+        obs.counter("store.rows_replaced").add(k)
+        self._ensure_room(0)
+
+    def compact(self) -> np.ndarray | None:
+        """Move the live rows to the arena head in place (their order
+        kept: the oldest stay first, the FIFO order eviction relies on),
+        reclaiming dead slots.  Returns the old -> new slot remap (-1
+        for a reclaimed slot), or None when nothing was dead."""
+        if self.dead == 0:
+            return None
+        keep = self._valid().cpu().numpy()
+        kept = np.flatnonzero(keep)
+        arena = self._arena
+        step = max(1, CONVERT_BLOCK_ELEMS // max(arena.shape[1], 1))
+        # a kept row only moves toward the head (kept[i] >= i), so each
+        # block's sources are read before any later write reaches them
+        for lo in range(0, kept.size, step):
+            src = torch.as_tensor(kept[lo:lo + step], device=self.device)
+            arena[lo:lo + src.numel()] = arena.index_select(0, src)
+        arena[kept.size:] = self._fill_value()
+        sizes = torch.zeros_like(self.sizes)
+        sizes[:kept.size] = self.sizes[torch.as_tensor(kept,
+                                                       device=self.device)]
+        self.sizes = sizes
+        remap = np.full(self.capacity, -1, np.int64)
+        remap[kept] = np.arange(kept.size)
+        self.count = int(kept.size)
+        self.dead = 0
+        self.live = torch.ones(self.capacity, dtype=torch.bool,
+                               device=self.device)
+        self.version += 1
+        obs.counter("store.compactions").add(1)
+        if self.track_remaps:
+            self._remaps.append(remap)
+        return remap
+
+    def _compress_step(self) -> bool:
+        """Morph the arena one step down the policy's ladder; True when
+        a step was taken.  Stores with a fixed layout cannot morph."""
+        return False
+
+    def _ensure_room(self, incoming: int):
+        """Enforce the pressure policy before a write of ``incoming``
+        rows: reclaim dead slots first, then walk the codec ladder (each
+        step shrinks the bytes a row, so a ``max_bytes`` cap admits more
+        rows), and only then evict the oldest live rows until the batch
+        fits.  ``incoming=0`` brings an arena whose rows grew wider back
+        under the cap."""
+        cap = self.row_cap
+        if cap is None:
+            return
+        if self.count + incoming > cap and self.dead:
+            self.compact()
+        while self.count + incoming > cap and self._compress_step():
+            cap = self.row_cap
+        if incoming > cap:
+            raise ValueError(
+                f"batch of {incoming} rows exceeds the policy row cap "
+                f"of {cap}")
+        if self.count + incoming > cap:
+            self.compact()
+            over = self.count + incoming - cap
+            if over > 0:
+                evicted = self.kill_rows(
+                    torch.arange(self.capacity, device=self.device) < over)
+                obs.counter("store.rows_evicted").add(evicted)
+                self.compact()
+        if self.capacity > cap:
+            self._shrink_rows(cap)
+
+    def _shrink_rows(self, cap: int) -> None:
+        """Cut the arena to ``cap`` rows once wider rows (a token
+        widening) lowered the policy's row cap below the capacity, so
+        capacity x row bytes stays within ``max_bytes``; every filled row
+        lies below the cap (`_ensure_room` compacted and evicted first).
+        The reference keeps the larger arena."""
+        self._arena = self._arena[:cap].clone()
+        self.sizes = self.sizes[:cap].clone()
+        self.live = self.live[:cap].clone()
+        self.capacity = cap
+        self._idx_cache = None
+        self.version += 1
 
     def _base_state(self) -> dict:
         return {
@@ -225,8 +502,8 @@ class BitmapStore(_ArenaBase):
     representation = "bitmap"
 
     def __init__(self, n: int, *, capacity: int = MIN_CAPACITY,
-                 device=None):
-        super().__init__(n, capacity=capacity, device=device)
+                 policy: StorePressurePolicy | None = None, device=None):
+        super().__init__(n, capacity=capacity, policy=policy, device=device)
         self.row_stride = padded_width(self.n)
         self._arena = torch.zeros((self.capacity, self.row_stride),
                                   dtype=torch.uint8, device=self.device)
@@ -245,20 +522,30 @@ class BitmapStore(_ArenaBase):
     def _row_bytes(self) -> int:
         return self.n
 
+    def _fill_value(self) -> int:
+        return 0
+
+    def _row_contrib(self, mask) -> torch.Tensor:
+        """The counter contribution of the masked rows: the
+        ``coverage_matvec`` kernel, exact (integer counts below 2**24)."""
+        return kops.coverage_matvec(mask, self.R).to(torch.int32)
+
     def add_batch(self, visited, counter=None) -> np.ndarray:
-        """Append ``visited (B, n)`` 0/1 rows in place (the unfused write
-        path); ``counter`` is the sampler's ``(n,) int32`` contribution,
-        computed here when absent.  Returns the slots the rows landed in."""
+        """Append ``visited (B, n)`` 0/1 rows in place with one
+        ``arena_commit`` launch (the unfused write path), which counts
+        the batch's columns itself: ``counter``, the sampler's equal
+        contribution, is not needed.  Returns the slots the rows landed
+        in.  Under a `StorePressurePolicy` the write may first compact
+        and evict (`_ensure_room`)."""
         with obs.span("store.write", tier="store", kind="bitmap"):
-            visited = visited.to(self.device, torch.uint8)
+            visited = visited.to(self.device)
             B = int(visited.shape[0])
+            self._ensure_room(B)
             self._grow_rows(self.count + B)
-            if counter is None:
-                counter = visited.sum(dim=0, dtype=torch.int32)
-            slots = np.arange(self.count, self.count + B, dtype=np.int64)
-            self.R[self.count:self.count + B] = visited
-            self._finish_add(visited.sum(dim=1, dtype=torch.int32), counter)
-        return slots
+            lo, hi = self.count, self.count + B
+            self._commit(visited, self.R[lo:hi], self.sizes[lo:hi])
+            self._note_write(B)
+        return np.arange(lo, hi, dtype=np.int64)
 
     def view(self) -> StoreView:
         return StoreView("bitmap", self.R, self._valid(), self.n, self.count)
@@ -296,11 +583,13 @@ class BitmapStore(_ArenaBase):
     @classmethod
     def from_rows(cls, rows, n: int, *, device=None) -> "BitmapStore":
         """A store holding exactly ``rows (count, n) uint8`` — the
-        cross-representation restore path."""
+        cross-representation restore path; ``_restore_slots`` records
+        the slot each row landed in (stream provenance follows it)."""
         store = cls(int(n), capacity=max(int(rows.shape[0]), MIN_CAPACITY),
                     device=device)
-        if rows.shape[0]:
+        store._restore_slots = (
             store.add_batch(torch.as_tensor(np.asarray(rows, np.uint8)))
+            if rows.shape[0] else np.zeros((0,), np.int64))
         return store
 
 
@@ -314,8 +603,9 @@ class IndexStore(_ArenaBase):
     representation = "indices"
 
     def __init__(self, n: int, *, capacity: int = MIN_CAPACITY,
-                 l_pad: int = MIN_INDEX_PAD, device=None):
-        super().__init__(n, capacity=capacity, device=device)
+                 l_pad: int = MIN_INDEX_PAD,
+                 policy: StorePressurePolicy | None = None, device=None):
+        super().__init__(n, capacity=capacity, policy=policy, device=device)
         self.l_pad = next_pow2(l_pad, MIN_INDEX_PAD)
         self._arena = self._new_arena(self.capacity, self.l_pad)
 
@@ -344,6 +634,19 @@ class IndexStore(_ArenaBase):
     def _row_bytes(self) -> int:
         return 4 * self.l_pad
 
+    def _fill_value(self) -> int:
+        return self.n
+
+    def _rows_for_storage(self, rows):
+        self._widen(int(rows.sum(dim=1, dtype=torch.int32).max()))
+        return bitmap_to_indices(rows, self.l_pad)
+
+    def _row_contrib(self, mask) -> torch.Tensor:
+        """The counter contribution of the masked rows: their members
+        scattered (the sentinel dropped)."""
+        return bincount_weighted(self.R, mask[:, None].to(torch.int32),
+                                 self.n)
+
     def add_batch(self, visited, counter=None) -> np.ndarray:
         """Convert and append ``visited (B, n)`` 0/1 rows, widening to the
         batch's largest set first; returns the slots they landed in."""
@@ -352,6 +655,7 @@ class IndexStore(_ArenaBase):
             B = int(visited.shape[0])
             batch_sizes = visited.sum(dim=1, dtype=torch.int32)
             self._widen(int(batch_sizes.max()))
+            self._ensure_room(B)
             self._grow_rows(self.count + B)
             if counter is None:
                 counter = visited.sum(dim=0, dtype=torch.int32)
@@ -375,6 +679,7 @@ class IndexStore(_ArenaBase):
             self._widen(L)
             # any emitter sentinel (>= n) becomes the store's (== n)
             rows = torch.where(rows < self.n, rows, self.n)
+            self._ensure_room(B)
             self._grow_rows(self.count + B)
             if counter is None:
                 counter = bincount_weighted(
@@ -422,18 +727,18 @@ _NOT_PORTED = {"sharded": "the sharded store (ROADMAP A8)"}
 _KINDS = ("bitmap", "packed", "compressed", "indices")
 _ROW_KINDS = ("bitmap", "packed", "compressed")
 
+#: single-device store classes by kind; ``repro_torch.core.pack.stores``
+#: registers ``packed`` and ``compressed`` when it is imported
+STORE_KINDS = {"bitmap": BitmapStore, "indices": IndexStore}
+
 
 def _store_class(kind: str):
     """The single-device store class of ``kind`` (``auto`` is bitmap)."""
-    if kind in ("auto", "bitmap"):
-        return BitmapStore
-    if kind == "indices":
-        return IndexStore
-    if kind in ("packed", "compressed"):
-        from repro_torch.core.pack.stores import (
-            CompressedStore, PackedBitmapStore,
-        )
-        return PackedBitmapStore if kind == "packed" else CompressedStore
+    kind = "bitmap" if kind == "auto" else kind
+    if kind in ("packed", "compressed") and kind not in STORE_KINDS:
+        from repro_torch.core.pack import stores  # noqa: F401 (registers)
+    if kind in STORE_KINDS:
+        return STORE_KINDS[kind]
     if kind in _NOT_PORTED:
         raise NotImplementedError(
             f"store {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
@@ -441,11 +746,13 @@ def _store_class(kind: str):
                      f"{sorted(_KINDS + tuple(_NOT_PORTED))}")
 
 
-def make_store(kind: str, n: int, *, device=None):
+def make_store(kind: str, n: int, *, device=None, **kw):
     """Store factory: ``"auto"``/``"bitmap"`` give a `BitmapStore`,
     ``"indices"`` an `IndexStore`, ``"packed"`` a `PackedBitmapStore`,
-    ``"compressed"`` a `CompressedStore`."""
-    return _store_class(kind)(n, device=device)
+    ``"compressed"`` a `CompressedStore`; ``policy=`` (a
+    `StorePressurePolicy`) and the constructors' other keywords pass
+    through."""
+    return _store_class(kind)(n, device=device, **kw)
 
 
 def _live_rows_from_state(st) -> tuple[int, np.ndarray]:

@@ -69,18 +69,28 @@ def wc_edge_probs(dst, n: int) -> np.ndarray:
 
 
 def build_graph(src, dst, n: int, *, ic_prob=None, seed: int = 0,
+                weighted_ic: str = "uniform", lt_weight=None,
                 device="cpu") -> Graph:
-    """Build a Graph from numpy edge arrays (``repro.graphs.csr.
-    build_graph`` without its weighted-cascade and explicit-LT-weight
-    options): IC probabilities U(0,1) unless given, LT weights normalized
-    per dst to a total drawn from U(0.3, 1)."""
+    """Build a Graph from numpy edge arrays.
+
+    ``ic_prob``: explicit per-edge IC probabilities (aligned with
+    ``(src, dst)``), or None → generated: ``"uniform"`` U(0,1), or
+    ``"wc"`` (weighted cascade, 1/in-degree).  ``lt_weight``: explicit
+    per-edge LT weights taken verbatim (callers keep per-dst sums <= 1;
+    the streaming delta path rebuilds a mutated graph with them so every
+    untouched dst keeps a bit-identical LT segment), or None → raw U(0,1)
+    normalized per dst to a total drawn from U(0.3, 1).
+    """
     src = np.asarray(src, dtype=np.int32)
     dst = np.asarray(dst, dtype=np.int32)
     m = src.shape[0]
     rng = np.random.default_rng(seed)
 
     if ic_prob is None:
-        ic_prob = rng.uniform(0.0, 1.0, size=m)
+        if weighted_ic == "wc":
+            ic_prob = wc_edge_probs(dst, n)
+        else:
+            ic_prob = rng.uniform(0.0, 1.0, size=m)
     ic_prob = np.asarray(ic_prob, dtype=np.float32)
 
     order_src = np.argsort(src, kind="stable")
@@ -93,14 +103,18 @@ def build_graph(src, dst, n: int, *, ic_prob=None, seed: int = 0,
     in_src = src[order_dst]
     in_prob = ic_prob[order_dst]
 
-    raw = rng.uniform(0.0, 1.0, size=m).astype(np.float64)
-    indeg = (dst_offsets[1:] - dst_offsets[:-1]).astype(np.int64)
-    seg_sum = np.zeros(n, dtype=np.float64)
-    np.add.at(seg_sum, dst_sorted, raw)
-    total0 = rng.uniform(0.3, 1.0, size=n)
-    total0 = np.where(indeg > 0, total0, 0.0)
-    scale = np.where(seg_sum > 0, total0 / np.maximum(seg_sum, 1e-30), 0.0)
-    w = raw * scale[dst_sorted]
+    if lt_weight is None:
+        raw = rng.uniform(0.0, 1.0, size=m).astype(np.float64)
+        indeg = (dst_offsets[1:] - dst_offsets[:-1]).astype(np.int64)
+        seg_sum = np.zeros(n, dtype=np.float64)
+        np.add.at(seg_sum, dst_sorted, raw)
+        total0 = rng.uniform(0.3, 1.0, size=n)
+        total0 = np.where(indeg > 0, total0, 0.0)
+        scale = np.where(seg_sum > 0, total0 / np.maximum(seg_sum, 1e-30),
+                         0.0)
+        w = raw * scale[dst_sorted]
+    else:
+        w = np.asarray(lt_weight, dtype=np.float64)[order_dst]
     cum = np.cumsum(w)
     seg_start_cum = np.concatenate([[0.0], cum])[dst_offsets[:-1]]
     lt_cum = cum - seg_start_cum[dst_sorted] if m else np.zeros(0)
@@ -131,7 +145,11 @@ def edge_arrays(g: Graph):
     The LT weight of an edge is recovered from the within-segment
     cumulative sums, ``w[e] = lt_cum[e] - lt_cum[e-1]`` inside each dst
     segment, as exact float64 differences of the float32 sums: the GT
-    model's marginals, bitwise the reference's.
+    model's marginals, bitwise the reference's.  A rebuild through
+    ``build_graph(lt_weight=w)`` reproduces ``in_lt_cum`` bit for bit;
+    ``in_lt_total`` may move by one float32 ulp on the first round trip
+    and is idempotent after it (why `repro_torch.stream` canonicalizes a
+    graph before streaming from it).
     """
     src = _host(g.in_src)
     dst = _host(g.edge_dst)

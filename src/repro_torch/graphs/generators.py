@@ -1,4 +1,5 @@
-"""The R-MAT and path generators (numpy) of ``repro.graphs.generators``:
+"""The R-MAT, Erdos-Renyi, star and path generators (numpy) of
+``repro.graphs.generators``:
 the same ``seed`` gives the same edges and weights."""
 from __future__ import annotations
 
@@ -29,6 +30,26 @@ def rmat_graph(n: int, m: int, *, seed: int = 0, a=0.57, b=0.19, c=0.19,
     src, dst = src[uniq], dst[uniq]
     return build_graph(src, dst, n, seed=seed, **kw)
 
+
+def erdos_graph(n: int, m: int, *, seed: int = 0, **kw) -> Graph:
+    """Uniform random directed edges (self loops dropped, deduplicated)."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, size=2 * m)
+    dst = rng.integers(0, n, size=2 * m)
+    keep = src != dst
+    src, dst = src[keep][:m], dst[keep][:m]
+    eid = src.astype(np.int64) * n + dst.astype(np.int64)
+    _, uniq = np.unique(eid, return_index=True)
+    return build_graph(src[uniq], dst[uniq], n, seed=seed, **kw)
+
+
+def star_graph(n: int, *, p: float = 0.5, seed: int = 0) -> Graph:
+    """Hub 0 -> spokes 1..n-1, every edge with IC probability ``p``
+    (closed-form tests)."""
+    src = np.zeros(n - 1, dtype=np.int32)
+    dst = np.arange(1, n, dtype=np.int32)
+    prob = np.full(n - 1, p, dtype=np.float32)
+    return build_graph(src, dst, n, ic_prob=prob, seed=seed)
 
 
 def path_graph(n: int, *, p: float = 1.0, seed: int = 0) -> Graph:

@@ -19,8 +19,29 @@ from repro_torch.kernels import fused_select as _sel
 from repro_torch.kernels import ic_frontier as _icf
 from repro_torch.kernels import packed_count as _pc
 from repro_torch.kernels._common import (          # noqa: F401
-    impl_for, launch_counts, padded_width, reset_launches,
+    impl_for, launch_counts, padded_width, reset_launches, row_view,
 )
+
+#: the at-rest forms ``arena_commit`` writes
+COMMIT_KINDS = ("bitmap", "packed")
+
+
+def commit_rows(rows) -> torch.Tensor:
+    """``rows (K, n)`` 0/1 as a row block ``arena_commit`` reads:
+    ``rows`` itself when it is one already (bool or uint8, 16-byte
+    aligned rows over a padded stride, as the samplers emit them), else
+    a zero-padded uint8 copy."""
+    if rows.dtype in (torch.bool, torch.uint8) and rows.dim() == 2:
+        try:
+            row_view(rows, "rows")
+            return rows
+        except ValueError:
+            pass
+    K, n = rows.shape
+    block = torch.zeros((K, padded_width(n)), dtype=torch.uint8,
+                        device=rows.device)[:, :n]
+    block.copy_(rows)
+    return block
 
 
 def arena_commit(rows, out, counter, *, kind: str = "bitmap",

@@ -12,12 +12,12 @@ arena, ``--store indices`` as C4 index lists, and ``"arena_bytes"``
 reports the arena's device bytes.  ``--snapshot-dir`` resumes from the
 engine snapshot there when one exists and saves one at the end (the
 reference's checkpoint format: either package resumes the other's).
-``--model IC|WC|GT``, ``--backend dense|sparse|pallas`` and ``--sampler``
-(e.g. ``"IC/pallas+stable"``) pick the sampler; graphs with n <= 4096
-take the dense backend by default, as in the reference.  Flags of
-features not ported yet (``--mesh``, ``--store sharded``, ``--model LT``
-/ ``--backend walk``) raise `NotImplementedError` naming their ROADMAP
-item.
+``--model IC|WC|GT|LT``, ``--backend dense|sparse|pallas|walk`` and
+``--sampler`` (e.g. ``"IC/pallas+stable"``, ``"LT/walk"``) pick the
+sampler; graphs with n <= 4096 take the dense backend by default and LT
+the walk, as in the reference.  Flags of features not ported yet
+(``--mesh``, ``--store sharded``) raise `NotImplementedError` naming
+their ROADMAP item.
 """
 from __future__ import annotations
 

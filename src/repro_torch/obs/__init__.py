@@ -22,7 +22,7 @@ from repro_torch.obs.metrics import (                     # noqa: F401
     LATENCY_BUCKETS_MS, SIZE_BUCKETS, Counter, Gauge, Histogram,
     MetricsRegistry, series_key,
 )
-from repro_torch.obs.tracer import Span, Tracer           # noqa: F401
+from repro_torch.obs.tracer import PHASES, Span, Tracer   # noqa: F401
 
 _enabled = False
 _registry: MetricsRegistry = MetricsRegistry()
@@ -68,6 +68,13 @@ def enable(*, registry: MetricsRegistry = None, tracer: Tracer = None,
     _enabled = True
 
 
+def disable() -> None:
+    """Turn observability off; collected data stays readable through
+    `snapshot` and `chrome_trace`."""
+    global _enabled
+    _enabled = False
+
+
 def reset() -> None:
     """Disable and drop all collected data."""
     global _enabled, _registry, _tracer
@@ -78,6 +85,11 @@ def reset() -> None:
 
 def enabled() -> bool:
     return _enabled
+
+
+def get_metrics() -> MetricsRegistry:
+    """The live registry, whatever the switch state."""
+    return _registry
 
 
 def get_tracer() -> Tracer:

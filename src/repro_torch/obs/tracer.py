@@ -19,6 +19,15 @@ import json
 import threading
 import time
 
+#: Phase names the instrumented tiers emit (a catalog, not a closed
+#: set — user spans may use any name).
+PHASES = (
+    "run", "round", "extend", "sample", "store.write", "count",
+    "select", "influence", "collective", "compute", "delta",
+    "refresh", "admission", "cache", "serve.batch", "replica.sync",
+    "flush",
+)
+
 
 class Span:
     """One in-flight phase; a context manager handed out by `Tracer.span`."""

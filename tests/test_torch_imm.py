@@ -149,5 +149,6 @@ def test_unported_configurations_raise():
         InfluenceEngine(g, IMMConfig(store="sharded"), device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         InfluenceEngine(g, IMMConfig(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        InfluenceEngine(g, IMMConfig(model="LT"), device="cpu")
+    # the LT walk is ported (A4): an LT engine binds the walk
+    assert InfluenceEngine(g, IMMConfig(model="LT"), device="cpu"
+                           ).sampler_name == "LT/walk"

@@ -100,3 +100,32 @@ def test_chip_smoke_refuses_without_a_gpu(tmp_path):
                          capture_output=True, text=True)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_stream_modules_import_alone_and_default_to_cuda():
+    """The streaming slice's modules load no JAX (the probe above walks
+    every module; these are named so a missing one fails here), and its
+    entry points run on the card unless given ``device="cpu"``."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), ROOT]))
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    for name in ("stream", "stream.delta", "stream.invalidate",
+                 "stream.engine", "graphs.generators", "obs.tracer"):
+        assert f"repro_torch.{name}" in res["modules"]
+    assert res["leaked"] == []
+    if torch.cuda.is_available():
+        return
+    from repro_torch.core.store import StorePressurePolicy, make_store
+    from repro_torch.graphs import generators
+    from repro_torch.launch import serve
+    from repro_torch.stream import StreamEngine
+
+    g = generators.rmat_graph(64, 256, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamEngine(g)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_store("packed", 64, policy=StorePressurePolicy(max_rows=8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--workload", "im", "--scale", "0.002"])

@@ -167,10 +167,12 @@ def test_snapshot_rejects_a_mismatched_arena(jax_snapshots):
 @pytest.mark.parametrize("store", ["packed", "compressed"])
 def test_unfused_write_and_obs_gauges(store):
     """``fused_pipeline="off"`` writes the same packed arena as the fused
-    ``arena_commit`` chain, and the arena-bytes gauge reports the at-rest
-    row width."""
+    ``arena_commit`` chain, each batch again one ``arena_commit`` call
+    (through ``add_batch``), and the arena-bytes gauge reports the
+    at-rest row width."""
     g = generators.rmat_graph(256, 1024, seed=5)
-    engines = []
+    key = "kernels.dispatch{impl=reference,kernel=arena_commit_packed}"
+    engines, commits = [], []
     obs.reset()
     obs.enable()
     try:
@@ -180,6 +182,7 @@ def test_unfused_write_and_obs_gauges(store):
             eng = InfluenceEngine(g, cfg, device="cpu")
             eng.run()
             engines.append(eng)
+            commits.append(obs.snapshot()["counters"].get(key, 0))
         snap = obs.snapshot()
     finally:
         obs.reset()
@@ -189,6 +192,4 @@ def test_unfused_write_and_obs_gauges(store):
     assert torch.equal(fused.sizes, plain.sizes)
     width = fused.codec.width * fused.R.element_size()
     assert snap["gauges"]["store.arena_bytes"]["value"] == fused.capacity * width
-    commits = snap["counters"].get(
-        "kernels.dispatch{impl=reference,kernel=arena_commit_packed}", 0)
-    assert commits == (2 if store == "packed" else 0)
+    assert commits == ([2, 4] if store == "packed" else [0, 0])

@@ -282,12 +282,16 @@ def test_register_model_shadowing_reaches_composed_samplers():
 def test_unported_axes_raise_with_their_roadmap_item():
     g = _graphs()[1]
     cfg = IMMConfig(batch=8)
+    # the walk is ported (A4); a mesh placement of it is not (A8)
     for name in ("LT/walk", "LT/walk+stable", "LT"):
         factory = smp.get_sampler(name)
-        with pytest.raises(NotImplementedError, match="A4"):
-            factory(g, cfg)
-    with pytest.raises(NotImplementedError, match="A4"):
-        smp.sample_lt(prng.PRNGKey(0), None, None, None, None, batch=8)
+        v, _, _ = factory(g, cfg)(prng.PRNGKey(0))
+        assert v.shape == (8, g.n)
+        with pytest.raises(NotImplementedError, match="A8"):
+            factory(g, cfg, placement=object())
+    with pytest.raises(NotImplementedError, match="A8"):
+        smp.sample_lt(prng.PRNGKey(0), None, None, None, None, batch=8,
+                      placement=object())
     rows, _, _ = smp.get_sampler("IC/sparse")(g, cfg)(prng.PRNGKey(0),
                                                       emit_l=8)
     assert rows.shape == (8, 8) and rows.dtype == torch.int32
