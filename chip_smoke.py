@@ -14,8 +14,11 @@ Phases, one JSON line each:
   parity    a small cell (rmat n = 2,048) run by the port on cuda with
             each store and on cpu: seeds, theta, coverage, counter and
             arena identical (on the sparse sampler; the dense-path cells
-            below), and imm() under LT with the positional and the stable
-            walk on cuda and on cpu, identical
+            below), imm() under LT with the positional and the stable
+            walk on cuda and on cpu, identical, and tier_full's tenant mix
+            at n 2,048 and theta 1,024 replayed synchronously (a refresh
+            step after every pump) on cuda and on cpu: every ServedQuery
+            but its latency, the stats and the selections identical
   imm_full  imm() on the full-size com-Amazon replica (IC, k = 50,
             eps = 0.5, max_theta = 16,384, rebuild), then the fused
             selections and four influence queries on its store
@@ -56,6 +59,22 @@ Phases, one JSON line each:
             replace_rows; IMServer over the stream (refresh budget 512),
             synchronous and with its async worker from one snapshot,
             equal once drained
+  tier_full the IMServe tier at the reference's full serving-tier run
+            (benchmarks/serve_tier.py --users 262144 --scale 1, five
+            tenants): four R-MAT campaigns of n 262,144 and m 8n under WC
+            weights (campaign-0 static, strict, weight 2, bitmap with
+            fused-rebuild; campaign-1 streaming, packed; campaign-2
+            static, relaxed, "auto" with C4, two replicas; campaign-3
+            streaming, bitmap with rebuild; campaign-4 a slot on
+            campaign-0's engine at weight 0.5), theta 8,192 an engine; the
+            bench's trace (2 virtual seconds, 96 q/s a tenant, Zipf 1.0,
+            a delta every 0.5 s) replayed with the refresh worker running,
+            a drain, a top-k selection per tenant and a flood of
+            max_pending + 64 submits to one tenant (exactly 64 refused,
+            the others served in the same DRR round); every static answer
+            equals its primary's, every cached stream answer a recompute
+            at its epoch, each drained stream a fresh one (launches
+            counted apart), both replicas the primary's store
   pallas_full
             imm() on the com-LJ Table III replica (n = 3,997, IC, k = 50,
             eps = 0.5, max_theta = 65,536) with the pallas backend (every
@@ -129,7 +148,8 @@ Then the kernel table (each kernel's launches counted on the one full
 run that is its path: the bitmap kernels and the coins on imm_full, the
 packed commit and packed_count on packed_full, token_count on
 compressed_full, ic_frontier_step on pallas_full, flash_attention on
-lm_full, fm_interaction on fm_full), the card's name and power limit, and
+lm_full, fm_interaction on fm_full; beside them its launches on every
+full run, tier_full's included), the card's name and power limit, and
 ``{"ok": true, "device": {...}}`` last.
 Any failure exits non-zero without the ok line; so does a machine with
 no CUDA device, or a directory without the repo's src/repro_torch.
@@ -1360,8 +1380,9 @@ def parity_phase(torch):
             check(list(o[q].seeds) == list(rh.seeds), f"parity {q} {key}")
     dense = dense_parity(torch, g)
     lt = lt_parity(torch, g)
+    tier = tier_parity(torch)
     emit("parity", n=g.n, m=g.m, theta=rh.theta, rounds=rh.rounds,
-         dense=dense, lt=lt,
+         dense=dense, lt=lt, tier=tier,
          seeds=[int(s) for s in rh.seeds], covered_frac=rh.covered_frac,
          cuda_s=c["s"], cpu_s=h["s"], launches=c["launches"],
          packed_s=out[DEV, "packed"]["s"],
@@ -2319,6 +2340,379 @@ def stream_full(torch, graph, max_theta: int) -> dict:
     return launches
 
 
+# -------------------------------------------------------- IMServe tier ----
+
+#: tier_full: the reference's full serving-tier run (``benchmarks/
+#: serve_tier.py --users 262144 --scale 1``, five tenants): four R-MAT
+#: campaigns of n 262,144 and m 8n under WC weights, graph seeds 10-13,
+#: a trace of 2.0 virtual seconds at 96 q/s a tenant (Zipf skew 1.0)
+#: with a delta every 0.5 s (4 inserts, deletes and reweights at
+#: in-degree <= 8); theta 8,192 an engine (the bench's 1,024 is too
+#: little work for the card)
+TIER_N, TIER_THETA = 262_144, 8_192
+TIER_TRACE = dict(duration=2.0, qps=96.0, skew=1.0, delta_ops=4, seed=0)
+TIER_SERVE = dict(quantum=8, refresh_budget=512)
+TIER_MAX_PENDING, TIER_REPLICAS, TIER_K, TIER_PUMP = 4_096, 2, 10, 16
+#: each campaign's store and selection, so the tier crosses every store
+#: kind it serves (the bench runs them all on "auto")
+TIER_STORES = (
+    dict(store="bitmap", adaptive_representation=False,
+         selection_method="fused-rebuild"),
+    dict(store="packed"),
+    dict(store="auto"),
+    dict(store="bitmap", adaptive_representation=False,
+         selection_method="rebuild"),
+)
+#: the kernels the tier's own window must launch: the commits (static
+#: extends, the packed stream's batches and repairs), the counter rebuilds
+#: (campaign-3's kills and rebuild selection), the fused argmax
+#: (campaign-0's selection), the packed count and the positional coins
+TIER_KERNELS = ("arena_commit", "arena_commit_packed", "coverage_matvec",
+                "fused_select", "packed_count", "ic_sparse_hits")
+
+
+def tier_specs(n: int, theta: int, replicas: int, max_pending: int):
+    """The bench's tenant mix (``serve_tier._specs``): campaign-0 static,
+    strict, weight 2; campaign-1 and -3 streaming; campaign-2 static,
+    relaxed, with replicas; campaign-4 a slot on campaign-0's engine at
+    weight 0.5; every engine on the sparse sampler (a stream on its
+    ``+stable`` form)."""
+    from repro_torch.core.engine import IMMConfig
+    from repro_torch.graphs import rmat_graph
+    from repro_torch.serve import TenantSpec
+
+    specs = []
+    for i, store in enumerate(TIER_STORES):
+        cfg = IMMConfig(k=TIER_K, batch=max(theta // 4, 64),
+                        max_theta=max(theta, 1 << 20), seed=i,
+                        sampler="IC/sparse", **store)
+        specs.append(TenantSpec(
+            f"campaign-{i}", graph=rmat_graph(n, 8 * n, seed=10 + i,
+                                              weighted_ic="wc"),
+            cfg=cfg, theta=theta, streaming=i % 2 == 1,
+            slo="relaxed" if i == 2 else "strict",
+            replicas=replicas if i == 2 else 0,
+            weight=2.0 if i == 0 else 1.0, max_pending=max_pending))
+    specs.append(TenantSpec("campaign-4", share_engine_with="campaign-0",
+                            weight=0.5, max_pending=max_pending))
+    return specs
+
+
+def tier_trace(tier, duration: float, qps: float, skew: float,
+               delta_ops: int, seed: int):
+    """The bench's trace over the tier's tenants (streaming: the tenants
+    that own a stream)."""
+    import numpy as np
+
+    from repro_torch.serve import make_trace, zipf_rates
+
+    graphs = {t.name: t.graph for t in tier.tenants.values()}
+    streaming = {t.name: t.streaming and t.owns_engine
+                 for t in tier.tenants.values()}
+    names = sorted(graphs)
+    return make_trace(
+        graphs, duration=duration,
+        qps=zipf_rates(names, qps * len(names), skew,
+                       np.random.default_rng(seed)),
+        streaming=streaming, delta_period=duration / 4,
+        delta_ops=delta_ops, seed=seed + 1)
+
+
+def served_record(r) -> tuple:
+    """A ServedQuery without its latency."""
+    return (r.ticket, r.tenant, r.value, r.epoch, r.cached, r.replica)
+
+
+def tier_parity(torch) -> dict:
+    """The five-tenant mix at n 2,048 and theta 1,024 (sparse sampler),
+    the same trace replayed synchronously (a refresh step after every
+    pump, no worker) on the card and on the host: every ServedQuery but
+    its latency, the stats, the cache's epochs and the selections equal."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import KIND_DELTA, IMServe
+
+    out = {}
+    for dev in (DEV, "cpu"):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        tier = IMServe(device=dev, quantum=8, refresh_budget=64)
+        for spec in tier_specs(2048, 1024, TIER_REPLICAS, TIER_MAX_PENDING):
+            tier.register(spec)
+        events = tier_trace(tier, duration=1.0, qps=96.0, skew=1.0,
+                            delta_ops=4, seed=0)
+        tickets = []
+        for e in events:
+            if e.kind == KIND_DELTA:
+                tier.apply_delta(e.tenant, e.delta)
+            else:
+                tickets.append(tier.submit(e.tenant, e.seeds))
+            if tier.pending >= TIER_PUMP:
+                tier.pump()
+                tier.refresh_step()
+        while tier.pending:
+            tier.pump()
+            tier.refresh_step()
+        check(tier.drain(timeout=None), f"tier parity {dev}: drain")
+        recs = [served_record(tier.result(t)) for t in tickets]
+        out[dev] = dict(
+            events=[(e.t, e.tenant, e.kind,
+                     None if e.seeds is None else e.seeds.tolist())
+                    for e in events],
+            recs=recs, stats=tier.stats(),
+            epochs={n: sorted(tier.cache.epochs(n)) for n in tier.tenants},
+            sels={n: [int(s) for s in tier.select(n, TIER_K).seeds]
+                  for n in tier.tenants},
+            s=time.perf_counter() - t0, launches=ops.launch_counts())
+    c, h = out[DEV], out["cpu"]
+    for key in ("events", "recs", "stats", "epochs", "sels"):
+        check(c[key] == h[key], f"tier parity: {key} differ on cuda and cpu")
+    flags = {(r[4], r[5]) for r in c["recs"]}
+    check((True, False) in flags and (False, True) in flags,
+          "tier parity: no cached or no replica answer")
+    check(sum(c["launches"].values()) > 0
+          and sum(h["launches"].values()) == 0,
+          "tier parity: launches on the wrong device")
+    return dict(queries=len(c["recs"]), cuda_s=c["s"], cpu_s=h["s"],
+                cached=sum(r[4] for r in c["recs"]),
+                replica=sum(r[5] for r in c["recs"]),
+                epochs=max(r[3] for r in c["recs"]),
+                cache=c["stats"]["cache"], refresh=c["stats"]["refresh"],
+                launches=c["launches"])
+
+
+def percentiles_ms(lat_s) -> dict:
+    import numpy as np
+
+    arr = np.asarray(lat_s, np.float64) * 1e3
+    return {"n": int(arr.size), "p50": float(np.percentile(arr, 50)),
+            "p99": float(np.percentile(arr, 99))}
+
+
+def tier_full(torch) -> dict:
+    """The IMServe tier at the reference bench's full size: five tenants
+    registered on the card (timed one by one), the bench's trace built
+    (timed apart: its deltas rebuild each graph on the host), replayed
+    in arrival order through admission, DRR, the cache and the replicas
+    while the refresh worker repairs, then a drain, a top-k selection
+    per tenant and an admission flood.  Checks every answer against the
+    primaries and fresh engines (launches counted apart).  Returns the
+    tier's own launches."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (
+        KIND_DELTA, AdmissionError, IMServe, trace_summary,
+    )
+    from repro_torch.stream import StreamEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    obs.reset()
+    obs.enable()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    specs = tier_specs(TIER_N, TIER_THETA, TIER_REPLICAS, TIER_MAX_PENDING)
+    ops.reset_launches()
+    tier = IMServe(device=DEV, **TIER_SERVE)
+    register_s = {}
+    for spec in specs:
+        _, register_s[spec.name] = timed(torch, lambda: tier.register(spec))
+    events, trace_s = timed(torch, lambda: tier_trace(tier, **TIER_TRACE))
+    seeds_of, stale, rejected = {}, [], 0
+    check_s, checked_cached = 0.0, 0
+    streams = [n for n, t in tier.tenants.items()
+               if t.streaming and t.owns_engine]
+
+    def check_round(answered):
+        """Every cached answer of a stream this round equals a recompute
+        at its epoch (deltas land only on this thread, so the tenant is
+        still at that consistent epoch), and no cache entry outlives its
+        tenant's served epoch."""
+        nonlocal checked_cached
+        for name in streams:
+            t = tier.tenants[name]
+            recs = [tier.result(k) for k in answered
+                    if tier.result(k).tenant == name
+                    and tier.result(k).cached]
+            if recs:
+                with t.lock:
+                    check(t.backlog == 0 and all(
+                        r.epoch == t.epoch for r in recs),
+                        f"tier_full {name}: a cached answer off its epoch")
+                    want = t.engine.influences(
+                        [seeds_of[r.ticket] for r in recs])
+                check(all(float(w) == r.value for w, r in zip(want, recs)),
+                      f"tier_full {name}: a cached answer differs from a "
+                      f"recompute at its epoch")
+                checked_cached += len(recs)
+        for name, t in tier.tenants.items():
+            check(tier.cache.epochs(name) <= {t.served_epoch},
+                  f"tier_full {name}: a cache entry outlived its epoch")
+
+    with tier:
+        tier.start_refresh_worker()
+        t0 = time.perf_counter()
+        answered = {}
+        for e in events:
+            if e.kind == KIND_DELTA:
+                stale.append((e.tenant, tier.apply_delta(e.tenant, e.delta)))
+            else:
+                tid = tier.try_submit(e.tenant, e.seeds)
+                if tid is None:
+                    rejected += 1
+                else:
+                    seeds_of[tid] = e.seeds
+            if tier.pending >= TIER_PUMP:
+                got = tier.pump()
+                answered.update(got)
+                c0 = time.perf_counter()
+                check_round(got)
+                check_s += time.perf_counter() - c0
+        got = tier.flush()
+        answered.update(got)
+        c0 = time.perf_counter()
+        check_round(got)
+        check_s += time.perf_counter() - c0
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0 - check_s
+        (drained, drain_s) = timed(torch, lambda: tier.drain(timeout=600.0))
+    check(drained, "tier_full: the tier did not drain")
+    check(not tier.refreshing, "tier_full: the worker outlived close")
+    n_queries = sum(1 for e in events if e.kind != KIND_DELTA)
+    check(len(answered) + rejected == n_queries and all(
+        tier.result(t) is not None for t in answered),
+        "tier_full: an admitted query went unanswered")
+    sels, select_s = timed(torch, lambda: {
+        n: tier.select(n, TIER_K) for n in tier.tenants})
+    stats = tier.stats()
+    snap = obs.snapshot()
+
+    # check 4: a flood of max_pending + 64 submits to one tenant
+    frng = np.random.default_rng(99)
+    flood_ids, flood_rejected = [], 0
+    for _ in range(TIER_MAX_PENDING + 64):
+        try:
+            flood_ids.append(tier.submit(
+                "campaign-0", frng.choice(TIER_N, 4, replace=False)))
+        except AdmissionError:
+            flood_rejected += 1
+    others = {n: [tier.submit(n, frng.choice(TIER_N, 3, replace=False))
+                  for _ in range(8)] for n in tier.tenants
+              if n != "campaign-0"}
+    first = tier.pump()
+    per_round = {}
+    for tid in first:
+        per_round[tier.result(tid).tenant] = per_round.get(
+            tier.result(tid).tenant, 0) + 1
+    want_round = {n: int(TIER_SERVE["quantum"] * t.spec.weight)
+                  for n, t in tier.tenants.items()}
+    check(flood_rejected == 64, f"tier_full: the flood gave "
+          f"{flood_rejected} rejections, not 64")
+    check(per_round == want_round, f"tier_full: the flood's first round "
+          f"served {per_round}, not {want_round}")
+    _, flood_s = timed(torch, tier.flush)
+    check(all(tier.result(t) is not None for t in flood_ids)
+          and all(tier.result(t) is not None
+                  for ids in others.values() for t in ids),
+          "tier_full: the flood left queries unanswered")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for name in TIER_KERNELS:
+        check(launches.get(name, 0) > 0,
+              f"tier_full: the tier launched no {name}")
+
+    # check 2: static answers (primary, replica or cache) == the primary's
+    ops.reset_launches()
+    recs = [tier.result(t) for t in answered]
+    static = {}
+    for r in recs:
+        t = tier.tenants[r.tenant]
+        if not t.streaming:
+            static.setdefault(r.tenant, []).append(r)
+    for name, rs in static.items():
+        with tier.tenants[name].lock:
+            want = tier.tenants[name].engine.influences(
+                [seeds_of[r.ticket] for r in rs])
+        check(all(float(w) == r.value for w, r in zip(want, rs)),
+              f"tier_full {name}: an answer differs from the primary's")
+    group = tier.replica_groups["campaign-2"]
+    primary = tier.tenants["campaign-2"].engine
+    for rep in group.replicas:
+        check(torch.equal(rep.store.R, primary.store.R)
+              and torch.equal(rep.store.counter, primary.store.counter),
+              "tier_full: a replica's store differs from the primary's")
+    # check 3: each drained stream == a fresh stream on its graph
+    fresh_s = {}
+    for name in streams:
+        t = tier.tenants[name]
+        fresh = StreamEngine(t.graph, t.engine.cfg, device=DEV)
+        _, fresh_s[name] = timed(torch, lambda: fresh.extend(TIER_THETA))
+        check(torch.equal(t.engine.store.counter, fresh.store.counter),
+              f"tier_full {name}: counter differs from a fresh stream's")
+        check(list(sels[name].seeds) == list(fresh.select(TIER_K).seeds),
+              f"tier_full {name}: select({TIER_K}) differs from a fresh "
+              f"stream's")
+        del fresh
+    check_launches = ops.launch_counts()
+    obs.reset()
+
+    by_tenant = {}
+    for r in recs:
+        by_tenant.setdefault(r.tenant, []).append(r.latency_s)
+    hist = snap["histograms"]
+    ctr = snap["counters"]
+    lat_hist = {n: {k: hist[f"serve.latency_ms{{tenant={n}}}"][k]
+                    for k in ("count", "p50", "p99", "max")}
+                for n in tier.tenants
+                if f"serve.latency_ms{{tenant={n}}}" in hist}
+    emit("tier_full", source="benchmarks/serve_tier.py --users 262144 "
+         "--scale 1 --tenants 5", n=TIER_N,
+         m={n: t.graph.m for n, t in tier.tenants.items() if t.owns_engine},
+         theta=TIER_THETA, trace=TIER_TRACE, serve=TIER_SERVE,
+         max_pending=TIER_MAX_PENDING, replicas=TIER_REPLICAS,
+         changed=["theta 8,192 an engine, not 1,024",
+                  "stores and selections vary across campaigns "
+                  "(bitmap fused-rebuild, packed, auto, bitmap rebuild)",
+                  "campaign-2 has 2 replicas, not 1",
+                  "sampler IC/sparse named (the bench's default at this n)"],
+         reduced=[], stores={n: t.engine.store.representation
+                             for n, t in tier.tenants.items()},
+         register_s=register_s, trace_build_s=trace_s,
+         events=trace_summary(events),
+         serve_s=serve_s, check_s=check_s, drain_s=drain_s,
+         select_s=select_s, flood_s=flood_s,
+         answered=len(answered), rejected=rejected,
+         qps=len(answered) / serve_s,
+         latency_ms=dict(all=percentiles_ms(
+             [r.latency_s for r in recs]),
+             **{n: percentiles_ms(v) for n, v in sorted(by_tenant.items())}),
+         latency_hist_ms=lat_hist,
+         cache=stats["cache"],
+         cache_bypass=sum(v for k, v in ctr.items()
+                          if k.startswith("serve.cache_bypass")),
+         cached_checked=checked_cached,
+         stale_per_delta=stale, refresh=stats["refresh"],
+         tenants={n: {k: ts[k] for k in ("served", "cache_hits",
+                                        "replica_reads", "epoch",
+                                        "refreshes", "rows_repaired")}
+                  for n, ts in stats["tenants"].items()},
+         replica=dict(**stats["replicas"]["campaign-2"],
+                      sync_ms={k: hist["serve.replica_sync_ms"][k]
+                               for k in ("count", "sum", "min", "max")}),
+         selections={n: [int(v) for v in s.seeds]
+                     for n, s in sels.items()},
+         flood=dict(submitted=TIER_MAX_PENDING + 64,
+                    rejected=flood_rejected, first_round=per_round),
+         fresh_extend_s=fresh_s, max_memory_allocated=peak,
+         nvidia_smi=nvidia_smi(), launches=launches,
+         check_launches=check_launches)
+    return launches
+
+
 # ------------------------------------------------------------ LM serving ----
 
 LOGIT_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (0.05, 0.02)}
@@ -2998,11 +3392,12 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="kernels,parity,imm_full,packed_full,"
                             "compressed_full,indices_full,lt_full,"
-                            "stream_full,pallas_full,lm_parity,lm_full,"
-                            "fm_parity,fm_full,fm_profile",
+                            "stream_full,tier_full,pallas_full,lm_parity,"
+                            "lm_full,fm_parity,fm_full,fm_profile",
                     help="comma list of kernels, parity, imm_full, "
                          "packed_full, compressed_full, indices_full, "
-                         "lt_full, stream_full, pallas_full, lm_parity, "
+                         "lt_full, stream_full, tier_full, pallas_full, "
+                         "lm_parity, "
                          "lm_full, fm_parity, fm_full, fm_profile and the "
                          "optional profile")
     args = ap.parse_args(argv)
@@ -3059,6 +3454,8 @@ def main(argv=None) -> int:
         launches["lt_full"] = lt_full(torch, graph, args.max_theta)
     if "stream_full" in phases:
         launches["stream_full"] = stream_full(torch, graph, args.max_theta)
+    if "tier_full" in phases:
+        launches["tier_full"] = tier_full(torch)
     if "pallas_full" in phases:
         launches["pallas_full"] = pallas_full(torch, lj, LJ_THETA)
     if "lm_parity" in phases:
@@ -3085,7 +3482,10 @@ def main(argv=None) -> int:
         table.append({"name": name,
                       **{k: v for k, v in row.items()
                          if k not in ("shape", "terms")},
-                      "launches": count})
+                      "launches": count,
+                      "launches_by_phase": {
+                          ph: c[name] for ph, c in launches.items()
+                          if c.get(name, 0)}})
     print(json.dumps({"kernels": table}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

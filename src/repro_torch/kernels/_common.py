@@ -10,6 +10,7 @@ can show that its main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -19,8 +20,11 @@ from repro_torch import obs
 #: with 16-byte loads; pad bytes between n and the stride are zero
 ROW_ALIGN = 16
 
-#: launches per kernel since the last `reset_launches`
+#: launches per kernel since the last `reset_launches`; read and written
+#: under `_LAUNCH_LOCK` (a tier's refresh worker and its query thread
+#: launch kernels at once, and ``+=`` on a dict entry is not atomic)
 LAUNCHES: dict[str, int] = {}
+_LAUNCH_LOCK = threading.Lock()
 
 VOIDP, I64, I32, U32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_uint32)
@@ -54,17 +58,20 @@ def launched(kernel: str, err: int, design: str | None = None) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
     keys = (kernel,) if design is None else (kernel, f"{kernel}:{design}")
-    for key in keys:
-        LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
+    with _LAUNCH_LOCK:
+        for key in keys:
+            LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(LAUNCHES)
+    with _LAUNCH_LOCK:
+        return dict(LAUNCHES)
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCH_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def stream() -> int:

@@ -24,8 +24,14 @@ the engine on the device and CUDA stream the server was built on::
     PYTHONPATH=src python -m repro_torch.launch.serve --workload im \
         --graph com-Amazon --queries 64 --deltas 4 --model LT
 
-``--workload tier`` (the IMServe tier) is not ported yet and raises
-naming ROADMAP A7; ``--mesh`` raises naming A8.
+``--workload tier`` drives the IMServe tier (`repro_torch.serve`): N
+tenants on R-MAT graphs, a Zipf-skewed Poisson trace of queries and
+deltas replayed with the refresh worker running::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload tier \
+        --tenants 5 --tier-n 256 --max-theta 512 --duration 0.25
+
+``--mesh`` raises naming ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -389,6 +395,70 @@ def _main_im(args, log=print) -> dict:
     return out
 
 
+def _main_tier(args) -> dict:
+    """The IMServe tier over ``--tenants`` campaigns (static and
+    streaming alternating; tenant 2 relaxed-SLO with ``--replicas``
+    replicas when there are any), a Zipf-skewed Poisson trace of queries
+    and deltas replayed in arrival order with the refresh worker
+    running, then a drain.  Returns the numbers it printed."""
+    from repro_torch.core.engine import IMMConfig
+    from repro_torch.graphs import rmat_graph
+    from repro_torch.serve import (
+        IMServe, TenantSpec, make_trace, replay, trace_summary, zipf_rates,
+    )
+
+    cfg = IMMConfig(k=args.k, batch=min(args.max_theta, 256),
+                    max_theta=max(args.max_theta, 1 << 20), seed=0,
+                    store=args.store)
+    tier = IMServe(quantum=args.quantum, refresh_budget=args.refresh_budget,
+                   device=args.device)
+    graphs, stream_map = {}, {}
+    for i in range(args.tenants):
+        name = f"tenant{i}"
+        streaming = i % 2 == 1
+        relaxed = args.replicas > 0 and i == 2 % max(args.tenants, 1)
+        g = rmat_graph(args.tier_n, args.tier_n * 8, seed=10 + i,
+                       weighted_ic="wc")
+        tier.register(TenantSpec(
+            name, graph=g, cfg=cfg, theta=args.max_theta,
+            streaming=streaming,
+            slo="relaxed" if relaxed else "strict",
+            replicas=args.replicas if relaxed else 0,
+            max_pending=args.max_pending))
+        graphs[name], stream_map[name] = g, streaming
+    print(f"[serve-tier] {args.tenants} tenants x n={args.tier_n} "
+          f"(theta={args.max_theta}, mesh=1) registered")
+
+    events = make_trace(
+        graphs, duration=args.duration,
+        qps=zipf_rates(sorted(graphs), args.qps, args.skew,
+                       np.random.default_rng(1)),
+        streaming=stream_map, delta_period=args.duration / 4,
+        seed=2)
+    print(f"[serve-tier] trace: {len(events)} events "
+          f"{trace_summary(events)}")
+    tier.start_refresh_worker()
+    t0 = time.time()
+    answered, rejected = replay(tier, events, pump_every=args.quantum * 2)
+    wall = time.time() - t0
+    drained = tier.drain(timeout=60.0)
+    tier.close()
+    lat = sorted(tier.result(t).latency_s for t in answered)
+    stats = tier.stats()
+    print(f"[serve-tier] {len(answered)} answered / {rejected} rejected "
+          f"in {wall:.2f}s ({len(answered) / max(wall, 1e-9):.1f} q/s), "
+          f"p50={lat[len(lat) // 2] * 1e3:.1f}ms "
+          f"p99={lat[int(len(lat) * 0.99)] * 1e3:.1f}ms")
+    print(f"[serve-tier] cache {stats['cache']}, "
+          f"refresh {stats.get('refresh')}, drained={drained}")
+    for name, ts in sorted(stats["tenants"].items()):
+        print(f"  {name}: served={ts['served']} rejected={ts['rejected']} "
+              f"cache_hits={ts['cache_hits']} epoch={ts['epoch']} "
+              f"refreshes={ts['refreshes']}")
+    return {"answered": answered, "rejected": rejected, "drained": drained,
+            "stats": stats}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", default="lm", choices=("lm", "im", "tier"))
@@ -423,6 +493,24 @@ def main(argv=None):
                     help="IM arena at-rest representation")
     ap.add_argument("--mesh", default=None,
                     help="IM store mesh: not ported yet (ROADMAP A8)")
+    ap.add_argument("--tenants", type=int, default=4,
+                    help="tier workload: campaigns to register")
+    ap.add_argument("--tier-n", type=int, default=512,
+                    help="tier workload: vertices per tenant graph")
+    ap.add_argument("--duration", type=float, default=1.0,
+                    help="tier workload: trace length (virtual seconds)")
+    ap.add_argument("--qps", type=float, default=256.0,
+                    help="tier workload: total query arrival rate")
+    ap.add_argument("--skew", type=float, default=1.0,
+                    help="tier workload: Zipf exponent of per-tenant "
+                         "traffic shares")
+    ap.add_argument("--quantum", type=int, default=8,
+                    help="tier workload: DRR quantum per round")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="tier workload: read replicas for the "
+                         "relaxed-SLO tenant (0 disables)")
+    ap.add_argument("--max-pending", type=int, default=1024,
+                    help="tier workload: per-tenant admission queue cap")
     ap.add_argument("--device", default="cuda",
                     help="torch device: 'cuda' (default) or 'cpu' (the "
                          "kernels' plain PyTorch versions)")
@@ -433,16 +521,13 @@ def main(argv=None):
                     help="enable repro_torch.obs and write the Chrome "
                          "trace-event JSON here at exit")
     args = ap.parse_args(argv)
-    if args.workload == "tier":
-        raise NotImplementedError(
-            "--workload tier: the IMServe tier is not ported yet "
-            "(ROADMAP A7)")
     if args.mesh is not None:
         raise NotImplementedError(
             "--mesh: the sharded store is not ported yet (ROADMAP A8)")
     if args.metrics_out or args.trace_out:
         obs.enable()
-    out = _main_im(args) if args.workload == "im" else _main_lm(args)
+    run = {"tier": _main_tier, "im": _main_im, "lm": _main_lm}
+    out = run[args.workload](args)
     if args.metrics_out:
         print(f"[obs] metrics -> {obs.write_metrics(args.metrics_out)}")
     if args.trace_out:

@@ -129,3 +129,29 @@ def test_stream_modules_import_alone_and_default_to_cuda():
         make_store("packed", 64, policy=StorePressurePolicy(max_rows=8))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--workload", "im", "--scale", "0.002"])
+
+
+def test_serve_tier_modules_import_alone_and_default_to_cuda():
+    """The IMServe tier's modules load no JAX, and the tier builds its
+    tenant engines on the card unless given ``device="cpu"``."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), ROOT]))
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    for name in ("serve", "serve.admission", "serve.cache", "serve.replica",
+                 "serve.scheduler", "serve.tenant", "serve.tier",
+                 "serve.trace"):
+        assert f"repro_torch.{name}" in res["modules"]
+    assert res["leaked"] == []
+    from repro_torch.serve import IMServe
+
+    assert IMServe(device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert IMServe().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        IMServe()
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--workload", "tier", "--tenants", "1", "--tier-n", "64"])

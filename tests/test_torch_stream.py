@@ -503,8 +503,8 @@ def test_serve_im_cli_with_deltas_matches_jax():
 
 
 def test_serve_cli_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A7"):
-        serve.main(["--workload", "tier"])
+    with pytest.raises(NotImplementedError, match="A8"):
+        serve.main(["--workload", "tier", "--mesh", "4", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="A8"):
         serve.main(["--workload", "im", "--mesh", "4", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="A8"):
