@@ -95,7 +95,8 @@ Phases, one JSON line each:
             layer, every launch through the tensor-core kernel
   fm_parity the FM smoke config and a full-field one (39 fields x K 10,
             vocab 64) run on cuda and on cpu from the same weights: the
-            pair term bitwise; logits, retrieval scores, loss, gradients
+            pair term and the serving logits (one fm_gather_interaction
+            launch a call) bitwise; retrieval scores, loss, gradients
             and three clipped AdamW steps within stated tolerances; an id
             and a candidate past the table give NaN in the same places
             on both devices
@@ -103,9 +104,13 @@ Phases, one JSON line each:
             f32 table drawn on the card from a seeded generator): the
             serve_p99 (512), serve_bulk (262,144), retrieval_cand (4 user
             fields vs 1,000,000 candidates) and train_batch (3 AdamW steps
-            at 65,536 on the click stream) shapes; every call launches
-            fm_interaction once; the cost of the gathers' out-of-range
-            repair at serve_bulk
+            at 65,536 on the click stream) shapes; every serving call and
+            retrieval constant launches fm_gather_interaction once, every
+            training step fm_interaction once; the serve_p99 logits
+            bitwise the cpu's; the serving batches again in turns on the
+            unfused chain (gathers, float32 copy, unfused kernel, sums)
+            and the fused route, with host times and peak memory; the
+            cost of the training gathers' out-of-range repair
   fm_profile
             the same serve_bulk batch and train_batch step under
             torch.profiler: device-busy share and the kernels that take
@@ -140,7 +145,12 @@ and prefill_32k (bf16: the tensor-core kernel; f32: the SIMT kernel,
 timed at the two smaller shapes), ragged and decode-shaped, with the
 host cost of the tensor-core kernel's TMA maps, and
 fm_interaction bitwise at the FM shapes (serve_p99, train_batch,
-serve_bulk at 39 x 10, f32 and bf16; B 1 and 1,025; F/K 6/4 and 16/8);
+serve_bulk at 39 x 10, f32 and bf16; B 1 and 1,025; F/K 6/4 and 16/8),
+and fm_gather_interaction bitwise (NaN rows in the same places) at
+serve_p99 and serve_bulk on the full 39,000,000-row table (f32 and bf16,
+int32 and int64 ids, timed beside its byte bound, its sector floor and
+the unfused chain in turns), the retrieval constant and edge cases (B 1
+and 1,025, F/K 6/4, 16/8, K 5 in bf16, a wrapped and an out-of-range id);
 the parity phase also runs the dense-path cells (IC/dense, IC/pallas,
 WC/pallas, GT/pallas, IC/pallas+stable) on cuda and cpu.
 
@@ -148,7 +158,7 @@ Then the kernel table (each kernel's launches counted on the one full
 run that is its path: the bitmap kernels and the coins on imm_full, the
 packed commit and packed_count on packed_full, token_count on
 compressed_full, ic_frontier_step on pallas_full, flash_attention on
-lm_full, fm_interaction on fm_full; beside them its launches on every
+lm_full, both FM kernels on fm_full; beside them its launches on every
 full run, tier_full's included), the card's name and power limit, and
 ``{"ok": true, "device": {...}}`` last.
 Any failure exits non-zero without the ok line; so does a machine with
@@ -1150,12 +1160,15 @@ def fm_input(torch, gen, B, F, K, dtype):
             ).to(dtype)
 
 
-def fm_bitwise(torch, got, want, tag: str) -> None:
+def fm_same_bits(torch, got, want, tag: str) -> None:
+    """Equal bits where ``want`` is a number, NaN where it is NaN."""
+    got, want = got.cpu(), want.cpu()
     check(got.dtype == want.dtype == torch.float32
-          and got.shape == want.shape, f"fm_interaction {tag}: shape/dtype")
-    bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
-    check(bad == 0, f"fm_interaction {tag}: {bad} rows differ from the "
-          f"plain version")
+          and got.shape == want.shape, f"{tag}: shape/dtype")
+    nan = torch.isnan(want)
+    check(torch.equal(torch.isnan(got), nan), f"{tag}: NaN rows differ")
+    bad = int((got.view(torch.int32) != want.view(torch.int32))[~nan].sum())
+    check(bad == 0, f"{tag}: {bad} rows differ from the plain version")
 
 
 def fm_rows(torch, gen) -> dict:
@@ -1176,12 +1189,14 @@ def fm_rows(torch, gen) -> dict:
         name = str(dtype).split(".")[1]
         for B, F, K in cases:
             v = fm_input(torch, gen, B, F, K, dtype)
-            fm_bitwise(torch, ops.fm_interaction(v),
-                       fmk.fm_interaction_plain(v), f"{B}x{F}x{K} {name}")
+            fm_same_bits(torch, ops.fm_interaction(v),
+                         fmk.fm_interaction_plain(v),
+                         f"fm_interaction {B}x{F}x{K} {name}")
         for shape_name, B in FM_TIMED:
             v = fm_input(torch, gen, B, FM_F, FM_K, dtype)
-            fm_bitwise(torch, ops.fm_interaction(v),
-                       fmk.fm_interaction_plain(v), f"{shape_name} {name}")
+            fm_same_bits(torch, ops.fm_interaction(v),
+                         fmk.fm_interaction_plain(v),
+                         f"fm_interaction {shape_name} {name}")
             ms = time_cuda(torch, lambda: fmk.fm_interaction_cuda(v))
             graph_ms = time_graph(torch, lambda: fmk.fm_interaction_cuda(v))
             plain_ms = time_cuda(torch, lambda: fmk.fm_interaction_plain(v),
@@ -1204,6 +1219,190 @@ def fm_rows(torch, gen) -> dict:
                 "fm_interaction.py:28", max_abs_err=0, library_ms=None,
                 **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "shape")})
+
+
+def fm_table(torch, gen, rows: int, K: int, dtype):
+    """``v ~ N(0, 0.01)``, ``w ~ N(0, 0.01)``, ``b ~ N(0, 0.1)`` on the
+    card, rounded to ``dtype``: `fm_params`'s draws."""
+    return {"v": (torch.randn((rows, K), generator=gen, device="cuda")
+                  * 0.01).to(dtype),
+            "w": (torch.randn(rows, generator=gen, device="cuda")
+                  * 0.01).to(dtype),
+            "b": (torch.randn((), generator=gen, device="cuda")
+                  * 0.1).to(dtype)}
+
+
+def fm_row_ids(torch, idx, V: int):
+    """``(B, F)`` int64 table rows of per-field ids ``idx``."""
+    return idx.to(torch.int64) + torch.arange(
+        0, idx.shape[1] * V, V, dtype=torch.int64, device=idx.device)[None]
+
+
+def fm_unfused_chain(torch, t, V: int, idx):
+    """A serving call without the fused kernel (the training route's
+    forward, and the serving call before it): int64 row ids, the gathers
+    with their repair, a float32 copy, the unfused kernel (through its
+    autograd Function) and PyTorch's sums."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.recsys import fm
+
+    B, F = idx.shape
+    v, w = fm._gather(t, fm_row_ids(torch, idx, V).reshape(-1))
+    pair = ops.fm_interaction(v.view(B, F, -1).to(torch.float32))
+    return t["b"] + w.view(B, F).sum(dim=-1) + pair
+
+
+def fm_gather_bound(torch, t, V: int, idx) -> dict:
+    """The fused call's bound: the ids, each (request, field)'s v and w
+    rows and b read once, a float each request written (bytes); and the
+    32-byte sectors this run's rows touch (a v row's span, a w entry's
+    sector), with the ids and the output: the gathers' floor."""
+    B, F = idx.shape
+    K, isz = t["v"].shape[1], t["v"].element_size()
+    nbytes = B * F * (idx.element_size() + K * isz + isz) + isz + 4 * B
+    start = fm_row_ids(torch, idx, V) * (K * isz)
+    v_sectors = int(((start + K * isz - 1) // 32 - start // 32 + 1).sum())
+    sector_bytes = (32 * (v_sectors + B * F) + B * F * idx.element_size()
+                    + 4 * B)
+    b_ms, b_by = bound(nbytes)
+    return dict(bytes=nbytes, bound_ms=b_ms, bound_by=b_by,
+                sector_bytes=sector_bytes,
+                sector_floor_ms=bound(sector_bytes)[0])
+
+
+#: fm_gather_interaction's edge cases: (B, F, K, vocab, dtype, ids),
+#: with a wrapped negative id and an id past the table where B > 3
+FM_GATHER_CASES = (
+    (1, FM_F, FM_K, 1000, "float32", "int32"),
+    (1025, FM_F, FM_K, 1000, "bfloat16", "int64"),
+    (1025, 6, 4, 500, "float32", "int64"), (1025, 16, 8, 300, "bfloat16",
+                                             "int32"),
+    (1025, 16, 8, 300, "float32", "int32"), (777, 7, 5, 101, "bfloat16",
+                                             "int64"),
+    (1, 6, 4, 500, "bfloat16", "int32"), (300, FM_F, FM_K, 50, "float32",
+                                          "int64"))
+
+
+def fm_gather_rows(torch, gen) -> dict:
+    """fm_gather_interaction against its plain version, bitwise with the
+    NaN rows in the same places: the edge cases, the retrieval constant
+    (B 1 x F 4) and the serve_p99 and serve_bulk batches at full width
+    (a 39,000,000-row table, f32 and bf16, int32 and int64 ids).  The
+    timed rows give ms a call (eager) and ``graph_ms`` (a CUDA graph of
+    20), the bound and the sector floor, the plain version's time, the
+    unfused chain (`fm_unfused_chain`) timed in turns with the kernel
+    (kernel, chain, kernel, chain), two bare ``index_select``s of the
+    rows, and the kernel on all-zero ids (``hot_graph_ms``: its rows in
+    cache); no single PyTorch call computes this function, so no library
+    time."""
+    from repro_torch.kernels import fm_interaction as fmk
+    from repro_torch.kernels import ops
+
+    for B, F, K, V, dt, it in FM_GATHER_CASES:
+        t = fm_table(torch, gen, F * V, K, getattr(torch, dt))
+        idx = torch.randint(0, V, (B, F), generator=gen, device="cuda",
+                            dtype=getattr(torch, it))
+        if B > 3:
+            idx[1, 0] = -1
+            idx[2, F - 1] = V
+        got = ops.fm_gather_interaction(idx, V, t["v"], t["w"], t["b"])
+        want = fmk.fm_gather_interaction_plain(idx, V, t["v"], t["w"],
+                                               t["b"])
+        tag = f"fm_gather_interaction {B}x{F}x{K} {dt} {it}"
+        fm_same_bits(torch, got, want, tag)
+        check(torch.isnan(got).nonzero().flatten().tolist()
+              == ([2] if B > 3 else []), f"{tag}: NaN rows")
+    timed = {}
+    for dt in ("float32", "bfloat16"):
+        t = fm_table(torch, gen, FM_F * 1_000_000, FM_K, getattr(torch, dt))
+        user = torch.randint(0, 1_000_000, (1, 4), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        fm_same_bits(torch, ops.fm_gather_interaction(
+            user, 1_000_000, t["v"], t["w"], t["b"]),
+            fmk.fm_gather_interaction_plain(user, 1_000_000, t["v"], t["w"],
+                                            t["b"]),
+            f"fm_gather_interaction retrieval constant {dt}")
+        for shape_name, B in (("serve_p99", 512), ("serve_bulk", 262_144)):
+            for it in ("int32", "int64"):
+                idx = torch.randint(0, 1_000_000, (B, FM_F), generator=gen,
+                                    device="cuda", dtype=getattr(torch, it))
+                args = (idx, 1_000_000, t["v"], t["w"], t["b"])
+                got = ops.fm_gather_interaction(*args)
+                fm_same_bits(torch, got,
+                             fmk.fm_gather_interaction_plain(*args),
+                             f"fm_gather_interaction {shape_name} {dt} {it}")
+                # the yardstick computes the same function: within
+                # FM_REL of the terms' magnitudes; in bf16 also a bf16
+                # step of them (it rounds PyTorch's sum of w, not ours)
+                chain = fm_unfused_chain(torch, t, 1_000_000, idx)
+                rows = fm_row_ids(torch, idx, 1_000_000)
+                vs = t["v"][rows].float()
+                s = vs.sum(1)
+                lin = (t["w"][rows].float().abs().sum(-1)
+                       + t["b"].float().abs())
+                tol = FM_REL * (0.5 * (s * s + (vs * vs).sum(1)).sum(-1)
+                                + lin)
+                if dt == "bfloat16":
+                    tol = tol + 2.0 ** -6 * lin
+                check(bool(((chain - got).abs() <= tol).all()),
+                      f"fm_gather_interaction {shape_name} {dt} {it}: the "
+                      f"unfused chain differs")
+                del vs, s, lin, tol
+                # the gathers alone, as PyTorch does them: v's and w's
+                # rows by two index_selects (a part of the function, so
+                # a yardstick of the card's random-row rate, not a
+                # library time)
+                flat = rows.reshape(-1)
+                select_ms = time_cuda(torch, lambda: (
+                    t["v"].index_select(0, flat),
+                    t["w"].index_select(0, flat)))
+                del rows, flat
+                turns = {"kernel": [], "chain": []}
+                graph = {"kernel": [], "chain": []}
+                for name in ("kernel", "chain", "kernel", "chain"):
+                    fn = ((lambda: fmk.fm_gather_interaction_cuda(*args))
+                          if name == "kernel" else
+                          (lambda: fm_unfused_chain(torch, t, 1_000_000,
+                                                   idx)))
+                    turns[name].append(time_cuda(torch, fn))
+                    graph[name].append(time_graph(torch, fn))
+                plain_ms = time_cuda(
+                    torch, lambda: fmk.fm_gather_interaction_plain(*args),
+                    warmup=1, iters=3)
+                # the same call with every id 0: each field reads one row,
+                # from cache, so what is left is the kernel's own work
+                hot = torch.zeros_like(idx)
+                hot_ms = time_graph(
+                    torch, lambda: fmk.fm_gather_interaction_cuda(
+                        hot, 1_000_000, t["v"], t["w"], t["b"]))
+                del hot
+                timed[f"{shape_name}_{dt}_{it}"] = dict(
+                    shape=[B, FM_F, FM_K], dtype=dt, ids=it,
+                    ms=min(turns["kernel"]), graph_ms=min(graph["kernel"]),
+                    unfused_ms=min(turns["chain"]),
+                    unfused_graph_ms=min(graph["chain"]),
+                    index_select_ms=select_ms, hot_graph_ms=hot_ms,
+                    turns=turns,
+                    graph_turns=graph, plain_ms=plain_ms,
+                    **fm_gather_bound(torch, t, 1_000_000, idx))
+                del idx, got, chain
+        del t
+        torch.cuda.empty_cache()
+    for row in timed.values():
+        row["bound_share"] = row["bound_ms"] / row["graph_ms"]
+        row["sector_share"] = row["sector_floor_ms"] / row["graph_ms"]
+    emit("fm_gather_interaction",
+         cases=[list(c) for c in FM_GATHER_CASES], **timed)
+    row = timed["serve_bulk_float32_int32"]
+    return dict(route="cuda", source="src/repro_torch/kernels/csrc/"
+                "fm_interaction.cu", replaces="src/repro/kernels/"
+                "fm_interaction.py:28", max_abs_err=0, library_ms=None,
+                **{k: row[k] for k in ("ms", "graph_ms", "plain_ms",
+                                       "unfused_ms", "unfused_graph_ms",
+                                       "index_select_ms", "hot_graph_ms",
+                                       "bound_ms",
+                                       "bound_by", "sector_floor_ms",
+                                       "shape")})
 
 
 def kernel_phase(torch, graph, lj_logq):
@@ -1309,6 +1508,7 @@ def kernel_phase(torch, graph, lj_logq):
     rows_out["ic_frontier_step"] = frontier_row(torch, gen, lj_logq)
     rows_out["flash_attention"] = attention_rows(torch, gen)
     rows_out["fm_interaction"] = fm_rows(torch, gen)
+    rows_out["fm_gather_interaction"] = fm_gather_rows(torch, gen)
 
     # ---- uniform_draw: the dense backends' (B, n) coin draw
     for shape in ((1, 1), (3, 7), (70, 4099), (B, lj_logq.shape[0])):
@@ -1573,6 +1773,7 @@ KERNEL_PATH = {
     "ic_sparse_hits": "imm_full",
     "ic_frontier_step": "pallas_full", "uniform_draw": "pallas_full",
     "flash_attention": "lm_full", "fm_interaction": "fm_full",
+    "fm_gather_interaction": "fm_full",
 }
 
 
@@ -2995,11 +3196,12 @@ def fm_within(torch, got, want, scale, tag: str) -> float:
 
 def fm_parity_phase(torch) -> dict:
     """SMOKE and a full-field config (39 x K 10, vocab 64) run on cuda and
-    cpu from the same weights: the pair term bitwise, logits, retrieval
-    scores, loss and gradients within the FM tolerances, and three clipped
-    AdamW steps within theirs; fm_interaction launched on cuda only; a
-    batch with an id past the table and a candidate past it give NaN in
-    the same places on both devices (the loss and the gradients too)."""
+    cpu from the same weights: the pair term and the serving logits (the
+    fused route) bitwise, retrieval scores, loss and gradients within the
+    FM tolerances, and three clipped AdamW steps within theirs; both FM
+    kernels launched on cuda only; a batch with an id past the table and
+    a candidate past it give NaN in the same places on both devices (the
+    loss and the gradients too)."""
     from repro_torch import prng
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
@@ -3051,6 +3253,8 @@ def fm_parity_phase(torch) -> dict:
                 params={k: t.cpu() for k, t in p.items()},
                 mu={k: t.cpu() for k, t in opt["mu"].items()},
                 launches=ops.launch_counts().get("fm_interaction", 0),
+                fused_launches=ops.launch_counts().get(
+                    "fm_gather_interaction", 0),
                 bad=dict(logits=bad_logits.cpu(), scores=bad_scores.cpu(),
                          loss=float(bad_loss),
                          **{f"grad_{k}": t.cpu()
@@ -3059,7 +3263,17 @@ def fm_parity_phase(torch) -> dict:
         check(c["launches"] > 0 and h["launches"] == 0,
               f"fm_parity {cfg.name}: fm_interaction launched "
               f"{c['launches']} (cuda) / {h['launches']} (cpu) times")
-        fm_bitwise(torch, c["pair"], h["pair"], f"fm_parity {cfg.name} pair")
+        # the serving route: 2 fm_logits and 2 retrieval constants
+        check(c["fused_launches"] == 4 and h["fused_launches"] == 0,
+              f"fm_parity {cfg.name}: fm_gather_interaction launched "
+              f"{c['fused_launches']} (cuda) / {h['fused_launches']} (cpu) "
+              f"times")
+        fm_same_bits(torch, c["pair"], h["pair"],
+                     f"fm_parity {cfg.name} pair")
+        fm_same_bits(torch, c["logits"], h["logits"],
+                     f"fm_parity {cfg.name} serving logits")
+        fm_same_bits(torch, c["bad"]["logits"], h["bad"]["logits"],
+                     f"fm_parity {cfg.name} serving logits, a bad id")
         scale = fm_logit_scale(torch, host, cfg, idx)
         logit_err = fm_within(torch, c["logits"], h["logits"], FM_REL * scale,
                               f"fm_parity {cfg.name} logits")
@@ -3111,10 +3325,35 @@ def fm_parity_phase(torch) -> dict:
             vocab=cfg.vocab_per_field, logits_max_abs_err=logit_err,
             scores_max_abs_err=score_err, loss=[c["loss"], h["loss"]],
             grad_max_abs_err=grad_err, step_max_abs_err=step_err,
-            launches=c["launches"])
+            launches=c["launches"], fused_launches=c["fused_launches"])
     emit("fm_parity", batch=FM_PARITY_B, steps=FM_PARITY_STEPS,
          rel_tol=FM_REL, phase_s=time.perf_counter() - phase_t0, **out)
     return out
+
+
+def serving_turn(torch, fn, idx99, idx_bulk) -> dict:
+    """fm_full's serving batches on ``fn`` (2 + 50 at serve_p99, 1 + 5 at
+    serve_bulk, host clock to a sync): medians, max, preds/s, and the peak
+    memory allocated above what was allocated before."""
+    import statistics
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        for _ in range(2):
+            fn(idx99)
+        p99 = [timed(torch, lambda: fn(idx99))[1] * 1e3 for _ in range(50)]
+        fn(idx_bulk)
+        bulk = [timed(torch, lambda: fn(idx_bulk))[1] * 1e3
+                for _ in range(5)]
+    peak = torch.cuda.max_memory_allocated()
+    med99, med_bulk = statistics.median(p99), statistics.median(bulk)
+    return dict(p99_median_ms=med99, p99_max_ms=max(p99),
+                p99_preds_per_s=idx99.shape[0] / med99 * 1e3,
+                bulk_median_ms=med_bulk,
+                bulk_preds_per_s=idx_bulk.shape[0] / med_bulk * 1e3,
+                max_memory_allocated=peak, above_base=peak - base)
 
 
 def fm_full_phase(torch) -> dict:
@@ -3124,8 +3363,13 @@ def fm_full_phase(torch) -> dict:
     (262,144), retrieval_cand (4 user fields against the 1,000,000 rows of
     field 4, with the decomposition checked on the top 5) and train_batch
     (3 clipped AdamW steps at batch 65,536 on the click stream), with the
-    launch counts set to 0 just before and read just after; then the
-    serve_p99 logits and pair term held against the cpu plain version."""
+    launch counts set to 0 just before and read just after (every
+    serving call one fm_gather_interaction launch, every training step
+    one fm_interaction launch); then the serve_p99 logits held bitwise
+    against the cpu plain version of the serving route and within
+    FM_REL of the training route's chain, and the serving batches run
+    again in turns on the unfused chain (`fm_unfused_chain`) and on the
+    serving route, each turn's host times and peak memory beside."""
     import math
     import statistics
 
@@ -3165,8 +3409,18 @@ def fm_full_phase(torch) -> dict:
     def serve(idx):
         return fm.fm_logits(params, cfg, idx)
 
+    # the serve_p99 batch's rows (a table of B99 x F rows on the host,
+    # read by ids 0.. in order) and the training route's logits, before
+    # the counted window
+    rows99 = (idx99.long() + cfg.field_offsets(DEV)[None]).reshape(-1)
+    sub99 = {"v": params["v"].index_select(0, rows99).cpu(),
+             "w": params["w"].index_select(0, rows99).cpu(),
+             "b": params["b"].cpu()}
+    chain99 = fm_unfused_chain(torch, params, V, idx99).cpu()
+
     # one launch per call: 2 + 50 + 1 + 5 serving batches, 1 + 10
-    # retrieval calls, the decomposition check's batch and 3 steps
+    # retrieval calls and the decomposition check's batch on the fused
+    # kernel, 3 steps on the unfused one
     ops.reset_launches()
     with torch.no_grad():
         for _ in range(2):
@@ -3199,7 +3453,6 @@ def fm_full_phase(torch) -> dict:
         index_select_ms=time_cuda(torch, lambda: bare(rows_bulk)))
     gather["repair_ms"] = gather["take_ms"] - gather["index_select_ms"]
     del rows_bulk
-    rows99 = (idx99.long() + cfg.field_offsets(DEV)[None]).reshape(-1)
     host = {"take": [], "index_select": []}
     for _ in range(200):
         for name, fn in (("take", lambda: fm._gather(params, rows99)),
@@ -3208,9 +3461,10 @@ def fm_full_phase(torch) -> dict:
     gather.update({f"p99_{k}_us": statistics.median(v)
                    for k, v in host.items()})
     logits99 = p99[-1][0]
-    v99 = params["v"].index_select(0, rows99).view(B99, F, K).cpu()
-    want99 = (params["b"].cpu() + params["w"].index_select(0, rows99)
-              .view(B99, F).cpu().sum(-1) + fmk.fm_interaction_plain(v99))
+    v99 = sub99["v"].view(B99, F, K)
+    want99 = fmk.fm_gather_interaction_plain(
+        torch.arange(B99 * F).view(B99, F), 0, sub99["v"], sub99["w"],
+        sub99["b"])
     scale99 = fm_logit_scale(torch, params, cfg, idx99)
 
     opt_cfg = AdamWConfig()
@@ -3227,17 +3481,27 @@ def fm_full_phase(torch) -> dict:
                           grad_norm=float(gnorm)))
     launches = ops.launch_counts()
     train_peak = torch.cuda.max_memory_allocated()
+    del opt
+    # the serving batches again, in turns: the unfused chain, the
+    # serving route, the chain; host times and peak memory of each
+    turns = {"unfused": [], "fused": []}
+    for name in ("unfused", "fused", "unfused"):
+        fn = (serve if name == "fused" else
+              (lambda idx: fm_unfused_chain(torch, params, V, idx)))
+        turns[name].append(serving_turn(torch, fn, idx99, idx_bulk))
 
-    want = 2 + 50 + 1 + 5 + 1 + 10 + 1 + len(batches)
-    check(launches.get("fm_interaction", 0) == want,
-          f"fm_full: fm_interaction launched "
-          f"{launches.get('fm_interaction', 0)} times, not once for each of "
-          f"the {want} calls")
+    want = {"fm_gather_interaction": 2 + 50 + 1 + 5 + 1 + 10 + 1,
+            "fm_interaction": len(batches)}
+    for key, n in want.items():
+        check(launches.get(key, 0) == n,
+              f"fm_full: {key} launched {launches.get(key, 0)} times, not "
+              f"once for each of the {n} calls")
     check(tuple(logits99.shape) == (B99,), "fm_full: serve_p99 shape")
-    p99_err = fm_within(torch, logits99, want99, FM_REL * scale99,
-                        "fm_full serve_p99 logits vs cpu")
-    fm_bitwise(torch, ops.fm_interaction(v99.to(DEV)).cpu(),
-               fmk.fm_interaction_plain(v99), "fm_full serve_p99 pair")
+    fm_same_bits(torch, logits99, want99, "fm_full serve_p99 logits vs cpu")
+    p99_err = fm_within(torch, logits99, chain99, FM_REL * scale99,
+                        "fm_full serve_p99 logits vs the training route")
+    fm_same_bits(torch, ops.fm_interaction(v99.to(DEV)),
+                 fmk.fm_interaction_plain(v99), "fm_full serve_p99 pair")
     check(bool(torch.isfinite(bulk[-1][0]).all())
           and bulk[-1][0].shape == (Bbulk,), "fm_full: serve_bulk")
     check(bool(torch.isfinite(scores).all()) and scores.shape == (C,),
@@ -3261,7 +3525,7 @@ def fm_full_phase(torch) -> dict:
          serve_p99=dict(batch=B99, batches=len(p99_ms), median_ms=med99,
                         max_ms=max(p99_ms), min_ms=min(p99_ms),
                         preds_per_s=B99 / med99 * 1e3,
-                        logits_max_abs_err_vs_cpu=p99_err),
+                        logits_max_abs_err_vs_training_route=p99_err),
          serve_bulk=dict(batch=Bbulk, ms=bulk_ms, median_ms=med_bulk,
                          preds_per_s=Bbulk / med_bulk * 1e3,
                          gather=gather),
@@ -3271,7 +3535,7 @@ def fm_full_phase(torch) -> dict:
                              top5_rows=top.indices.tolist(),
                              top5_scores=top.values.tolist()),
          train_batch=dict(batch=Btrain, steps=train),
-         serve_max_memory_allocated=serve_peak,
+         serve_max_memory_allocated=serve_peak, serve_turns=turns,
          train_max_memory_allocated=train_peak, launches=launches,
          phase_s=time.perf_counter() - phase_t0)
     return launches
@@ -3342,7 +3606,14 @@ def fm_profile_phase(torch, steps: int = 3):
     """The full-width FM's serve_bulk batch and train_batch step (random
     ids and labels) under
     ``torch.profiler``, ``steps`` of each after a profiled warm-up: wall
-    time, device-busy share and the kernels that take the device time."""
+    time, device-busy share and the kernels that take the device time.
+    Then the same calls back to back without the profiler, between CUDA
+    events and on the host clock (``events``): the device's span of a
+    call beside its wall, where the profiler records none of its kernels
+    (it has recorded none of a serve_bulk call that launches the fused
+    kernel alone, after the earlier phases' profiles in one process).
+    The span counts the device's gaps too, so it is its busy time only
+    while the host keeps the queue ahead."""
     from repro_torch import prng
     from repro_torch.configs import get_arch
     from repro_torch.models.recsys import fm
@@ -3378,9 +3649,23 @@ def fm_profile_phase(torch, steps: int = 3):
         fn()
         torch.cuda.synchronize()
         wall, busy, top = trace_device(torch, [fn] * (steps + 1))
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        host_t0 = time.perf_counter()
+        t0.record()
+        for _ in range(steps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - host_t0) * 1e3
+        dev_ms = t0.elapsed_time(t1)
         out[name] = dict(calls=steps, traced_wall_ms=wall / steps * 1e3,
                          device_busy_ms=busy / steps * 1e3,
-                         idle_share=1.0 - busy / wall, top=top)
+                         idle_share=1.0 - busy / wall, top=top,
+                         events=dict(wall_ms=host_ms / steps,
+                                     span_ms=dev_ms / steps,
+                                     span_share=dev_ms / host_ms))
     emit("fm_profile", **out)
 
 

@@ -148,3 +148,14 @@ def fm_interaction(v):
     ``v (B, F, K)`` float32/bfloat16 -> ``(B,)`` float32, with the
     reference's gradient (`repro_torch.kernels.fm_interaction`)."""
     return _fm.FMInteraction.apply(v)
+
+
+def fm_gather_interaction(idx, vocab_per_field: int, v, w, b):
+    """The FM logit ``b + sum_f w[row] + fm_interaction(v[row])`` of ids
+    ``idx (B, F)``, ``row = idx[:, f] + f * vocab_per_field``, gathered as
+    ``jnp.take`` does, from ``v (n, K)``, ``w (n,)``, ``b ()`` ->
+    ``(B,)`` float32, in one launch on the card; no gradient
+    (`repro_torch.kernels.fm_interaction`)."""
+    if impl_for(_fm.KERNEL_GATHER, idx, v, w, b) == "cuda":
+        return _fm.fm_gather_interaction_cuda(idx, vocab_per_field, v, w, b)
+    return _fm.fm_gather_interaction_plain(idx, vocab_per_field, v, w, b)

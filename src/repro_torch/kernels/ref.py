@@ -18,6 +18,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_plain as attention_ref,
 )
 from repro_torch.kernels.fm_interaction import (
+    fm_gather_interaction_plain as fm_gather_interaction_ref,
     fm_interaction_plain as fm_interaction_ref,
 )
 from repro_torch.kernels.fused_select import (
@@ -32,6 +33,7 @@ from repro_torch.kernels.packed_count import (
 )
 
 __all__ = ["arena_commit_packed_ref", "arena_commit_ref", "attention_ref",
-           "coverage_matvec_ref", "fm_interaction_ref", "fused_select_ref",
+           "coverage_matvec_ref", "fm_gather_interaction_ref",
+           "fm_interaction_ref", "fused_select_ref",
            "ic_frontier_ref", "ic_sparse_hits_ref",
            "packed_count_ref", "token_count_ref", "uniform_draw_ref"]

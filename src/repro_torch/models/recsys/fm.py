@@ -3,12 +3,22 @@ table (``repro.models.recsys.fm``).
 
     logit(x) = b + sum_f w[f, x_f] + sum_{i<j} <v_i, v_j>
 
-with the pairwise term by the O(nk) sum-square trick, computed by the
-``fm_interaction`` kernel on the card (`repro_torch.kernels.ops`): one
-launch for each ``fm_logits`` batch and one for the user's
-self-interaction in ``fm_retrieval_scores``.  The reference calls the
-kernel's plain reference at the same two places; the function is the
-same.
+with the pairwise term by the O(nk) sum-square trick.  `fm_logits` has
+two routes on the card (`repro_torch.kernels.ops`), chosen by what the
+caller asks for:
+
+- **serving** (no gradient: grad mode off, or none of ``v``, ``w``,
+  ``b`` requires one): one ``fm_gather_interaction`` launch takes the
+  ids as they come and gathers, sums and pairs in one pass;
+- **training** (a gradient): `_gather`, then the ``fm_interaction``
+  kernel through `FMInteraction`, whose backward is the reference's
+  gradient, and PyTorch's ``w.sum(-1)``.
+
+Both compute the reference's function; the serving route sums ``w`` in a
+fixed order, so the two can differ in the last bits of a float32 logit.
+`fm_retrieval_scores` takes the user's constant from `fm_logits` over
+the user's fields (one fused launch when serving).  The reference calls
+the kernel's plain reference at the same places.
 
 The ``n_sparse`` categorical fields share one table of ``sum_f
 vocab_f`` rows, field ``f``'s ids offset by ``f * vocab_per_field``.
@@ -80,11 +90,14 @@ def _gather(params, rows: torch.Tensor):
     the reference's ``jnp.take``: a row id in ``[-n, 0)`` of a table of
     ``n`` rows wraps (`take_index`), and any other out of range makes its
     request's logit or score NaN while the rest of the batch is served.
+    The training route of `fm_logits`, the user's rows and the
+    candidates of `fm_retrieval_scores` gather here; a serving logit
+    gathers inside its fused kernel instead, with the same results.
     Only ``w``'s row is filled with NaN there: every logit and score adds
     its ``w`` rows, so one NaN is enough, and a NaN fill of ``v`` would be
-    a pass over the largest tensor of a serving call.  ``v``'s row there
-    holds row ``id % n``; its gradient is dropped, as ``jax.grad``
-    through the fill mode drops it (``w``'s fill drops its own)."""
+    a pass over the largest tensor of a call.  ``v``'s row there holds
+    row ``id % n``; its gradient is dropped, as ``jax.grad`` through the
+    fill mode drops it (``w``'s fill drops its own)."""
     safe, invalid = take_index(rows, params["v"].shape[0])
     v = params["v"].index_select(0, safe)
     if v.requires_grad:
@@ -92,8 +105,18 @@ def _gather(params, rows: torch.Tensor):
     return v, take_rows(params["w"], safe, invalid)
 
 
+def _wants_grad(params) -> bool:
+    return torch.is_grad_enabled() and any(
+        params[k].requires_grad for k in ("v", "w", "b"))
+
+
 def fm_logits(params, cfg: FMConfig, sparse_idx) -> torch.Tensor:
-    """``sparse_idx (B, n_sparse)`` per-field ids -> ``(B,)`` logits."""
+    """``sparse_idx (B, n_sparse)`` per-field ids (int32 or int64) ->
+    ``(B,)`` logits: one fused launch unless a gradient is asked for."""
+    if not _wants_grad(params):
+        return ops.fm_gather_interaction(sparse_idx, cfg.vocab_per_field,
+                                         params["v"], params["w"],
+                                         params["b"])
     B = sparse_idx.shape[0]
     rows = (sparse_idx.to(torch.int64)
             + cfg.field_offsets(sparse_idx.device)[None, :]).reshape(-1)
@@ -128,13 +151,14 @@ def fm_retrieval_scores(params, cfg: FMConfig, user_idx,
     global row ids of candidate items -> ``(C,)`` scores.  The FM score
     decomposes as ``s(c) = const_user + w_c + <sum_user v, v_c>`` (a
     one-hot candidate has no self-interaction), so scoring C candidates is
-    one mat-vec."""
+    one mat-vec; ``const_user = b + sum wu + user_pair`` is the logit of
+    the user's fields alone (`fm_logits`)."""
     Fu = user_idx.shape[0]
     user_rows = (user_idx.to(torch.int64)
                  + cfg.field_offsets(user_idx.device)[:Fu])
-    vu, wu = _gather(params, user_rows)                       # (Fu, K)
+    vu, _ = _gather(params, user_rows)                        # (Fu, K)
     su = vu.sum(dim=0)                                         # (K,)
-    user_pair = ops.fm_interaction(vu[None].to(torch.float32))[0]
-    const = params["b"] + wu.sum() + user_pair
+    const = fm_logits(params, dataclasses.replace(cfg, n_sparse=Fu),
+                      user_idx[None])[0]
     vc, wc = _gather(params, candidate_rows.to(torch.int64))  # (C, K)
     return const + wc + vc @ su

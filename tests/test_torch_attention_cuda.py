@@ -141,7 +141,7 @@ def test_fm_out_of_range_id_keeps_the_context(cuda):
     again = fm.fm_logits(params, cfg, idx[:1])
     torch.cuda.synchronize()
     assert bool(torch.isfinite(again).all())
-    assert ops.launch_counts().get("fm_interaction") == 1
+    assert ops.launch_counts().get("fm_gather_interaction") == 1
 
 
 def test_lm_out_of_range_token_keeps_the_context(cuda):

@@ -155,3 +155,31 @@ def test_serve_tier_modules_import_alone_and_default_to_cuda():
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--workload", "tier", "--tenants", "1", "--tier-n", "64"])
+
+
+def test_fm_serving_kernel_imports_alone():
+    """The fused FM serving kernel (its wrapper, plain version, dispatch
+    and the model's serving route) loads no JAX, and serves on the CPU
+    only when its tensors are there."""
+    probe = r"""
+import json, sys, torch
+from repro_torch.kernels import fm_interaction as fmk, ops, ref
+from repro_torch.models.recsys import fm
+cfg = fm.FMConfig(n_sparse=3, embed_dim=4, vocab_per_field=8)
+p = fm.init_fm(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+idx = torch.tensor([[0, 1, 2], [7, 7, 8]], dtype=torch.int32)
+out = fm.fm_logits(p, cfg, idx)
+same = torch.equal(out.isnan(), ops.fm_gather_interaction(
+    idx, 8, p["v"], p["w"], p["b"]).isnan())
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"nan": out.isnan().tolist(), "same": same,
+                  "ref": ref.fm_gather_interaction_ref is
+                  fmk.fm_gather_interaction_plain, "leaked": leaked}))
+"""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"nan": [False, True], "same": True, "ref": True,
+                   "leaked": []}
