@@ -18,7 +18,11 @@ Phases, one JSON line each:
             walk on cuda and on cpu, identical, and tier_full's tenant mix
             at n 2,048 and theta 1,024 replayed synchronously (a refresh
             step after every pump) on cuda and on cpu: every ServedQuery
-            but its latency, the stats and the selections identical
+            but its latency, the stats and the selections identical; and
+            mesh cells (2x2 equal and 1x2 balanced meshes of the card and
+            of the host under IC/sparse, IC/pallas and LT/walk: each theta
+            shard's rows sampled at a row offset) equal to the
+            single-device run on the host
   imm_full  imm() on the full-size com-Amazon replica (IC, k = 50,
             eps = 0.5, max_theta = 16,384, rebuild), then the fused
             selections and four influence queries on its store
@@ -26,6 +30,18 @@ Phases, one JSON line each:
             the same solve, selections and queries on the IMPack packed
             and compressed stores: seeds, theta, influence and coverage
             equal imm_full's
+  mesh_full imm_full's cell on meshes of the one card: 2x2 bitmap
+            tiles (equal vertex blocks), 1x4 packed tiles (balanced
+            blocks), 4x1 token tiles; each gives imm_full's seeds,
+            influence, theta, gains and counter, and its fused
+            selections the same seeds; per layout imm_s, sample_s,
+            select_s, each tile's bytes and device, peak memory and the
+            launches (arena_commit, arena_commit_packed, coverage_matvec,
+            packed_count, token_count and ic_sparse_hits on the tiles);
+            on the 2x2 store the tiles' padding and partial counters,
+            the sharded-sparse strategy over its index view, a snapshot
+            restored on a 1x1 mesh and into a BitmapStore, imm_full's
+            snapshot restored on the 2x2 mesh and a replica (same seeds)
   indices_full
             imm() on the same replica under WC (sparse backend) with
             three engines: an IndexStore fed C4 index lists by the
@@ -66,7 +82,7 @@ Phases, one JSON line each:
             fused-rebuild; campaign-1 streaming, packed; campaign-2
             static, relaxed, "auto" with C4, two replicas; campaign-3
             streaming, bitmap with rebuild; campaign-4 a slot on
-            campaign-0's engine at weight 0.5), theta 8,192 an engine; the
+            campaign-0's engine at weight 0.5), theta 4,096 an engine; the
             bench's trace (2 virtual seconds, 96 q/s a tenant, Zipf 1.0,
             a delta every 0.5 s) replayed with the refresh worker running,
             a drain, a top-k selection per tenant and a flood of
@@ -154,13 +170,17 @@ and 1,025, F/K 6/4, 16/8, K 5 in bf16, a wrapped and an out-of-range id);
 the parity phase also runs the dense-path cells (IC/dense, IC/pallas,
 WC/pallas, GT/pallas, IC/pallas+stable) on cuda and cpu.
 
+With two or more cards a two_cards line holds each kernel on cuda:1
+while cuda:0 is current and a 2x1 mesh across both against the host;
+with one card it says it skipped them.
+
 Then the kernel table (each kernel's launches counted on the one full
 run that is its path: the bitmap kernels and the coins on imm_full, the
 packed commit and packed_count on packed_full, token_count on
 compressed_full, ic_frontier_step on pallas_full, flash_attention on
 lm_full, both FM kernels on fm_full; beside them its launches on every
-full run, tier_full's included), the card's name and power limit, and
-``{"ok": true, "device": {...}}`` last.
+full run, tier_full's and mesh_full's included), the card's name and
+power limit, and ``{"ok": true, "device": {...}}`` last.
 Any failure exits non-zero without the ok line; so does a machine with
 no CUDA device, or a directory without the repo's src/repro_torch.
 """
@@ -1490,6 +1510,10 @@ def kernel_phase(torch, graph, lj_logq):
         ref = coins.ic_sparse_hits_plain(key, prob, B, rows=(r, r + 32))
         bad += int((hits[r:r + 32] != ref).sum())
     check(bad == 0, f"ic_sparse_hits: {bad} coins differ")
+    # a theta shard's block of a mesh batch: its rows of the whole draw
+    for lo, hi in ((B // 2, B), (3, 7), (B - 1, B)):
+        check(torch.equal(ops.ic_sparse_hits(key, prob, B, rows=(lo, hi)),
+                          hits[lo:hi]), f"ic_sparse_hits rows {lo}:{hi}")
     for Bc, mc in ((5, 1001), (1, 3)):
         p = torch.rand(mc, generator=gen, device="cuda")
         check(torch.equal(ops.ic_sparse_hits(key, p, Bc),
@@ -1515,6 +1539,12 @@ def kernel_phase(torch, graph, lj_logq):
         got = ops.uniform(key, shape, device="cuda")
         check(torch.equal(got, prng.uniform(key, shape, device="cuda")),
               f"uniform_draw {shape}")
+        # a row block at an offset, as a theta shard draws it
+        lo = shape[0] // 2 * shape[1]
+        check(torch.equal(ops.uniform(key, shape, device="cuda", start=lo,
+                                      count=got.numel() - lo).reshape(-1),
+                          got.reshape(-1)[lo:]),
+              f"uniform_draw {shape} from {lo}")
     shape = (B, lj_logq.shape[0])
     out = torch.empty(shape, device="cuda")
     ms = time_cuda(torch, lambda: coins.uniform_cuda(key, out))
@@ -1581,8 +1611,9 @@ def parity_phase(torch):
     dense = dense_parity(torch, g)
     lt = lt_parity(torch, g)
     tier = tier_parity(torch)
+    mesh = mesh_parity(torch, g)
     emit("parity", n=g.n, m=g.m, theta=rh.theta, rounds=rh.rounds,
-         dense=dense, lt=lt, tier=tier,
+         dense=dense, lt=lt, tier=tier, mesh=mesh,
          seeds=[int(s) for s in rh.seeds], covered_frac=rh.covered_frac,
          cuda_s=c["s"], cpu_s=h["s"], launches=c["launches"],
          packed_s=out[DEV, "packed"]["s"],
@@ -1787,11 +1818,13 @@ def influence_sets(torch, graph, seeds):
 
 
 def full_phase(torch, graph, max_theta: int, store: str = "bitmap",
-               ref: dict = None):
+               ref: dict = None, keep: dict = None):
     """imm() on the full-size replica with ``store``, then the fused
     selections and four influence queries; checks the arena against the
     counter and sizes and, given the bitmap run's ``ref``, every result
-    against it.  Returns (launches, summary)."""
+    against it.  Given ``keep``, fills it with the solve's counter,
+    gains and snapshot tree (mesh_full's reference).  Returns (launches,
+    summary)."""
     from repro_torch import obs
     from repro_torch.core.engine import IMMConfig, InfluenceEngine
     from repro_torch.kernels import ops
@@ -1827,6 +1860,9 @@ def full_phase(torch, graph, max_theta: int, store: str = "bitmap",
 
     st = engine.store
     count = st.count
+    if keep is not None:
+        keep.update(counter=res.counter, gains=engine.select(50).gains,
+                    tree=engine.snapshot_tree())
     check(res.theta == count and count > 0, f"{phase} theta")
     check(len(set(int(s) for s in res.seeds)) == 50, f"{phase} seeds unique")
     check(0.0 < res.covered_frac <= 1.0, f"{phase} covered_frac")
@@ -1896,6 +1932,329 @@ def full_phase(torch, graph, max_theta: int, store: str = "bitmap",
          arena_bytes=st.arena_bytes, at_rest_row_bytes=st._row_bytes(),
          max_memory_allocated=peak, launches=launches, **extra)
     return launches, summary
+
+
+# --------------------------------------------------------------- meshes ----
+
+#: the parity phase's mesh cells: (theta x vertex shape, partition)
+MESH_PARITY_LAYOUTS = (((2, 2), "equal"), ((1, 2), "balanced"))
+#: their samplers and the coin/step kernels each must launch on the card
+MESH_PARITY_SAMPLERS = (("IC/sparse", ("ic_sparse_hits",)),
+                        ("IC/pallas", ("ic_frontier_step", "uniform_draw")),
+                        ("LT/walk", ("uniform_draw",)))
+#: mesh_full's layouts: (name, theta x vertex shape, store, partition)
+MESH_LAYOUTS = (("2x2_bitmap", (2, 2), "auto", "equal"),
+                ("1x4_packed_balanced", (1, 4), "packed", "balanced"),
+                ("4x1_compressed", (4, 1), "compressed", "equal"))
+#: the kernels mesh_full's solves must launch on the tiles
+MESH_KERNELS = ("arena_commit", "arena_commit_packed", "coverage_matvec",
+                "packed_count", "token_count", "ic_sparse_hits")
+
+
+def grid(dev, shape):
+    """A theta x vertex `Mesh` of ``shape`` tiles, every one on ``dev``."""
+    from repro_torch.mesh import Mesh
+    return Mesh([[dev] * shape[1] for _ in range(shape[0])],
+                ("data", "vertex"))
+
+
+def mesh_parity(torch, g) -> dict:
+    """imm() on ``g`` on meshes of the card and of the host (2x2 equal,
+    1x2 balanced) under IC/sparse, IC/pallas and LT/walk, beside the
+    single-device run on the host: seeds, theta, rounds, coverage and
+    counter identical.  The card's runs sample each theta shard's rows
+    at a row offset (ic_sparse_hits, uniform_draw) and step the pallas
+    BFS with ic_frontier_step under the placement."""
+    from repro_torch.core.engine import IMMConfig, InfluenceEngine
+    from repro_torch.kernels import ops
+
+    out = {}
+    for sampler, kernels in MESH_PARITY_SAMPLERS:
+        cfg = IMMConfig(k=10, sampler=sampler, max_theta=2048, seed=0)
+        ref = InfluenceEngine(g, cfg, device="cpu").run()
+        for shape, part in MESH_PARITY_LAYOUTS:
+            mcfg = dataclasses.replace(cfg, partition=part)
+            cell = f"{sampler} {shape[0]}x{shape[1]} {part}"
+            for dev in (DEV, "cpu"):
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                res = InfluenceEngine(g, mcfg, mesh=grid(dev, shape),
+                                      vertex_axis="vertex").run()
+                s = time.perf_counter() - t0
+                launches = ops.launch_counts()
+                check(list(res.seeds) == list(ref.seeds),
+                      f"parity mesh {cell} on {dev}: seeds")
+                check((res.theta, res.rounds) == (ref.theta, ref.rounds),
+                      f"parity mesh {cell} on {dev}: theta")
+                check(res.covered_frac == ref.covered_frac,
+                      f"parity mesh {cell} on {dev}: coverage")
+                check((res.counter == ref.counter).all(),
+                      f"parity mesh {cell} on {dev}: counter")
+                for name in kernels:
+                    got = launches.get(name, 0)
+                    check(got > 0 if dev == DEV else got == 0,
+                          f"parity mesh {cell} on {dev}: {name} {got}")
+                out[f"{cell} {dev}"] = dict(s=s, theta=res.theta,
+                                            launches=launches)
+    return out
+
+
+def tile_checks(torch, store) -> dict:
+    """Each tile's padding is zero — pad columns (decoded) and, on a
+    bitmap or packed tile, the row stride's pad bytes — and each tile's
+    counter partial equals its rows' column sums; returns the tiles'
+    bytes and devices."""
+    codec = store.codec
+    for t in range(store.D):
+        c = int(store.counts[t])
+        for v in range(store.Dv):
+            tile = store._tiles[t][v]
+            w = store.col_width[v]
+            if codec.kind != "compressed":
+                check(int(tile[:, codec.width:].sum()) == 0,
+                      f"mesh_full tile ({t}, {v}) pad bytes zero")
+            col = torch.zeros(store.n_local, dtype=torch.int32,
+                              device=tile.device)
+            for lo in range(0, c, 1024):
+                bits = codec.decode(tile[lo:min(lo + 1024, c),
+                                         :codec.width])
+                check(int(bits[:, w:].sum()) == 0,
+                      f"mesh_full tile ({t}, {v}) pad columns zero")
+                col += bits.sum(dim=0, dtype=torch.int32)
+            check(torch.equal(col, store._counter[t][v]),
+                  f"mesh_full tile ({t}, {v}) partial == column sums")
+    return dict(tile_bytes=store.tile_bytes(),
+                tile_devices=[str(d) for row in store.devices for d in row],
+                n_local=store.n_local, cap_local=store.cap_local,
+                counts=[int(c) for c in store.counts])
+
+
+def mesh_solve(torch, graph, cfg, shape, part):
+    """One meshed imm() and its two fused selections on the card, timed;
+    the launches counted apart."""
+    from repro_torch import obs
+    from repro_torch.core.engine import InfluenceEngine
+    from repro_torch.kernels import ops
+
+    mcfg = dataclasses.replace(cfg, partition=part)
+    obs.reset()
+    obs.enable()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    eng = InfluenceEngine(graph, mcfg, mesh=grid(DEV, shape),
+                          vertex_axis="vertex")
+    res = eng.run()
+    torch.cuda.synchronize()
+    imm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fused = [eng.select(50, method=m)
+             for m in ("fused-rebuild", "fused-decrement")]
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    tracer = obs.get_tracer()
+    spans = {name: sum(tracer.durations_s(name))
+             for name in ("sample", "store.write", "select")}
+    obs.reset()
+    return eng, res, fused, dict(
+        imm_s=imm_s, sample_s=spans["sample"] + spans["store.write"],
+        store_write_s=spans["store.write"], select_s=spans["select"],
+        fused_selects_s=fused_s,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches=launches)
+
+
+def mesh_full(torch, graph, max_theta: int, ref: dict = None) -> dict:
+    """imm_full's cell (com-Amazon at full size, IC, k 50, eps 0.5) on
+    meshes of the one card: 2x2 bitmap tiles (equal blocks), 1x4 packed
+    tiles (balanced blocks), 4x1 token tiles.  Each gives imm_full's
+    seeds, influence and theta (``ref``: imm_full's summary, counter,
+    gains and snapshot tree; computed here when imm_full did not run);
+    on the 2x2 store the fused selections, the sharded-sparse strategy
+    over its index view, the tiles' padding and partial counters; a
+    snapshot of it restored on a 1x1 mesh and into a BitmapStore,
+    imm_full's snapshot restored on the 2x2 mesh, and a replica.
+    Returns the phase's launches (the three solves and their fused
+    selections, the checks' counted apart)."""
+    from repro_torch.core.adaptive import l_pad_for
+    from repro_torch.core.engine import IMMConfig, InfluenceEngine
+    from repro_torch.core.selection import get_selection
+    from repro_torch.kernels import ops
+
+    cfg = IMMConfig(k=50, eps=0.5, model="IC", max_theta=max_theta,
+                    selection_method="rebuild", seed=0)
+    t_phase = time.perf_counter()
+    if ref is None:
+        eng = InfluenceEngine(graph, dataclasses.replace(cfg, store="bitmap"),
+                              device=DEV)
+        res = eng.run()
+        ref = dict(seeds=[int(x) for x in res.seeds], theta=res.theta,
+                   influence=res.influence, covered_frac=res.covered_frac,
+                   counter=res.counter, gains=eng.select(50).gains,
+                   tree=eng.snapshot_tree())
+        del eng
+        torch.cuda.empty_cache()
+
+    def same(sel_or_res, what):
+        check([int(x) for x in sel_or_res.seeds] == ref["seeds"],
+              f"mesh_full {what}: seeds differ from imm_full's")
+
+    layouts, total = {}, {}
+    checks = {}
+    for name, shape, store, part in MESH_LAYOUTS:
+        eng, res, fused, rec = mesh_solve(
+            torch, graph, dataclasses.replace(cfg, store=store), shape, part)
+        same(res, name)
+        check(res.theta == ref["theta"] and res.influence == ref["influence"]
+              and res.covered_frac == ref["covered_frac"],
+              f"mesh_full {name}: theta/influence {res.theta} "
+              f"{res.influence} vs {ref['theta']} {ref['influence']}")
+        check((res.counter == ref["counter"]).all(),
+              f"mesh_full {name}: counter")
+        check(bool((eng.select(50).gains == ref["gains"]).all()),
+              f"mesh_full {name}: gains")
+        for sel in fused:
+            same(sel, f"{name} fused")
+        for k, v in rec["launches"].items():
+            total[k] = total.get(k, 0) + v
+        rec.update(store=eng.store.representation,
+                   partition=part, influence=res.influence,
+                   theta=res.theta, rounds=res.rounds,
+                   **tile_checks(torch, eng.store))
+        if name == "2x2_bitmap":
+            ops.reset_launches()
+            st = eng.store
+            l_pad = l_pad_for(st.max_local_size())
+            t0 = time.perf_counter()
+            view = st.index_view(l_pad)
+            sp = get_selection("rebuild", "sharded-sparse")(
+                view, 50, mesh=st.mesh, vertex_axis="vertex",
+                partition=st.partition)
+            check([int(x) for x in sp[0].cpu()] == ref["seeds"],
+                  "mesh_full sharded-sparse seeds")
+            checks["sharded_sparse"] = dict(
+                l_pad=l_pad, max_local_size=st.max_local_size(),
+                index_bytes=sum(x.numel() * 4 for row in view.R
+                                for x in row),
+                s=time.perf_counter() - t0)
+            st._idx_cache = None
+            del view, sp, st
+            torch.cuda.empty_cache()
+            checks["restores"] = mesh_restores(torch, graph, cfg, eng, ref,
+                                               same)
+            checks["launches"] = ops.launch_counts()
+        layouts[name] = rec
+        del eng, res, fused
+        torch.cuda.empty_cache()
+    for name in MESH_KERNELS:
+        check(total.get(name, 0) > 0,
+              f"mesh_full: {name} launched no time on the tiles")
+    emit("mesh_full", graph="com-Amazon", n=graph.n, m=graph.m, k=50,
+         eps=0.5, max_theta=max_theta, seeds=ref["seeds"][:10],
+         influence=ref["influence"], layouts=layouts, checks=checks,
+         launches=total, phase_s=time.perf_counter() - t_phase)
+    return total
+
+
+def mesh_restores(torch, graph, cfg, eng, ref, same) -> dict:
+    """The 2x2 engine's snapshot restored on a 1x1 mesh and into a
+    single-device BitmapStore; imm_full's snapshot restored on the 2x2
+    mesh; a replica of the 2x2 engine.  Same seeds each, timed."""
+    from repro_torch.core.engine import InfluenceEngine
+
+    out = {}
+    t0 = time.perf_counter()
+    tree = eng.snapshot_tree()
+    out["snapshot_s"] = time.perf_counter() - t0
+    out["snapshot_rows"] = int(tree["store"]["R"].shape[0])
+    cases = (("on_1x1", dict(mesh=grid(DEV, (1, 1)), vertex_axis="vertex"),
+              tree),
+             ("into_bitmap", dict(device=DEV), tree),
+             ("imm_full_on_2x2", dict(mesh=grid(DEV, (2, 2)),
+                                      vertex_axis="vertex"), ref["tree"]))
+    for name, kw, src in cases:
+        c = cfg if "mesh" in kw else dataclasses.replace(cfg, store="bitmap")
+        t0 = time.perf_counter()
+        e = InfluenceEngine(graph, c, **kw)
+        e.restore_tree(src)
+        sel = e.select(50)
+        torch.cuda.synchronize()
+        same(sel, f"restore {name}")
+        out[name] = dict(s=time.perf_counter() - t0,
+                         store=type(e.store).__name__)
+        del e, sel
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rep = eng.replicate(tree)
+    same(rep.select(50), "replicate")
+    out["replicate_s"] = time.perf_counter() - t0
+    del rep, tree
+    torch.cuda.empty_cache()
+    return out
+
+
+def two_card_phase(torch) -> None:
+    """With two or more cards: each kernel's operands on ``cuda:1`` while
+    ``cuda:0`` is current (the launch follows its operands), and a 2x1
+    mesh over ``cuda:0``/``cuda:1`` equal to the single-device run.
+    With one card, one line saying it was skipped."""
+    if torch.cuda.device_count() < 2:
+        emit("two_cards", skipped=f"{torch.cuda.device_count()} card(s): "
+             "the cuda:1 kernel rows and the 2x1 cross-card mesh need two")
+        return
+    from repro_torch import prng
+    from repro_torch.core.engine import IMMConfig, InfluenceEngine
+    from repro_torch.graphs.generators import rmat_graph
+    from repro_torch.core.pack.codec import pack_bits
+    from repro_torch.kernels import coins, ops
+    from repro_torch.kernels import coverage_matvec as cov
+    from repro_torch.mesh import Mesh
+
+    d1 = torch.device("cuda", 1)
+    gen = torch.Generator().manual_seed(5)
+    R = (torch.rand((300, 1000), generator=gen) < 0.2).to(torch.uint8)
+    alive = torch.rand(300, generator=gen) < 0.7
+    with torch.cuda.device(0):
+        Rd = torch.zeros((300, 1008), dtype=torch.uint8, device=d1)[:, :1000]
+        Rd.copy_(R)
+        check(torch.equal(ops.coverage_matvec(alive.to(d1), Rd).cpu(),
+                          cov.coverage_matvec_plain(alive, R)),
+              "two_cards: coverage_matvec on cuda:1")
+        out = torch.zeros_like(Rd)
+        cnt = torch.zeros(1000, dtype=torch.int32, device=d1)
+        ops.arena_commit(Rd, out, cnt)
+        check(torch.equal(cnt.cpu(), R.sum(dim=0, dtype=torch.int32))
+              and torch.equal(out.cpu(), R),
+              "two_cards: arena_commit on cuda:1")
+        P = torch.zeros((300, 128), dtype=torch.uint8, device=d1)[:, :125]
+        P.copy_(pack_bits(R))
+        check(torch.equal(ops.packed_count(P, alive.to(d1), n=1000).cpu(),
+                          (R * alive[:, None]).sum(dim=0,
+                                                   dtype=torch.int32)),
+              "two_cards: packed_count on cuda:1")
+        prob = torch.rand(4099, generator=gen)
+        key = prng.PRNGKey(3)
+        check(torch.equal(ops.ic_sparse_hits(key, prob.to(d1), 9,
+                                             rows=(2, 9)).cpu(),
+                          coins.ic_sparse_hits_plain(key, prob, 9,
+                                                     rows=(2, 9))),
+              "two_cards: ic_sparse_hits on cuda:1")
+        check(torch.equal(ops.uniform(key, (9, 77), device=d1, start=77,
+                                      count=300).cpu(),
+                          prng.uniform(key, (9, 77), start=77, count=300)),
+              "two_cards: uniform_draw on cuda:1")
+    g = rmat_graph(2048, 16384, seed=0)
+    cfg = IMMConfig(k=10, backend="sparse", max_theta=2048, seed=0)
+    ref = InfluenceEngine(g, cfg, device="cpu").run()
+    res = InfluenceEngine(g, cfg, mesh=Mesh([["cuda:0"], ["cuda:1"]],
+                                            ("data", "vertex")),
+                          vertex_axis="vertex").run()
+    check(list(res.seeds) == list(ref.seeds)
+          and (res.counter == ref.counter).all(), "two_cards: 2x1 mesh")
+    emit("two_cards", cards=torch.cuda.device_count(),
+         seeds=[int(x) for x in res.seeds])
 
 
 def pallas_full(torch, graph, max_theta: int) -> dict:
@@ -2548,9 +2907,11 @@ def stream_full(torch, graph, max_theta: int) -> dict:
 #: campaigns of n 262,144 and m 8n under WC weights, graph seeds 10-13,
 #: a trace of 2.0 virtual seconds at 96 q/s a tenant (Zipf skew 1.0)
 #: with a delta every 0.5 s (4 inserts, deletes and reweights at
-#: in-degree <= 8); theta 8,192 an engine (the bench's 1,024 is too
-#: little work for the card)
-TIER_N, TIER_THETA = 262_144, 8_192
+#: in-degree <= 8); theta 4,096 an engine (the bench's 1,024 is too
+#: little work for the card; 8,192 until the meshed cells pushed the
+#: whole smoke past 900 s: registration, the streams' stable coins in
+#: plain PyTorch, scales with theta)
+TIER_N, TIER_THETA = 262_144, 4_096
 TIER_TRACE = dict(duration=2.0, qps=96.0, skew=1.0, delta_ops=4, seed=0)
 TIER_SERVE = dict(quantum=8, refresh_budget=512)
 TIER_MAX_PENDING, TIER_REPLICAS, TIER_K, TIER_PUMP = 4_096, 2, 10, 16
@@ -2875,7 +3236,7 @@ def tier_full(torch) -> dict:
          m={n: t.graph.m for n, t in tier.tenants.items() if t.owns_engine},
          theta=TIER_THETA, trace=TIER_TRACE, serve=TIER_SERVE,
          max_pending=TIER_MAX_PENDING, replicas=TIER_REPLICAS,
-         changed=["theta 8,192 an engine, not 1,024",
+         changed=["theta 4,096 an engine, not 1,024",
                   "stores and selections vary across campaigns "
                   "(bitmap fused-rebuild, packed, auto, bitmap rebuild)",
                   "campaign-2 has 2 replicas, not 1",
@@ -3676,11 +4037,12 @@ def main(argv=None) -> int:
                          "n)")
     ap.add_argument("--phases",
                     default="kernels,parity,imm_full,packed_full,"
-                            "compressed_full,indices_full,lt_full,"
+                            "compressed_full,mesh_full,indices_full,lt_full,"
                             "stream_full,tier_full,pallas_full,lm_parity,"
                             "lm_full,fm_parity,fm_full,fm_profile",
                     help="comma list of kernels, parity, imm_full, "
-                         "packed_full, compressed_full, indices_full, "
+                         "packed_full, compressed_full, mesh_full, "
+                         "indices_full, "
                          "lt_full, stream_full, tier_full, pallas_full, "
                          "lm_parity, "
                          "lm_full, fm_parity, fm_full, fm_profile and the "
@@ -3727,12 +4089,19 @@ def main(argv=None) -> int:
     if "parity" in phases:
         parity_phase(torch)
     launches, ref = {}, None
+    keep = {} if "mesh_full" in phases else None
     for store in ("bitmap", "packed", "compressed"):
         if PHASE[store] in phases:
             launches[PHASE[store]], summary = full_phase(
-                torch, graph, args.max_theta, store, ref)
+                torch, graph, args.max_theta, store, ref,
+                keep if store == "bitmap" else None)
             if store == "bitmap":
                 ref = summary
+    if "mesh_full" in phases:
+        launches["mesh_full"] = mesh_full(
+            torch, graph, args.max_theta,
+            dict(ref, **keep) if ref is not None else None)
+        keep = None
     if "indices_full" in phases:
         launches["indices_full"] = indices_full(torch, graph, args.max_theta)
     if "lt_full" in phases:
@@ -3755,6 +4124,7 @@ def main(argv=None) -> int:
         profile_phase(torch, graph)
     if "fm_profile" in phases:
         fm_profile_phase(torch)
+    two_card_phase(torch)
     # each kernel's launches on the full run that is its path
     table = []
     for name, row in rows.items():

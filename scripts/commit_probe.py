@@ -86,9 +86,10 @@ def main() -> int:
         out, sz = arena[LO:LO + B, :w], sizes[LO:LO + B]
 
         def call():
-            err = fn(src.data_ptr(), src.stride(0), out.data_ptr(),
-                     out.stride(0), cnt.data_ptr(), sz.data_ptr(), B, n,
-                     C.stream())
+            with C.on_device(sym, src, out) as stream:
+                err = fn(src.data_ptr(), src.stride(0), out.data_ptr(),
+                         out.stride(0), cnt.data_ptr(), sz.data_ptr(), B, n,
+                         stream)
             cs.check(err == 0, f"{sym.format(kind)}: launch error {err}")
 
         call()

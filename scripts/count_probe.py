@@ -94,9 +94,10 @@ def main() -> int:
         fn = C.bind(lib, "repro_token_count", argtypes)
         out = torch.zeros(n, dtype=torch.int32, device="cuda")
         runs = torch.zeros(-(-n // 256), dtype=torch.int32, device="cuda")
-        if fn(T.data_ptr(), T.stride(0), mask.data_ptr(), T.shape[0],
-              T.shape[1], n, out.data_ptr(), runs.data_ptr(),
-              C.stream()) != 0:
+        with C.on_device("token_count", T, mask, out) as stream:
+            err = fn(T.data_ptr(), T.stride(0), mask.data_ptr(), T.shape[0],
+                     T.shape[1], n, out.data_ptr(), runs.data_ptr(), stream)
+        if err != 0:
             raise RuntimeError("token_count launch failed")
         return out
 

@@ -57,7 +57,7 @@ def graph_from_arrays(arrays, *, device="cpu") -> Graph:
 
 #: element type of each snapshot kind's at-rest arena
 _DTYPES = {"bitmap": np.uint8, "packed": np.uint8, "compressed": np.int32,
-           "indices": np.int32}
+           "indices": np.int32, "sharded": np.uint8}
 
 
 def engine_state_from_tree(tree: dict) -> dict:
@@ -65,20 +65,22 @@ def engine_state_from_tree(tree: dict) -> dict:
     leaves) into the tree `InfluenceEngine.restore_tree` adopts: a
     ``"bitmap"`` store with ``(capacity, n) uint8`` rows, a ``"packed"``
     one with ``(capacity, ceil(n/8)) uint8`` rows, a ``"compressed"``
-    one with ``(capacity, s_pad) int32`` token rows or an ``"indices"``
-    one with ``(capacity, l_pad) int32`` index lists; int32 sizes and
-    counter, bool live bits, and a ``uint32[2]`` key."""
+    one with ``(capacity, s_pad) int32`` token rows, an ``"indices"``
+    one with ``(capacity, l_pad) int32`` index lists or a ``"sharded"``
+    one (a meshed store's) with ``(count, n) uint8`` compact rows and
+    its tile codec ``rep``; int32 sizes and counter, bool live bits
+    (not on a sharded snapshot), and a ``uint32[2]`` key."""
     st = tree["store"]
     kind = str(np.asarray(st["kind"]))
     if kind not in _DTYPES:
-        raise NotImplementedError(
-            f"bitmap, packed, compressed and index snapshots carry across, "
-            f"got {kind!r} (the sharded store: ROADMAP A8)")
+        raise ValueError(f"unknown snapshot store kind {kind!r}; have "
+                         f"{sorted(_DTYPES)}")
     n = int(st["n"])
     R = np.ascontiguousarray(np.asarray(st["R"]), dtype=_DTYPES[kind])
-    # bitmap rows hold n bytes, packed ceil(n/8); token rows any s_pad,
-    # index rows any l_pad
-    width = {"bitmap": n, "packed": -(-n // 8)}.get(kind, R.shape[-1])
+    # bitmap and sharded rows hold n bytes, packed ceil(n/8); token rows
+    # any s_pad, index rows any l_pad
+    width = {"bitmap": n, "sharded": n,
+             "packed": -(-n // 8)}.get(kind, R.shape[-1])
     if R.ndim != 2 or R.shape[1] != width:
         raise ValueError(f"{kind} snapshot arena {R.shape} does not have "
                          f"{width} columns for n={n}")
@@ -89,8 +91,13 @@ def engine_state_from_tree(tree: dict) -> dict:
         "R": R,
         "sizes": np.asarray(st["sizes"], np.int32),
         "counter": np.asarray(st["counter"], np.int32),
-        "live": np.asarray(st.get("live", np.ones(R.shape[0], bool)), bool),
     }
+    if kind == "sharded":
+        # compact valid rows (no live bits) and the tiles' codec
+        store["rep"] = np.asarray(str(np.asarray(st.get("rep", "bitmap"))))
+    else:
+        store["live"] = np.asarray(
+            st.get("live", np.ones(R.shape[0], bool)), bool)
     key = np.asarray(tree["key"])
     if key.shape != (2,):
         raise ValueError(f"snapshot key has shape {key.shape}, expected a "

@@ -34,8 +34,18 @@ tensor with the primary.
 
 The engine runs on ``cuda`` unless ``device="cpu"`` is passed; without a
 GPU and without ``device="cpu"`` it raises rather than carry on slowly
-on the host.  A mesh or the sharded store raises `NotImplementedError`
-(ROADMAP A8).
+on the host.
+
+Given a ``mesh`` (`repro_torch.mesh.Mesh`, ``theta_axes``, and a
+``vertex_axis`` for a 2D mesh) the engine runs the paper's C1
+partitioning end to end, as the reference's does: its arena is a
+`ShardedStore` (``store="auto"``; ``"packed"``/``"compressed"`` give
+tiles of that codec), the sampler samples each theta shard's rows on the
+shard's device, and selection reads the tiles in place (the C4 choice
+per vertex shard, through the store's tile-local ``index_view``).  A
+meshed engine is seed for seed the single-device one; its snapshots
+restore across layouts (none, 1D, 2D) both ways.  It writes each batch
+through ``ShardedStore.add_batch`` and has no fused extender.
 """
 from __future__ import annotations
 
@@ -51,11 +61,16 @@ from repro_torch.core import martingale as mg
 from repro_torch.core import pack  # noqa: F401  (registers pack layouts)
 from repro_torch.core.adaptive import choose_representation, l_pad_for
 from repro_torch.core.fused import make_fused_extender
-from repro_torch.core.sampler import default_sampler_name, get_sampler
+from repro_torch.core.sampler import (
+    bind_sampler, default_sampler_name, get_sampler,
+)
 from repro_torch.core.selection import get_selection
-from repro_torch.core.store import make_store, next_pow2, store_from_state
+from repro_torch.core.store import (
+    ShardedStore, make_store, next_pow2, store_from_state,
+)
 from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import Graph
+from repro_torch.graphs.partition import resolve_partition
 
 
 _PACK_REPS = ("packed", "compressed")
@@ -67,8 +82,10 @@ _LAYOUTS = {"bitmap": "dense", "packed": "packed", "compressed": "compressed",
 @dataclasses.dataclass
 class IMMConfig:
     """The reference's configuration, field for field.  Inert here:
-    ``pallas_interpret`` (no Pallas), ``overlap`` and ``partition``
-    (no mesh), ``fuse_counters`` (informational in the reference too)."""
+    ``pallas_interpret`` (no Pallas), ``overlap`` (the overlapped
+    frontier gather: A8b; it changes no result), ``fuse_counters``
+    (informational in the reference too).  ``partition`` lays out a 2D
+    mesh's vertex axis (``"equal"`` or ``"balanced"``)."""
     k: int = 50
     eps: float = 0.5
     ell: float = 1.0
@@ -86,7 +103,7 @@ class IMMConfig:
     fuse_counters: bool = True
     switch_ratio: int = 32
     store: str = "auto"               # "auto" | "bitmap" | "indices" |
-    #                                  # "packed" | "compressed" (sharded: A8)
+    #                                  # "packed" | "compressed" | "sharded"
     partition: str = "equal"
     overlap: bool = True
     fused_pipeline: str = "auto"      # "auto" | "off"
@@ -117,26 +134,73 @@ class Selection:
 
 
 class InfluenceEngine:
-    """Stateful IMM engine over a persistent RRR store on one device."""
+    """Stateful IMM engine over a persistent RRR store, on one device or
+    on a mesh (``mesh``, ``theta_axes``, ``vertex_axis``; a given
+    `ShardedStore` implies its mesh and axes).  On a mesh the device
+    defaults to the first tile's."""
 
     def __init__(self, graph: Graph, cfg: IMMConfig = None, *,
-                 store=None, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded engines are not ported yet (ROADMAP A8)")
+                 store=None, mesh=None, theta_axes=("data",),
+                 vertex_axis=None, device=None):
+        if mesh is None and isinstance(store, ShardedStore):
+            mesh, theta_axes = store.mesh, store.theta_axes
+            vertex_axis = store.vertex_axis
+        self.mesh = mesh
+        self.theta_axes = ((theta_axes,) if isinstance(theta_axes, str)
+                           else tuple(theta_axes))
+        self.vertex_axis = vertex_axis
+        if device is None and mesh is not None:
+            device = mesh.tile_devices(self.theta_axes, vertex_axis)[0][0]
         self.device = resolve_device(device)
         self.graph = graph.to(self.device)
         self.cfg = cfg if cfg is not None else IMMConfig()
         self.key = prng.PRNGKey(self.cfg.seed)
-        self.store = (store if store is not None
-                      else make_store(self.cfg.store, graph.n,
-                                      device=self.device))
+        kind = self.cfg.store
+        if store is not None:
+            self.store = store
+        elif mesh is not None and kind in ("auto", "sharded") + _PACK_REPS:
+            self.store = ShardedStore(
+                graph.n, mesh=mesh, theta_axes=self.theta_axes,
+                vertex_axis=vertex_axis,
+                codec=kind if kind in _PACK_REPS else "bitmap",
+                partition=self._resolve_partition(mesh, vertex_axis))
+        elif mesh is not None and kind == "indices":
+            raise ValueError(
+                "store='indices' cannot be combined with a mesh: "
+                "IndexStore (and its snapshots) is single-device only. "
+                "Use a dense at-rest representation (store='auto', "
+                "'bitmap', 'packed', or 'compressed'), all of which "
+                "shard across the mesh.")
+        elif kind == "sharded":
+            raise ValueError("store='sharded' needs a mesh")
+        else:
+            self.store = make_store(kind, graph.n, device=self.device)
         self.sampler_name = self.cfg.sampler or default_sampler_name(
             self.graph, self.cfg)
-        self._sample = get_sampler(self.sampler_name)(self.graph, self.cfg)
+        self._sample = self._bind_sampler()
         self._reset_index_emission()
         self._rebind_fused()
         self._select_cache: dict = {}
+
+    def _bind_sampler(self):
+        """The bound sampler, placed as a meshed store asks (each theta
+        shard's rows sampled on its device)."""
+        return bind_sampler(get_sampler(self.sampler_name), self.graph,
+                            self.cfg, placement=getattr(
+                                self.store, "batch_placement", None))
+
+    def _resolve_partition(self, mesh, vertex_axis):
+        """The configured vertex-axis `VertexPartition` of a meshed store
+        (None without a vertex axis).  ``cfg.partition="balanced"``
+        derives the boundaries from the graph's dst degrees:
+        deterministic per (graph, Dv), so replicas and restores rebuild
+        the same layout."""
+        if mesh is None or vertex_axis is None:
+            return None
+        return resolve_partition(
+            getattr(self.cfg, "partition", "equal"), self.graph.n,
+            int(mesh.shape[vertex_axis]),
+            dst=self.graph.edge_dst.cpu().numpy())
 
     def _reset_index_emission(self) -> None:
         """The native index-emission width for the current store: zero
@@ -154,7 +218,7 @@ class InfluenceEngine:
         a fused chain."""
         self._fused = None
         if getattr(self.cfg, "fused_pipeline", "auto") != "off" \
-                and not self._emit_l:
+                and not self._emit_l and self.mesh is None:
             self._fused = make_fused_extender(
                 self.store, self._sample, self.cfg,
                 sampler_name=self.sampler_name)
@@ -244,7 +308,7 @@ class InfluenceEngine:
         The select memo is kept: the store's version, which every kill
         and replace bumps, keys it."""
         self.graph = graph.to(self.device)
-        self._sample = get_sampler(self.sampler_name)(self.graph, self.cfg)
+        self._sample = self._bind_sampler()
         self._rebind_fused()
 
     # ----------------------------------------------------------- selection
@@ -260,7 +324,13 @@ class InfluenceEngine:
         if (cfg.adaptive_representation
                 and self.graph.n >= cfg.sparse_rep_min_n):
             avg_cov, l_max = self.store.coverage_stats()
-            if choose_representation(avg_cov, self.graph.n, l_max,
+            width = self.graph.n
+            if isinstance(self.store, ShardedStore):
+                # C4 per vertex shard: a shard's lists hold only its
+                # n_local columns of every set
+                width, l_max = (self.store.n_local,
+                                self.store.max_local_size())
+            if choose_representation(avg_cov, width, l_max,
                                      cfg.switch_ratio) == "indices":
                 return "indices"
         return rep
@@ -278,18 +348,37 @@ class InfluenceEngine:
             obs.counter("engine.select_cache_hits").add(1)
             return hit
         obs.counter("engine.select_cache_misses").add(1)
-        rep = self._choose_representation()
-        layout = _LAYOUTS[rep]
-        if rep == "indices" and self.store.representation != "indices":
-            _, l_max = self.store.coverage_stats()
-            view = self.store.index_view(l_pad_for(l_max))
+        if self.mesh is not None:
+            # the tiles go to the strategy in place; a single-device
+            # store's arena is scattered over the mesh by the strategy
+            if self.store.representation == "indices":
+                raise ValueError(
+                    "sharded selection requires a dense-at-rest store "
+                    "(bitmap, packed, or compressed)")
+            rep = self._choose_representation()
+            if rep == "indices" and isinstance(self.store, ShardedStore):
+                view = self.store.index_view(
+                    l_pad_for(self.store.max_local_size()))
+                layout = "sharded-sparse"
+            else:
+                rep = self.store.representation
+                view, layout = self.store.view(), "sharded"
         else:
-            view = self.store.view()
+            rep = self._choose_representation()
+            layout = _LAYOUTS[rep]
+            if rep == "indices" and self.store.representation != "indices":
+                _, l_max = self.store.coverage_stats()
+                view = self.store.index_view(l_pad_for(l_max))
+            else:
+                view = self.store.view()
         strategy = get_selection(method, layout)
         with obs.span("select", tier="engine", k=k, method=method,
                       layout=layout):
             seeds, frac, gains = strategy(
-                view, k, codec=getattr(self.store, "codec", None))
+                view, k, mesh=self.mesh, theta_axes=self.theta_axes,
+                vertex_axis=self.vertex_axis,
+                partition=getattr(self.store, "partition", None),
+                codec=getattr(self.store, "codec", None))
             seeds, frac, gains = (seeds.cpu().numpy(), float(frac),
                                   gains.cpu().numpy())
         sel = Selection(seeds=seeds, covered_frac=frac,
@@ -363,8 +452,14 @@ class InfluenceEngine:
                 f"snapshot model {np.asarray(meta['model'])} != cfg.model "
                 f"{self.cfg.model}")
         target = self.cfg.store if self.cfg.store in _PACK_REPS else None
-        self.store = store_from_state(tree["store"], device=self.device,
-                                      kind=target)
+        # elastic across layouts: a meshed engine re-tiles any snapshot on
+        # its mesh; an engine that keeps a single-device store keeps one
+        mesh = self.mesh if isinstance(self.store, ShardedStore) else None
+        vx = self.vertex_axis if mesh is not None else None
+        self.store = store_from_state(
+            tree["store"], device=self.device, kind=target, mesh=mesh,
+            theta_axes=self.theta_axes, vertex_axis=vx,
+            partition=self._resolve_partition(mesh, vx))
         self.key = prng.as_key(tree["key"])
         self._reset_index_emission()
         self._rebind_fused()
@@ -379,14 +474,16 @@ class InfluenceEngine:
         return True
 
     def replicate(self, tree: dict = None) -> "InfluenceEngine":
-        """A read replica: a new engine over the same graph, config and
-        device, restored from a host copy of ``tree`` (default: this
+        """A read replica: a new engine over the same graph, config, mesh
+        and device, restored from a host copy of ``tree`` (default: this
         engine's `snapshot_tree`), so it shares no tensor with the
         primary and answers ``select``/``influence`` as the primary did
         at the snapshot."""
         if tree is None:
             tree = self.snapshot_tree()
-        replica = InfluenceEngine(self.graph, self.cfg, device=self.device)
+        replica = InfluenceEngine(
+            self.graph, self.cfg, mesh=self.mesh, theta_axes=self.theta_axes,
+            vertex_axis=self.vertex_axis, device=self.device)
         replica.restore_tree(ckpt.clone_tree(tree))
         return replica
 

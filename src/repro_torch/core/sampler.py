@@ -40,9 +40,19 @@ order with f32 ``expm1``).
 The sparse backend also emits a batch natively as C4 index lists
 (``emit_l``, tagged ``supports_index_emit``) for an `IndexStore`.
 
-Not ported yet, and raising `NotImplementedError` with the ROADMAP item:
-mesh ``placement`` (A8).  ``overlap`` and
-``pallas_interpret`` are inert (no mesh, no Pallas).
+Under a mesh ``placement`` (a meshed store's `BatchPlacement`) a bound
+sampler samples each theta shard's row block on that shard's device and
+returns the batch as one ``(visited, counter, roots)`` block per shard:
+the roots come from one draw over the whole batch, sliced, and the
+coins of a block from its rows' counters (``ic_sparse_hits`` and
+``uniform_draw`` take a first row; stable coins key on the rows' global
+positions), so every block is bitwise its rows of the unplaced batch.
+Rows never interact and an empty frontier never changes a row, so each
+block ends its BFS at its own step.  The reference's column-blocked
+dense BFS with the overlapped frontier all-gather waits for ROADMAP A8b:
+each block here runs at full width, and ``overlap`` is accepted and
+changes nothing, as it changes no result in the reference.
+``pallas_interpret`` is inert (no Pallas).
 """
 from __future__ import annotations
 
@@ -66,11 +76,37 @@ from repro_torch.kernels.ic_frontier import activation, column_form
 _LOGQ_CLAMP = -30.0  # exp(-30) ~ 1e-13: treat p=1 edges as prob 1-1e-13
 
 
-def _placement_not_ported(placement) -> None:
-    if placement is not None:
+def _placed(bind_block, graph: Graph, placement, batch: int):
+    """A bound sampler under a mesh ``placement``: ``bind_block(g)`` binds
+    the unplaced sampler on ``g`` (the graph on one shard's device, bound
+    once a device), and each call samples every theta shard's row block
+    there (``rows=(lo, hi)``).  Returns ``(visited, counter, roots)`` as
+    tuples of one block per shard."""
+    bound = {}
+    for dev in placement.devices:
+        if dev not in bound:
+            bound[dev] = bind_block(graph.to(dev))
+
+    def sample(key, **kw):
+        _no_subset(kw.get("positions"))
+        return _per_block(placement, batch,
+                          lambda dev, rows: bound[dev](key, rows=rows))
+    return sample
+
+
+def _per_block(placement, batch: int, run):
+    """``run(device, (lo, hi))`` for each theta shard's row block of a
+    ``batch``-row batch under ``placement``, regrouped as ``(visited,
+    counter, roots)`` tuples of one block per shard."""
+    out = [run(dev, (lo, hi)) for dev, lo, hi in placement.blocks(batch)]
+    return tuple(tuple(o[i] for o in out) for i in range(3))
+
+
+def _no_subset(positions) -> None:
+    if positions is not None:
         raise NotImplementedError(
-            "sampler placement (a mesh-sharded batch) is not ported yet "
-            "(ROADMAP A8)")
+            "re-sampling a row subset under a mesh placement: the meshed "
+            "streaming path (ROADMAP A8b)")
 
 
 # ---------------------------------------------------------------- models ----
@@ -203,25 +239,30 @@ def _stable_uniform(sub, ids: torch.Tensor, bb: torch.Tensor,
 
 
 def _setup(key, batch: int, n_nodes: int, device, positions=None,
-           stable: bool = False):
+           stable: bool = False, rows=None):
     """``(kstep, roots, visited, bb)``: the (kroot, kstep) split, the
-    roots (of ``positions`` when given), the initial visited rows — a
-    ``(K, n)`` bool view of a buffer whose rows are padded to
-    `kops.padded_width`, so the commit kernel reads them with 16-byte
-    loads — and (stable only) the ``(K, 1)`` per-row hash lanes
-    ``position * _GOLD``.  The PRNG op sequence (one split plus one
-    randint) is the same in both modes, as in the reference."""
+    roots (of ``positions``, or of the row block ``rows=(lo, hi)``, when
+    given), the initial visited rows — a ``(K, n)`` bool view of a
+    buffer whose rows are padded to `kops.padded_width`, so the commit
+    kernel reads them with 16-byte loads — and (stable only) the ``(K,
+    1)`` per-row hash lanes ``position * _GOLD``.  The PRNG op sequence
+    (one split plus one randint over the whole batch) is the same in
+    every mode, as in the reference."""
     kroot, kstep = prng.split(key)
     roots = prng.randint(kroot, (batch,), 0, n_nodes, device=device)
+    lo, hi = (0, batch) if rows is None else rows
     bb = None
+    if positions is not None and rows is not None:
+        raise ValueError("give positions or a row block, not both")
     if not stable:
         if positions is not None:
             raise ValueError(
                 "positions-subset resampling needs stable=True "
                 "(identity-keyed coins); positional samplers can only "
                 "re-generate whole batches")
+        roots = roots[lo:hi]
     else:
-        pos = (torch.arange(batch, device=device) if positions is None
+        pos = (torch.arange(lo, hi, device=device) if positions is None
                else torch.as_tensor(positions, device=device).long())
         roots = roots[pos]
         bb = ((pos * _GOLD) & prng.MASK32).to(torch.int32)[:, None]
@@ -233,11 +274,15 @@ def _setup(key, batch: int, n_nodes: int, device, positions=None,
     return kstep, roots, visited, bb
 
 
-def _dense_coins(sub, K: int, n: int, uids, bb, device) -> torch.Tensor:
-    """One BFS step's ``(K, n)`` float32 draw of the dense backends."""
+def _dense_coins(sub, batch: int, K: int, n: int, uids, bb, device,
+                 row0: int = 0) -> torch.Tensor:
+    """One BFS step's ``(K, n)`` float32 draw of the dense backends: rows
+    ``[row0, row0 + K)`` of the batch's positional draw, or the stable
+    draw of the rows' hash lanes ``bb``."""
     if bb is not None:
         return _stable_uniform(sub, uids, bb)
-    return kops.uniform(sub, (K, n), device=device)
+    return kops.uniform(sub, (batch, n), device=device, start=row0 * n,
+                        count=K * n).view(K, n)
 
 
 def dense_coins(key, step: int, *, batch: int, n_nodes: int,
@@ -250,8 +295,8 @@ def dense_coins(key, step: int, *, batch: int, n_nodes: int,
     for _ in range(step):
         k, sub = prng.split(k)
     uids = torch.arange(n_nodes, dtype=torch.int32, device=device)
-    return _dense_coins(sub, bb.shape[0] if stable else batch, n_nodes,
-                        uids, bb, device)
+    return _dense_coins(sub, batch, bb.shape[0] if stable else batch,
+                        n_nodes, uids, bb, device)
 
 
 def _frontier_count(frontier: torch.Tensor) -> int:
@@ -268,12 +313,14 @@ def _frontier_count(frontier: torch.Tensor) -> int:
 # -------------------------------------------------------- traversal loops ----
 
 def _dense_loop(key, logq, positions=None, *, batch: int, max_steps: int = 0,
-                stable: bool = False, kernel: bool = False, cols=None):
+                stable: bool = False, kernel: bool = False, cols=None,
+                rows=None):
     """Dense log-semiring frontier expansion (the ``dense`` backend, or
     with ``kernel=True`` the ``pallas`` backend: each step is one
     `kops.ic_frontier_step`, handed ``cols``, logq's `column_form`, when
     the caller built it once).  Both share the coins and the
     epilogue and differ only in how ``frontier @ logq`` is summed.
+    ``rows=(lo, hi)`` samples just that row block of the batch.
 
     Returns ``(visited (K, n) uint8, counter (n,) int32, roots (K,))``,
     ``K = len(positions)`` or the batch; ``visited`` is a row-padded view.
@@ -286,14 +333,16 @@ def _dense_loop(key, logq, positions=None, *, batch: int, max_steps: int = 0,
             "the dense backend sums frontier @ logq in float32: set "
             "torch.backends.cuda.matmul.allow_tf32 = False (the default)")
     max_steps = max_steps or n
-    k, roots, visited, bb = _setup(key, batch, n, dev, positions, stable)
+    k, roots, visited, bb = _setup(key, batch, n, dev, positions, stable,
+                                   rows)
     K = visited.shape[0]
+    row0 = 0 if rows is None else rows[0]
     uids = torch.arange(n, dtype=torch.int32, device=dev) if stable else None
     frontier = visited.clone()
     step = 0
     while step < max_steps and _frontier_count(frontier):
         k, sub = prng.split(k)
-        coin = _dense_coins(sub, K, n, uids, bb, dev)
+        coin = _dense_coins(sub, batch, K, n, uids, bb, dev, row0)
         if kernel:
             new = kops.ic_frontier_step(frontier, visited, logq, coin,
                                         cols=cols).view(torch.bool)
@@ -313,7 +362,7 @@ STABLE_ROWS = 32
 
 def _sparse_loop(key, edge_src, edge_dst, edge_prob, positions=None, *,
                  n_nodes: int, batch: int, max_steps: int = 0,
-                 stable: bool = False, emit_l: int = 0):
+                 stable: bool = False, emit_l: int = 0, rows=None):
     """CSC edge-list frontier expansion (the ``sparse`` backend).
 
     An edge ``u -> v`` is usable when ``v`` is in the frontier, its coin
@@ -329,13 +378,14 @@ def _sparse_loop(key, edge_src, edge_dst, edge_prob, positions=None, *,
     same coins, so the rows equal the bitmap rows converted after the
     fact.  A row with more than ``emit_l`` members keeps its smallest
     ``emit_l``; the engine widens and re-emits when a row comes back
-    full.
+    full.  ``rows=(lo, hi)`` samples just that row block of the batch.
     """
     m = edge_src.shape[0]
     max_steps = max_steps or n_nodes
     dev = edge_prob.device
     k, roots, visited, bb = _setup(key, batch, n_nodes, dev, positions,
-                                   stable)
+                                   stable, rows)
+    block = rows
     K = visited.shape[0]
     uid = (((edge_src * n_nodes + edge_dst) & prng.MASK32).to(torch.int32)
            if stable else None)
@@ -349,7 +399,7 @@ def _sparse_loop(key, edge_src, edge_dst, edge_prob, positions=None, *,
                 r1 = min(r + STABLE_ROWS, K)
                 hit[r:r1] = _stable_uniform(sub, uid, bb, (r, r1)) < edge_prob
         else:
-            hit = kops.ic_sparse_hits(sub, edge_prob, batch)
+            hit = kops.ic_sparse_hits(sub, edge_prob, batch, block)
         live = frontier[:, edge_dst] & hit & ~visited[:, edge_src]
         # scatter-or into src from the live (row, edge) pairs only — an
         # index expanded to (K, m) int64 would take 8 bytes per coin
@@ -399,7 +449,7 @@ def _pick_in_neighbor(offs, in_src, in_cum, cur, r, iters: int):
 
 def _walk_loop(key, dst_offsets, in_src, in_cum, in_total, positions=None,
                *, batch: int, max_steps: int = 0, max_indeg_log2: int = 32,
-               stable: bool = False, iters: int = None):
+               stable: bool = False, iters: int = None, rows=None):
     """Pick-at-most-one random walk (the ``walk`` backend, `WalkModel`).
 
     Each step the walk at ``cur`` draws one uniform ``r``: ``r >=
@@ -411,7 +461,8 @@ def _walk_loop(key, dst_offsets, in_src, in_cum, in_total, positions=None,
     ``<`` of the reference's values, so the rows are bitwise its own.
     A step marks only the B chosen cells (the reference ORs a ``(B, n)``
     one-hot).  ``iters`` is the search's iteration count
-    (`search_iters`, computed here when absent).
+    (`search_iters`, computed here when absent).  ``rows=(lo, hi)``
+    samples just that row block of the batch.
 
     Returns ``(visited (K, n) uint8, counter (n,) int32, roots (K,))``.
     """
@@ -421,8 +472,10 @@ def _walk_loop(key, dst_offsets, in_src, in_cum, in_total, positions=None,
     max_steps = max_steps or n
     if iters is None:
         iters = search_iters(dst_offsets, max_indeg_log2)
-    k, roots, visited, bb = _setup(key, batch, n, dev, positions, stable)
+    k, roots, visited, bb = _setup(key, batch, n, dev, positions, stable,
+                                   rows)
     K = visited.shape[0]
+    row0 = 0 if rows is None else rows[0]
     rows = torch.arange(K, device=dev)
     offs = dst_offsets.long()
     cur = roots.long()
@@ -434,7 +487,8 @@ def _walk_loop(key, dst_offsets, in_src, in_cum, in_total, positions=None,
             k0, k1 = (prng.u32_to_i32(int(w)) for w in prng.as_key(sub))
             r = _u01(_mix32(_mix32(bb[:, 0] ^ k0) ^ k1))
         else:
-            r = kops.uniform(sub, (batch,), device=dev)
+            r = kops.uniform(sub, (batch,), device=dev, start=row0,
+                             count=K)
         go = active & (r < in_total[cur])
         # an edgeless graph has no segment to search; its totals are 0,
         # so no walk moves
@@ -454,15 +508,22 @@ def _walk_loop(key, dst_offsets, in_src, in_cum, in_total, positions=None,
 
 def sample_ic_dense(key, logq, *, batch: int, max_steps: int = 0,
                     placement=None):
-    """Positional dense log-semiring IC sampling (see `_dense_loop`)."""
-    _placement_not_ported(placement)
+    """Positional dense log-semiring IC sampling (see `_dense_loop`);
+    under a ``placement``, one block per theta shard."""
+    if placement is not None:
+        return _per_block(placement, batch, lambda dev, rows: _dense_loop(
+            key, logq.to(dev), batch=batch, max_steps=max_steps, rows=rows))
     return _dense_loop(key, logq, batch=batch, max_steps=max_steps)
 
 
 def sample_ic_dense_stable(key, logq, positions=None, *, batch: int,
                            max_steps: int = 0, placement=None):
     """Identity-keyed dense sampling with ``positions`` row subsets."""
-    _placement_not_ported(placement)
+    if placement is not None:
+        _no_subset(positions)
+        return _per_block(placement, batch, lambda dev, rows: _dense_loop(
+            key, logq.to(dev), batch=batch, max_steps=max_steps,
+            stable=True, rows=rows))
     return _dense_loop(key, logq, positions, batch=batch,
                        max_steps=max_steps, stable=True)
 
@@ -470,7 +531,11 @@ def sample_ic_dense_stable(key, logq, positions=None, *, batch: int,
 def sample_ic_sparse(key, edge_src, edge_dst, edge_prob, *, n_nodes: int,
                      batch: int, max_steps: int = 0, placement=None):
     """Positional edge-list IC sampling (see `_sparse_loop`)."""
-    _placement_not_ported(placement)
+    if placement is not None:
+        return _per_block(placement, batch, lambda dev, rows: _sparse_loop(
+            key, edge_src.long().to(dev), edge_dst.long().to(dev),
+            edge_prob.to(dev), n_nodes=n_nodes, batch=batch,
+            max_steps=max_steps, rows=rows))
     return _sparse_loop(key, edge_src.long(), edge_dst.long(), edge_prob,
                         n_nodes=n_nodes, batch=batch, max_steps=max_steps)
 
@@ -479,7 +544,12 @@ def sample_ic_sparse_stable(key, edge_src, edge_dst, edge_prob,
                             positions=None, *, n_nodes: int, batch: int,
                             max_steps: int = 0, placement=None):
     """Edge-identity-keyed sparse sampling with ``positions`` subsets."""
-    _placement_not_ported(placement)
+    if placement is not None:
+        _no_subset(positions)
+        return _per_block(placement, batch, lambda dev, rows: _sparse_loop(
+            key, edge_src.long().to(dev), edge_dst.long().to(dev),
+            edge_prob.to(dev), n_nodes=n_nodes, batch=batch,
+            max_steps=max_steps, stable=True, rows=rows))
     return _sparse_loop(key, edge_src.long(), edge_dst.long(), edge_prob,
                         positions, n_nodes=n_nodes, batch=batch,
                         max_steps=max_steps, stable=True)
@@ -489,7 +559,11 @@ def sample_lt(key, dst_offsets, in_src, in_lt_cum, in_lt_total, *,
               batch: int, max_steps: int = 0, max_indeg_log2: int = 32,
               placement=None):
     """Positional LT RRR random walk (see `_walk_loop`)."""
-    _placement_not_ported(placement)
+    if placement is not None:
+        return _per_block(placement, batch, lambda dev, rows: _walk_loop(
+            key, dst_offsets.to(dev), in_src.to(dev), in_lt_cum.to(dev),
+            in_lt_total.to(dev), batch=batch, max_steps=max_steps,
+            max_indeg_log2=max_indeg_log2, rows=rows))
     return _walk_loop(key, dst_offsets, in_src, in_lt_cum, in_lt_total,
                       batch=batch, max_steps=max_steps,
                       max_indeg_log2=max_indeg_log2)
@@ -499,7 +573,12 @@ def sample_lt_stable(key, dst_offsets, in_src, in_lt_cum, in_lt_total,
                      positions=None, *, batch: int, max_steps: int = 0,
                      max_indeg_log2: int = 32, placement=None):
     """Identity-keyed LT walk with ``positions`` row subsets."""
-    _placement_not_ported(placement)
+    if placement is not None:
+        _no_subset(positions)
+        return _per_block(placement, batch, lambda dev, rows: _walk_loop(
+            key, dst_offsets.to(dev), in_src.to(dev), in_lt_cum.to(dev),
+            in_lt_total.to(dev), batch=batch, max_steps=max_steps,
+            max_indeg_log2=max_indeg_log2, stable=True, rows=rows))
     return _walk_loop(key, dst_offsets, in_src, in_lt_cum, in_lt_total,
                       positions, batch=batch, max_steps=max_steps,
                       max_indeg_log2=max_indeg_log2, stable=True)
@@ -537,19 +616,23 @@ class TraversalBackend:
 
 def _bind_dense(model, graph: Graph, cfg, *, stable, placement,
                 kernel=False):
-    _placement_not_ported(placement)
+    if placement is not None:
+        return _placed(lambda g: _bind_dense(
+            model, g, cfg, stable=stable, placement=None, kernel=kernel),
+            graph, placement, cfg.batch)
     logq = logq_from_probs(graph, _edge_probs(model, graph))
     # the frontier step walks logq's column form, which depends on logq
     # alone: build it once per bound sampler, not at every BFS step
     cols = column_form(logq) if kernel else None
     if stable:
-        def sample(key, positions=None):
+        def sample(key, positions=None, rows=None):
             return _dense_loop(key, logq, positions, batch=cfg.batch,
-                               stable=True, kernel=kernel, cols=cols)
+                               stable=True, kernel=kernel, cols=cols,
+                               rows=rows)
     else:
-        def sample(key):
+        def sample(key, rows=None):
             return _dense_loop(key, logq, batch=cfg.batch, kernel=kernel,
-                               cols=cols)
+                               cols=cols, rows=rows)
     sample.cols = cols      # what every step walks (None on ``dense``)
     return sample
 
@@ -560,7 +643,9 @@ def _bind_pallas(model, graph: Graph, cfg, *, stable, placement):
 
 
 def _bind_sparse(model, graph: Graph, cfg, *, stable=False, placement=None):
-    _placement_not_ported(placement)
+    if placement is not None:
+        return _placed(lambda g: _bind_sparse(model, g, cfg, stable=stable),
+                       graph, placement, cfg.batch)
     src, dst = graph.edge_src.long(), graph.edge_dst.long()
     prob = _edge_probs(model, graph)
     if stable:
@@ -568,14 +653,14 @@ def _bind_sparse(model, graph: Graph, cfg, *, stable=False, placement=None):
         # positional coin layout is a function of m, so it keeps m
         src, dst, prob = _pad_edges_pow2(src, dst, prob)
 
-        def fn(key, positions=None, emit_l=0):
+        def fn(key, positions=None, emit_l=0, rows=None):
             return _sparse_loop(key, src, dst, prob, positions,
                                 n_nodes=graph.n, batch=cfg.batch,
-                                stable=True, emit_l=emit_l)
+                                stable=True, emit_l=emit_l, rows=rows)
     else:
-        def fn(key, emit_l=0):
+        def fn(key, emit_l=0, rows=None):
             return _sparse_loop(key, src, dst, prob, n_nodes=graph.n,
-                                batch=cfg.batch, emit_l=emit_l)
+                                batch=cfg.batch, emit_l=emit_l, rows=rows)
     # the engine routes C4 through this tag: an IndexStore asks a tagged
     # sampler for index rows (``emit_l``) instead of bitmaps
     fn.supports_index_emit = True
@@ -583,18 +668,22 @@ def _bind_sparse(model, graph: Graph, cfg, *, stable=False, placement=None):
 
 
 def _bind_walk(model, graph: Graph, cfg, *, stable, placement):
-    _placement_not_ported(placement)
+    if placement is not None:
+        return _placed(lambda g: _bind_walk(model, g, cfg, stable=stable,
+                                            placement=None),
+                       graph, placement, cfg.batch)
     tables = tuple(t.to(graph.device) for t in model.walk_tables(graph))
     # the search's iteration count needs the largest in-degree: read it
     # once per bound sampler, not at every step
     iters = search_iters(tables[0])
     if stable:
-        def sample(key, positions=None):
+        def sample(key, positions=None, rows=None):
             return _walk_loop(key, *tables, positions, batch=cfg.batch,
-                              stable=True, iters=iters)
+                              stable=True, iters=iters, rows=rows)
     else:
-        def sample(key):
-            return _walk_loop(key, *tables, batch=cfg.batch, iters=iters)
+        def sample(key, rows=None):
+            return _walk_loop(key, *tables, batch=cfg.batch, iters=iters,
+                              rows=rows)
     return sample
 
 

@@ -28,6 +28,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import mesh as mesh_ops
+from repro_torch.graphs.partition import vertex_partition
 from repro_torch.kernels import ops as kops
 from repro_torch.sparse.scatter import bincount_weighted
 
@@ -124,6 +126,225 @@ def greedy_select(R_or_idx, valid, k: int, *, n: int = None,
     raise ValueError(representation)
 
 
+# -------------------------------------------------------------- sharded ----
+#
+# The mesh strategies run the reference's shard_map bodies tile by tile:
+# every round each tile reduces its own rows over its own columns, the
+# counter is summed over the theta axis (one partial per vertex block),
+# each vertex block offers its first argmax as a (value, global id) pair,
+# the pairs are gathered and the first block with the maximum wins, and
+# the winner's rows are tested tile by tile and or-ed over the vertex
+# axis.  Only reduced tensors cross tiles, every one stays on a device,
+# and no round reads a value back on the host.
+
+
+def _vertex_sharded_pick(counters, starts, home):
+    """The round's winner from one ``(n_local,)`` float32 counter per
+    vertex block: pad columns (past a block's size) masked to -1, each
+    block's first argmax as a global id, the first block with the
+    maximum.  Returns a 0-dim int64 tensor on ``home``."""
+    vals, ids = [], []
+    for v, c in enumerate(counters):
+        size = starts[v + 1] - starts[v]
+        iota = torch.arange(c.shape[0], device=c.device)
+        c = torch.where(iota < size, c, torch.full_like(c, -1.0))
+        j = torch.argmax(c)
+        vals.append(c[j])
+        ids.append(j + starts[v])
+    vals = mesh_ops.all_gather(vals, home)
+    ids = mesh_ops.all_gather(ids, home)
+    return ids[torch.argmax(vals)]
+
+
+def _sharded_greedy(tiles, valid, k: int, method: str, *, n: int,
+                    partition, partial_of, member_local):
+    """The greedy loop over a ``[Dt][Dv]`` grid of tiles with one row
+    mask per theta shard: ``partial_of(t, v, mask)`` is tile ``(t, v)``'s
+    ``(n_local,)`` count of the rows ``mask`` keeps (on the tile's
+    device), ``member_local(t, v, lv)`` its ``(rows,) bool`` membership
+    of local column ``lv`` (a 0-dim tensor on the tile's device).
+    Returns the reference's ``(seeds, covered_frac, gains)`` on the
+    first tile's device."""
+    if method not in ("rebuild", "decrement"):
+        raise ValueError(f"unknown method {method}")
+    Dt, Dv = len(tiles), len(tiles[0])
+    devs = [[tiles[t][v].device for v in range(Dv)] for t in range(Dt)]
+    home = devs[0][0]
+    part = partition if partition is not None else vertex_partition(n, Dv)
+    starts = [int(x) for x in part.starts]
+
+    def counters(masks):
+        """Per vertex block, the partials of ``masks`` summed over the
+        theta axis (float32, on the block's first tile's device)."""
+        return [mesh_ops.psum(
+            [partial_of(t, v, masks[t].to(devs[t][v])).to(torch.float32)
+             for t in range(Dt)], devs[0][v]) for v in range(Dv)]
+
+    seeds = torch.zeros(k, dtype=torch.int32, device=home)
+    gains = torch.zeros(k, dtype=torch.int32, device=home)
+    alive = [m.clone() for m in valid]
+    counter = counters(alive) if method == "decrement" else None
+    for i in range(k):
+        win = _vertex_sharded_pick(
+            counters(alive) if counter is None else counter, starts, home)
+        covered = []
+        for t in range(Dt):
+            parts = []
+            for v in range(Dv):
+                lv = win.to(devs[t][v]) - starts[v]
+                ok = (lv >= 0) & (lv < starts[v + 1] - starts[v])
+                lv = lv.clamp(0, part.block - 1)
+                parts.append(member_local(t, v, lv) & ok)
+            covered.append(mesh_ops.psum_or(parts, valid[t].device)
+                           & alive[t])
+        seeds[i] = win
+        gains[i] = mesh_ops.psum(
+            [c.sum(dtype=torch.int32) for c in covered], home)
+        if counter is not None:
+            dec = counters(covered)
+            counter = [c - d for c, d in zip(counter, dec)]
+        for t in range(Dt):
+            alive[t] &= ~covered[t]
+    n_valid = mesh_ops.psum([m.sum(dtype=torch.int32) for m in valid],
+                            home).to(torch.float32).clamp_min(1.0)
+    return seeds, gains.sum(dtype=torch.float32) / n_valid, gains
+
+
+def _tiled(R, valid, n, mesh, theta_axes, vertex_axis, partition, codec):
+    """``(tiles, valid, partition, codec)`` of a strategy's arena: a
+    `ShardedStore` view's own tiles, or — for a single-device store on a
+    mesh, whose arena the reference scatters on entry — its valid rows
+    (decoded) written into a `ShardedStore` on ``mesh``."""
+    if isinstance(R, tuple):
+        return R, valid, partition, codec
+    from repro_torch.core.store import ShardedStore
+    rows = R[valid]
+    if codec is not None and codec.kind != "bitmap":
+        rows = codec.decode(rows)
+    store = ShardedStore(n, mesh=mesh, theta_axes=theta_axes,
+                         vertex_axis=vertex_axis, capacity=rows.shape[0],
+                         partition=partition)
+    store.add_batch(rows)
+    tiled = store.view()
+    return tiled.R, tiled.valid, store.partition, store.codec
+
+
+def select_dense_sharded(mesh, R, valid, k: int, *, theta_axes=("data",),
+                         vertex_axis=None, method: str = "rebuild",
+                         n: int = None, partition=None, codec=None):
+    """Greedy selection over a meshed arena (paper C1): ``R`` the
+    ``[Dt][Dv]`` grid of tiles (a `ShardedStore` view's; bitmap, packed
+    or token rows as ``codec`` says, ``n_local`` columns each),
+    ``valid`` one row mask per theta shard.  Each tile's partial counter
+    comes from a kernel — ``coverage_matvec`` over bitmap tiles,
+    ``packed_count`` over packed ones, ``token_count`` over token ones —
+    and the winner's column is decoded tile by tile
+    (``codec.decode_cols``).  ``rebuild`` re-counts the surviving rows
+    every round; ``decrement`` keeps the counter and subtracts the
+    covered rows' counts.  Seeds, gains and covered_frac are bitwise
+    the single-device strategies' on the same rows, on any mesh and
+    either column layout."""
+    from repro_torch.core.pack.codec import BitmapCodec
+    tiles, valid, partition, codec = _tiled(R, valid, n, mesh, theta_axes,
+                                            vertex_axis, partition, codec)
+    if codec is None:
+        codec = BitmapCodec(tiles[0][0].shape[1])
+    n_tile = codec.n_cols
+
+    if codec.kind == "bitmap":
+        def partial_of(t, v, mask):
+            return kops.coverage_matvec(mask, tiles[t][v])
+    elif codec.kind == "packed":
+        def partial_of(t, v, mask):
+            return kops.packed_count(tiles[t][v], mask, n=n_tile)
+    else:
+        def partial_of(t, v, mask):
+            return kops.token_count(tiles[t][v], mask, n=n_tile)
+
+    def member_local(t, v, lv):
+        return codec.decode_cols(tiles[t][v], lv.view(1))[:, 0]
+
+    return _sharded_greedy(tiles, valid, k, method, n=n, partition=partition,
+                           partial_of=partial_of, member_local=member_local)
+
+
+def select_sparse_sharded(mesh, R_idx, valid, n: int, k: int, *,
+                          theta_axes=("data",), vertex_axis=None,
+                          method: str = "rebuild", partition=None):
+    """Greedy selection over meshed C4 index lists: ``R_idx`` the
+    ``[Dt][Dv]`` grid of ``(cap_local, l_pad) int32`` tiles of *local*
+    ids (sentinel ``n_local``), as `ShardedStore.index_view` emits them.
+    Each tile scatters its rows' alive weights into an ``(n_local,)``
+    partial (its members gathered once), membership of the winner is a
+    tile-local compare; selections equal the dense strategies'."""
+    Dv = len(R_idx[0])
+    part = partition if partition is not None else vertex_partition(n, Dv)
+    n_local = part.block
+    members = [[None] * Dv for _ in R_idx]
+    for t, row in enumerate(R_idx):
+        for v, lists in enumerate(row):
+            flat = lists.reshape(-1)
+            pos = (flat < n_local).nonzero().squeeze(1)
+            members[t][v] = (flat[pos], torch.div(
+                pos, lists.shape[1], rounding_mode="floor"))
+
+    def partial_of(t, v, mask):
+        ids, rows = members[t][v]
+        return bincount_weighted(ids, mask.to(torch.int32)[rows], n_local)
+
+    def member_local(t, v, lv):
+        return (R_idx[t][v] == lv).any(dim=1)
+
+    return _sharded_greedy(R_idx, valid, k, method, n=n, partition=part,
+                           partial_of=partial_of, member_local=member_local)
+
+
+def select_fused_sharded(mesh, R, valid, k: int, **kw):
+    """The fused sharded strategy: each tile's counter already comes from
+    a kernel in `select_dense_sharded`, so the two are one function here
+    (the single-device ``fused_select`` argmax cannot cross tiles; the
+    reference's sharded path also reduces through ``coverage_matvec``)."""
+    return select_dense_sharded(mesh, R, valid, k, **kw)
+
+
+# ------------------------------------------ Ripples-faithful baseline ----
+
+def select_vertex_partitioned(R_idx, valid, n: int, k: int,
+                              block: int = 1024):
+    """The Ripples work pattern the paper profiles (§III Challenge 1):
+    vertices partitioned across workers, each binary-searching every
+    sorted RRR set for its vertices — O(n * theta * log L) loads per
+    counter build against EfficientIMM's O(theta * L) scatter
+    (``repro.core.selection.select_vertex_partitioned``).  ``R_idx`` are
+    ascending lists with sentinel ``n``; vertices are searched ``block``
+    at a time.  The counter is decremental, re-searching every covered
+    set for every vertex."""
+    theta, L = R_idx.shape
+    rows = R_idx.contiguous()
+
+    def count(mask):
+        out = torch.zeros(n, dtype=torch.float32, device=R_idx.device)
+        for lo in range(0, n, block):
+            v = torch.arange(lo, min(lo + block, n), device=R_idx.device,
+                             dtype=R_idx.dtype)
+            pos = torch.searchsorted(
+                rows, v.expand(theta, -1).contiguous()).clamp_(max=L - 1)
+            hit = rows.gather(1, pos) == v
+            out[lo:lo + v.numel()] = (hit & mask[:, None]).sum(
+                dim=0, dtype=torch.int32).to(torch.float32)
+        return out
+
+    def member(v):
+        pos = torch.searchsorted(
+            rows, v.view(1, 1).expand(theta, 1).to(rows.dtype).contiguous()
+        ).clamp_(max=L - 1)
+        return (rows.gather(1, pos) == v).squeeze(1)
+
+    return greedy(valid, k, "decrement",
+                  lambda alive, counter: torch.argmax(counter),
+                  count, member)
+
+
 # ------------------------------------------------- SelectionStrategy API ----
 #
 # A strategy is ``fn(view, k, **opts) -> (seeds, covered_frac, gains)``
@@ -143,10 +364,6 @@ def get_selection(method: str, layout: str):
     try:
         return SELECTION_STRATEGIES[name]
     except KeyError:
-        if layout.startswith("sharded"):
-            raise NotImplementedError(
-                f"selection strategy {name!r} is not ported yet (the "
-                f"sharded layouts: ROADMAP A8)")
         raise ValueError(
             f"no selection strategy {name!r}; registered: "
             f"{sorted(SELECTION_STRATEGIES)}")
@@ -170,6 +387,29 @@ def _sparse_strategy(method):
     return run
 
 
+def _sharded_strategy(method):
+    def run(view, k, *, mesh=None, theta_axes=("data",), vertex_axis=None,
+            partition=None, codec=None, **_):
+        if mesh is None:
+            raise ValueError("sharded selection needs a mesh")
+        return select_dense_sharded(
+            mesh, view.R, view.valid, k, theta_axes=theta_axes,
+            vertex_axis=vertex_axis, method=method, n=view.n,
+            partition=partition, codec=codec)
+    return run
+
+
+def _sharded_sparse_strategy(method):
+    def run(view, k, *, mesh=None, theta_axes=("data",), vertex_axis=None,
+            partition=None, **_):
+        if mesh is None:
+            raise ValueError("sharded selection needs a mesh")
+        return select_sparse_sharded(
+            mesh, view.R, view.valid, view.n, k, theta_axes=theta_axes,
+            vertex_axis=vertex_axis, method=method, partition=partition)
+    return run
+
+
 for _m in ("rebuild", "decrement"):
     register_selection(f"{_m}-dense", _dense_strategy(_m))
     register_selection(f"{_m}-sparse", _sparse_strategy(_m))
@@ -177,3 +417,9 @@ for _m in ("rebuild", "decrement"):
     # index lists have no kernel: the fused methods run the plain
     # strategies, so C4 under a fused method never dead-ends
     register_selection(f"fused-{_m}-sparse", _sparse_strategy(_m))
+    register_selection(f"{_m}-sharded", _sharded_strategy(_m))
+    register_selection(f"{_m}-sharded-sparse", _sharded_sparse_strategy(_m))
+    # every sharded round already counts through the kernels
+    register_selection(f"fused-{_m}-sharded", _sharded_strategy(_m))
+    register_selection(f"fused-{_m}-sharded-sparse",
+                       _sharded_sparse_strategy(_m))

@@ -44,8 +44,14 @@ arena's rows or bytes: a write over the cap first compacts
 (staleness-first), then walks the policy's codec ladder
 (compress-before-evict, `_compress_step`), then evicts the oldest live
 rows.  The policy is enforced by the store's write entry points
-(``add_batch``, ``replace_rows``) alone.  The sharded store is not
-ported yet (ROADMAP A8).
+(``add_batch``, ``replace_rows``) alone.
+
+``ShardedStore`` is the arena on a `repro_torch.mesh.Mesh` (paper C1):
+one tile per (theta shard, vertex shard), each its own tensor on its own
+device in the reference's layout, written by ``arena_commit`` a tile at
+a time and read in place by the sharded selections; its snapshots
+restore onto any layout and into any single-device store.  Its row
+lifecycle and pressure policy wait for ROADMAP A8b.
 """
 from __future__ import annotations
 
@@ -55,9 +61,11 @@ from typing import Protocol, runtime_checkable
 import numpy as np
 import torch
 
+from repro_torch import mesh as mesh_ops
 from repro_torch import obs
 from repro_torch.core.adaptive import CONVERT_BLOCK_ELEMS, bitmap_to_indices
 from repro_torch.device import resolve_device
+from repro_torch.graphs.partition import vertex_partition
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ops import padded_width
 from repro_torch.sparse.scatter import bincount_weighted
@@ -128,8 +136,10 @@ def _ladder_next(current_kind: str, ladder) -> str | None:
 class StoreView:
     """Read-only picture of an arena handed to a selection strategy:
     ``R (capacity, n) uint8`` (a row-padded view of the live arena) and
-    the row mask ``valid = arange(capacity) < count & live``.  A view
-    aliases the arena: read it before the store's next write."""
+    the row mask ``valid = arange(capacity) < count & live``; a
+    `ShardedStore`'s ``R`` is its ``[Dt][Dv]`` grid of tiles and its
+    ``valid`` one mask per theta shard.  A view aliases the arena: read
+    it before the store's next write."""
     representation: str
     R: torch.Tensor
     valid: torch.Tensor
@@ -723,7 +733,541 @@ class IndexStore(_ArenaBase):
         return store
 
 
-_NOT_PORTED = {"sharded": "the sharded store (ROADMAP A8)"}
+# ------------------------------------------------------- sharded (C1) ----
+
+#: what the row lifecycle, the pressure policy and the meshed stream and
+#: serving layers wait for
+A8B = "the meshed row lifecycle and streaming (ROADMAP A8b)"
+
+
+def _tile_codec(kind: str, n_cols: int, s_pad=None):
+    """Per-tile codec of a meshed arena (``bitmap``/``packed``/
+    ``compressed`` over a tile's ``n_cols`` columns)."""
+    from repro_torch.core.pack.codec import MIN_TOKEN_PAD, codec_for
+    return codec_for(kind, n_cols,
+                     MIN_TOKEN_PAD if s_pad is None else int(s_pad))
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchPlacement:
+    """Where a meshed store wants a batch's rows: theta shard ``t``
+    samples and holds rows ``[t * b, (t + 1) * b)`` (``b = ceil(B /
+    Dt)``, the last blocks cut at ``B``) on ``devices[t]``, the device
+    of its first vertex tile."""
+    devices: tuple
+
+    def blocks(self, batch: int) -> list:
+        """``[(device, lo, hi)]`` of each theta shard's row block of a
+        ``batch``-row batch (``lo == hi`` for a shard past its end)."""
+        D = len(self.devices)
+        b = -(-int(batch) // D)
+        return [(dev, min(t * b, batch), min((t + 1) * b, batch))
+                for t, dev in enumerate(self.devices)]
+
+
+class ShardedStore:
+    """Mesh-sharded RRR arena — the paper's C1 partitioning applied to
+    the store (``repro.core.store.ShardedStore``), over a 1D (theta) or
+    2D (theta x vertex) `repro_torch.mesh.Mesh`.
+
+    Layout over ``D`` theta shards and ``Dv`` vertex shards, the
+    reference's:
+
+      * tile ``(t, v)`` is its own tensor on
+        ``mesh.tile_devices(...)[t][v]``: rows ``[t * cap_local, (t+1) *
+        cap_local)`` of the global slot space by the ``n_local =
+        partition.block`` columns of vertex block ``v`` (``n_pad = Dv *
+        n_local``; pad columns stay zero), encoded by the tile codec
+        (``bitmap``, ``packed`` or ``compressed``), rows at a 16-byte
+        stride so the kernels read them with 16-byte loads;
+      * ``cap_local`` is a power of two, grown per shard by doubling;
+      * counter partials ``(Dt, n_pad)`` (tile ``(t, v)`` counts its own
+        rows over its own columns), ``sizes`` per theta shard (on the
+        shard's first tile's device), per-shard row counts with a host
+        mirror.
+
+    ``add_batch`` splits a batch into ``ceil(B / D)``-row blocks and
+    ``Dv`` column blocks; every bitmap or packed tile writes its block
+    with one ``arena_commit`` launch (the counter partial and the row
+    sums fused; on a 2D mesh a row's size is the sum over its vertex
+    tiles), token tiles are encoded in PyTorch.  A batch a sampler
+    placed (`batch_placement`) arrives as one row block per theta shard.
+    Global slots are ``t * cap_local + counts[t] + i``, the reference's.
+
+    Reads hand the tiles over: ``view()`` is a `StoreView` whose ``R``
+    is the ``[Dt][Dv]`` grid of tile views and whose ``valid`` holds one
+    row mask per theta shard — the sharded selections consume them in
+    place, and no concatenation of the arena is ever made.  Selection,
+    ``hits`` and the counter are permutation-invariant over rows and
+    exact integer sums over columns, so a store fed the batches of a
+    `BitmapStore` answers bitwise as it does on any mesh shape.
+
+    ``state``/``from_state`` are elastic: a snapshot holds the valid
+    rows compacted in shard order, decoded and in global vertex order
+    (kind ``"sharded"``, the reference's format), so it restores onto
+    any layout — none, 1D or 2D, equal or balanced, any codec.
+
+    The row lifecycle (``kill_rows``, ``replace_rows``, ``compact``),
+    a `StorePressurePolicy` and slot remaps raise `NotImplementedError`
+    (ROADMAP A8b).
+    """
+
+    #: rows a restore feeds per `add_batch` (bounds the host -> device
+    #: staging, as in the reference)
+    RESTORE_CHUNK = 4096
+
+    def __init__(self, n: int, *, mesh, theta_axes=("data",),
+                 vertex_axis=None, capacity: int = MIN_CAPACITY,
+                 policy: StorePressurePolicy | None = None,
+                 partition=None, codec: str = "bitmap", s_pad=None):
+        if mesh is None:
+            raise ValueError("ShardedStore needs a repro_torch.mesh.Mesh")
+        if policy is not None:
+            raise NotImplementedError(
+                f"a StorePressurePolicy on a sharded store: {A8B}")
+        if isinstance(theta_axes, str):
+            theta_axes = (theta_axes,)
+        self.n = int(n)
+        self.mesh = mesh
+        self.theta_axes = tuple(theta_axes)
+        self.vertex_axis = vertex_axis
+        self.devices = mesh.tile_devices(self.theta_axes, vertex_axis)
+        for dev in mesh.distinct_devices():
+            resolve_device(dev)
+        self.D, self.Dv = len(self.devices), len(self.devices[0])
+        if partition is None:
+            partition = vertex_partition(self.n, self.Dv)
+        elif partition.n != self.n or partition.shards != self.Dv:
+            raise ValueError(
+                f"partition covers n={partition.n} over {partition.shards} "
+                f"shards; this store needs n={self.n} over Dv={self.Dv}")
+        self.partition = partition
+        self.n_local, self.n_pad = partition.block, partition.n_pad
+        #: first global vertex and live column count of each vertex tile
+        self.col_lo = [int(s) for s in partition.starts[:-1]]
+        self.col_width = [int(w) for w in partition.sizes]
+        self.codec = _tile_codec(codec, self.n_local, s_pad)
+        self.cap_local = next_pow2(-(-int(capacity) // self.D))
+        self.version = 0
+        self.policy = None
+        self.track_remaps = False
+        self._counts_host = np.zeros((self.D,), np.int64)
+        self._tiles = [[self._new_tile(t, v, self.cap_local)
+                        for v in range(self.Dv)] for t in range(self.D)]
+        self._sizes = [torch.zeros(self.cap_local, dtype=torch.int32,
+                                   device=self._home(t))
+                       for t in range(self.D)]
+        self._counter = [[torch.zeros(self.n_local, dtype=torch.int32,
+                                      device=self.devices[t][v])
+                          for v in range(self.Dv)] for t in range(self.D)]
+        # on a vertex axis, each tile's row sums (the sets' local sizes,
+        # the per-shard C4 statistic) as its writes count them
+        self._tile_sizes = [[torch.zeros(self.cap_local, dtype=torch.int32,
+                                         device=self.devices[t][v])
+                             for v in range(self.Dv)]
+                            for t in range(self.D)] if self.Dv > 1 else None
+        self._idx_cache = None       # ((version, l_pad), index tiles)
+        self._localmax_cache = None  # (version, max local set size)
+
+    # ------------------------------------------------------------ shape ----
+
+    def _home(self, t: int) -> torch.device:
+        """Device of theta shard ``t``'s sizes, row mask and batch rows."""
+        return self.devices[t][0]
+
+    @property
+    def device(self) -> torch.device:
+        """The first tile's device (where global reductions land)."""
+        return self.devices[0][0]
+
+    @property
+    def row_stride(self) -> int:
+        """Elements per tile row: the codec width padded to 16 bytes."""
+        item = torch.empty((), dtype=self.codec.dtype).element_size()
+        return padded_width(self.codec.width * item) // item
+
+    def _new_tile(self, t: int, v: int, rows: int) -> torch.Tensor:
+        return torch.full((rows, self.row_stride), self.codec.fill,
+                          dtype=self.codec.dtype, device=self.devices[t][v])
+
+    def tile(self, t: int, v: int) -> torch.Tensor:
+        """Tile ``(t, v)``'s ``(cap_local, codec.width)`` view."""
+        return self._tiles[t][v][:, :self.codec.width]
+
+    @property
+    def representation(self) -> str:
+        """The tile codec's kind: what the engine dispatches on."""
+        return self.codec.kind
+
+    @property
+    def capacity(self) -> int:
+        """Global row capacity (``D * cap_local``)."""
+        return self.D * self.cap_local
+
+    @property
+    def count(self) -> int:
+        """Total stored RRR sets across all shards."""
+        return int(self._counts_host.sum())
+
+    @property
+    def counts(self) -> np.ndarray:
+        """Per-shard valid row counts ``(D,)`` (a host copy)."""
+        return self._counts_host.copy()
+
+    @property
+    def arena_bytes(self) -> int:
+        """Device bytes of every tile, row padding included."""
+        return sum(self.tile_bytes())
+
+    def tile_bytes(self) -> list:
+        """Bytes of each tile, in ``(t, v)`` row-major order."""
+        return [x.numel() * x.element_size()
+                for row in self._tiles for x in row]
+
+    @property
+    def batch_placement(self) -> BatchPlacement:
+        """The placement a sampler samples its batches under, so each
+        theta shard's rows are born on the shard's device."""
+        return BatchPlacement(tuple(self._home(t) for t in range(self.D)))
+
+    @property
+    def sizes(self) -> torch.Tensor:
+        """``(capacity,) int32`` set sizes in global slot order, gathered
+        on the first tile's device (host and reporting use)."""
+        return mesh_ops.all_gather(self._sizes, self.device).reshape(-1)
+
+    @property
+    def counter(self) -> torch.Tensor:
+        """Global fused counter ``(n,) int32`` in global vertex order: the
+        partials reduced over the theta axis, pad columns stripped."""
+        return torch.cat([
+            mesh_ops.psum([self._counter[t][v] for t in range(self.D)],
+                          self.device)[:self.col_width[v]]
+            for v in range(self.Dv)])
+
+    # ---------------------------------------------------------- writing ----
+
+    def _grow_rows(self, incoming: int):
+        need = int(self._counts_host.max(initial=0)) + int(incoming)
+        new_cap = next_pow2(need, self.cap_local)
+        if new_cap == self.cap_local:
+            return
+        pad = new_cap - self.cap_local
+        for t in range(self.D):
+            for v in range(self.Dv):
+                tile = self._new_tile(t, v, new_cap)
+                tile[:self.cap_local] = self._tiles[t][v]
+                self._tiles[t][v] = tile
+            self._sizes[t] = torch.cat([self._sizes[t], torch.zeros(
+                pad, dtype=torch.int32, device=self._home(t))])
+            for v in range(self.Dv if self._tile_sizes else 0):
+                self._tile_sizes[t][v] = torch.cat([
+                    self._tile_sizes[t][v], torch.zeros(
+                        pad, dtype=torch.int32, device=self.devices[t][v])])
+        self.cap_local = new_cap
+
+    def _row_blocks(self, visited) -> list:
+        """One row block per theta shard: a placed batch (a sequence of
+        ``D`` blocks) as it is, a ``(B, n)`` batch cut by
+        `batch_placement`."""
+        if isinstance(visited, (list, tuple)):
+            blocks = [torch.as_tensor(b) for b in visited]
+            if len(blocks) != self.D:
+                raise ValueError(f"a placed batch has {len(blocks)} row "
+                                 f"blocks; this store has {self.D} shards")
+            got = [int(b.shape[0]) for b in blocks]
+            want = [hi - lo for _, lo, hi in
+                    self.batch_placement.blocks(sum(got))]
+            if got != want:
+                raise ValueError(f"placed blocks of {got} rows; a batch of "
+                                 f"{sum(got)} splits as {want}")
+            return blocks
+        visited = torch.as_tensor(visited)
+        return [visited[lo:hi] for _, lo, hi in
+                self.batch_placement.blocks(int(visited.shape[0]))]
+
+    def _tile_cols(self, block, t: int, v: int) -> torch.Tensor:
+        """Tile ``(t, v)``'s columns of a row block, on its device: one
+        contiguous run in either layout (blocks are ascending)."""
+        lo = self.col_lo[v]
+        return block[:, lo:lo + self.col_width[v]].to(self.devices[t][v])
+
+    def _tile_bits(self, block, t: int, v: int) -> torch.Tensor:
+        """A row block's ``(k, n_local)`` uint8 bits for tile ``(t, v)``,
+        pad columns zero (what a token tile encodes)."""
+        cols = self._tile_cols(block, t, v)
+        bits = torch.zeros((cols.shape[0], self.n_local), dtype=torch.uint8,
+                           device=cols.device)
+        bits[:, :cols.shape[1]] = cols
+        return bits
+
+    def _widen_tokens(self, blocks) -> None:
+        """Grow the token tiles' ``s_pad`` (a power of two) to hold the
+        most tokens any row of ``blocks`` needs in any vertex tile; the
+        wider tiles keep every row (new columns are sentinel)."""
+        from repro_torch.core.pack.codec import (
+            MIN_TOKEN_PAD, TokenCodec, tokens_needed)
+        need = 0
+        for t, block in enumerate(blocks):
+            for v in range(self.Dv if block.shape[0] else 0):
+                need = max(need, int(tokens_needed(
+                    self._tile_bits(block, t, v)).max()))
+        s_new = next_pow2(max(need, MIN_TOKEN_PAD), self.codec.s_pad)
+        if s_new == self.codec.s_pad:
+            return
+        old = [[self.tile(t, v) for v in range(self.Dv)]
+               for t in range(self.D)]
+        self.codec = TokenCodec(self.n_local, s_new)
+        for t in range(self.D):
+            for v in range(self.Dv):
+                self._tiles[t][v] = self._new_tile(t, v, self.cap_local)
+                self._tiles[t][v][:, :old[t][v].shape[1]] = old[t][v]
+        self._idx_cache = None
+        self.version += 1
+
+    def _write_tile(self, t: int, v: int, lo: int, block, sizes) -> None:
+        """Write tile ``(t, v)``'s columns of a row block at local row
+        ``lo``: the block's column sums into the tile's counter partial,
+        its row sums into ``sizes``."""
+        kind = self.codec.kind
+        counter = self._counter[t][v]
+        if kind in kops.COMMIT_KINDS:
+            cols = self._tile_cols(block, t, v)
+            k, w = cols.shape
+            width = w if kind == "bitmap" else -(-w // 8)
+            out = self._tiles[t][v][lo:lo + k, :width]
+            kops.arena_commit(kops.commit_rows(cols), out, counter[:w],
+                              kind=kind, sizes=sizes)
+        else:
+            bits = self._tile_bits(block, t, v)
+            k = bits.shape[0]
+            self._tiles[t][v][lo:lo + k, :self.codec.width] = \
+                self.codec.encode(bits)
+            counter += bits.sum(dim=0, dtype=torch.int32)
+            sizes.copy_(bits.sum(dim=1, dtype=torch.int32))
+
+    def add_batch(self, visited, counter=None) -> np.ndarray:
+        """Append ``visited (B, n)`` 0/1 rows (or a placed batch: one row
+        block per theta shard), block-split across the tiles.  ``counter``
+        is not needed: each tile counts its own block.  Returns the
+        global slot of each batch row."""
+        del counter
+        with obs.span("store.write", tier="store", kind="sharded"):
+            blocks = self._row_blocks(visited)
+            B = sum(int(b.shape[0]) for b in blocks)
+            if B == 0:
+                return np.zeros((0,), np.int64)
+            if self.codec.kind == "compressed":
+                self._widen_tokens(blocks)
+            b = -(-B // self.D)
+            self._grow_rows(b)
+            slots = np.empty((B,), np.int64)
+            for t, block in enumerate(blocks):
+                k = int(block.shape[0])
+                if k == 0:
+                    continue
+                c = int(self._counts_host[t])
+                slots[t * b:t * b + k] = t * self.cap_local + c + np.arange(k)
+                home = self._sizes[t][c:c + k]
+                if self.Dv == 1:
+                    self._write_tile(t, 0, c, block, home)
+                else:
+                    parts = [self._tile_sizes[t][v][c:c + k]
+                             for v in range(self.Dv)]
+                    for v, part in enumerate(parts):
+                        self._write_tile(t, v, c, block, part)
+                    home.copy_(mesh_ops.psum(parts, home.device))
+                self._counts_host[t] += k
+            self._note_write(B)
+        return slots
+
+    def _note_write(self, B: int) -> None:
+        self.version += 1
+        if obs.enabled():
+            obs.counter("store.rows_written").add(int(B))
+            obs.gauge("store.occupancy").set(self.count / self.capacity)
+            obs.gauge("store.arena_bytes").set(self.arena_bytes)
+            obs.gauge("store.bytes_per_device").set(max(self.tile_bytes()))
+
+    # ----------------------------------------------------- row lifecycle ----
+
+    def kill_rows(self, dead) -> int:
+        raise NotImplementedError(f"kill_rows on a sharded store: {A8B}")
+
+    def replace_rows(self, idx, rows) -> None:
+        raise NotImplementedError(f"replace_rows on a sharded store: {A8B}")
+
+    def compact(self):
+        raise NotImplementedError(f"compact on a sharded store: {A8B}")
+
+    def drain_remaps(self) -> list:
+        raise NotImplementedError(f"slot remaps of a sharded store: {A8B}")
+
+    def _compress_step(self) -> bool:
+        raise NotImplementedError(
+            f"the codec ladder on a sharded store: {A8B}")
+
+    # ---------------------------------------------------------- reading ----
+
+    def valid_mask(self) -> tuple:
+        """One ``(cap_local,) bool`` mask of the filled rows per theta
+        shard, on the shard's device (every row lives until the meshed
+        row lifecycle, A8b)."""
+        return tuple(
+            torch.arange(self.cap_local, device=self._home(t))
+            < int(self._counts_host[t]) for t in range(self.D))
+
+    def view(self) -> StoreView:
+        """The tiles in place: ``R`` is the ``[Dt][Dv]`` grid of tile
+        views, ``valid`` one row mask per theta shard."""
+        grid = tuple(tuple(self.tile(t, v) for v in range(self.Dv))
+                     for t in range(self.D))
+        return StoreView(self.representation, grid, self.valid_mask(),
+                         self.n, self.count)
+
+    def _member_parts(self, t: int, verts) -> list:
+        """Per vertex tile of theta shard ``t``: ``(cap_local, L) bool``
+        membership of the global vertices ``verts (L,)`` that fall in
+        the tile's block (False for the others)."""
+        parts = []
+        for v in range(self.Dv):
+            lidx = verts.to(self.devices[t][v]) - self.col_lo[v]
+            ok = (lidx >= 0) & (lidx < self.col_width[v])
+            memb = self.codec.decode_cols(
+                self.tile(t, v), lidx.clamp(0, self.n_local - 1))
+            parts.append(memb & ok[None, :])
+        return parts
+
+    def hits(self, S) -> torch.Tensor:
+        """Covered fraction per query: ``S (Q, L) int`` -> ``(Q,) f32``.
+        Each tile tests the queried vertices inside its own block against
+        its own rows; hit bits or over the vertex axis, counts sum over
+        the theta axis."""
+        with obs.span("count", tier="store", kind="sharded"):
+            S = torch.as_tensor(np.asarray(S, np.int64))
+            Q, L = S.shape
+            valid = self.valid_mask()
+            counts, n_valid = [], []
+            for t in range(self.D):
+                parts = [m.view(-1, Q, L).any(dim=2)
+                         for m in self._member_parts(t, S.reshape(-1))]
+                hit = mesh_ops.psum_or(parts, self._home(t)) \
+                    & valid[t][:, None]
+                counts.append(hit.sum(dim=0, dtype=torch.int32))
+                n_valid.append(valid[t].sum(dtype=torch.int32))
+            hits = mesh_ops.psum(counts, self.device).to(torch.float32)
+            nv = mesh_ops.psum(n_valid, self.device).to(torch.float32)
+            return hits / nv.clamp_min(1.0)
+
+    def rows_touching_cols(self, verts, vmask) -> torch.Tensor:
+        """``(capacity,) bool`` rows holding any of the masked global
+        vertices ``verts`` — the streaming reverse-touch query, tile-local
+        in both axes (hit bits or over the vertex axis)."""
+        verts = torch.as_tensor(np.asarray(verts, np.int64))
+        vmask = torch.as_tensor(np.asarray(vmask, bool))
+        out = []
+        for t in range(self.D):
+            parts = [(m & vmask.to(m.device)[None, :]).any(dim=1)
+                     for m in self._member_parts(t, verts)]
+            out.append(mesh_ops.psum_or(parts, self._home(t)))
+        return mesh_ops.all_gather(out, self.device).reshape(-1)
+
+    def coverage_stats(self) -> tuple[float, int]:
+        """(avg fractional set coverage, max set size) over stored sets."""
+        return _coverage_stats(self.sizes, self.count, self.n)
+
+    def max_local_size(self) -> int:
+        """Max per-vertex-shard set size over valid rows — the statistic
+        the per-shard C4 choice keys on — from the row sums the tiles'
+        writes counted (no pass over the arena); cached per store
+        version."""
+        if (self._localmax_cache is not None
+                and self._localmax_cache[0] == self.version):
+            return self._localmax_cache[1]
+        valid = self.valid_mask()
+        tiles = ([[s] for s in self._sizes] if self._tile_sizes is None
+                 else self._tile_sizes)
+        sizes = [(sz * valid[t].to(sz.device)).max()
+                 for t, row in enumerate(tiles) for sz in row]
+        best = int(mesh_ops.all_gather(sizes, self.device).max())
+        self._localmax_cache = (self.version, best)
+        return best
+
+    def index_view(self, l_pad: int) -> StoreView:
+        """C4 index view: each tile's rows as ``(cap_local, l_pad)`` lists
+        of *local* ids (sentinel ``n_local``), converted a block of rows
+        at a time on the tile's device; cached until the arena changes."""
+        key = (self.version, int(l_pad))
+        if self._idx_cache is None or self._idx_cache[0] != key:
+            self._idx_cache = None
+            step = max(1, CONVERT_BLOCK_ELEMS // max(self.n_local, 1))
+            grid = []
+            for t in range(self.D):
+                row = []
+                for v in range(self.Dv):
+                    tile = self.tile(t, v)
+                    out = torch.empty((self.cap_local, int(l_pad)),
+                                      dtype=torch.int32, device=tile.device)
+                    for lo in range(0, self.cap_local, step):
+                        bitmap_to_indices(self.codec.decode(
+                            tile[lo:lo + step]), int(l_pad),
+                            out=out[lo:lo + step])
+                    row.append(out)
+                grid.append(tuple(row))
+            self._idx_cache = (key, tuple(grid))
+        return StoreView("indices", self._idx_cache[1], self.valid_mask(),
+                         self.n, self.count)
+
+    # ------------------------------------------------------ checkpointing ----
+
+    def state(self) -> dict:
+        """Host snapshot (kind ``"sharded"``, the reference's format): the
+        valid rows of every shard compacted in shard order, decoded per
+        tile and put back in global vertex order, so any layout restores
+        it; ``rep`` names the tile codec."""
+        rows, sizes = [], []
+        for t in range(self.D):
+            c = int(self._counts_host[t])
+            if c == 0:
+                continue
+            rows.append(np.concatenate(
+                [self.codec.decode_np(self.tile(t, v)[:c].cpu().numpy())
+                 [:, :self.col_width[v]] for v in range(self.Dv)], axis=1))
+            sizes.append(self._sizes[t][:c].cpu().numpy())
+        return {
+            "kind": np.asarray("sharded"),
+            "rep": np.asarray(self.codec.kind),
+            "n": np.int64(self.n),
+            "count": np.int64(self.count),
+            "R": (np.concatenate(rows).astype(np.uint8, copy=False) if rows
+                  else np.zeros((0, self.n), np.uint8)),
+            "sizes": (np.concatenate(sizes) if sizes
+                      else np.zeros((0,), np.int32)),
+            "counter": self.counter.cpu().numpy(),
+        }
+
+    @classmethod
+    def from_state(cls, st, *, mesh, theta_axes=("data",),
+                   vertex_axis=None, partition=None,
+                   codec: str = "bitmap") -> "ShardedStore":
+        """Rebuild on ``mesh`` from any row snapshot (sharded, bitmap,
+        packed, compressed): the live rows are fed ``RESTORE_CHUNK`` at a
+        time, spread block-evenly over the tiles and encoded by
+        ``codec``; counter and sizes are recounted (equal to the saved
+        ones).  ``_restore_slots`` records the slot of each row."""
+        n, rows = _live_rows_from_state(st)
+        store = cls(n, mesh=mesh, theta_axes=theta_axes,
+                    vertex_axis=vertex_axis, capacity=max(len(rows), 1),
+                    partition=partition, codec=codec)
+        chunk = max(cls.RESTORE_CHUNK // store.D, 1) * store.D
+        slots = [store.add_batch(torch.from_numpy(
+                     np.ascontiguousarray(rows[lo:lo + chunk], np.uint8)))
+                 for lo in range(0, len(rows), chunk)]
+        store._restore_slots = (np.concatenate(slots) if slots
+                                else np.zeros((0,), np.int64))
+        return store
+
+
 _KINDS = ("bitmap", "packed", "compressed", "indices")
 _ROW_KINDS = ("bitmap", "packed", "compressed")
 
@@ -739,26 +1283,32 @@ def _store_class(kind: str):
         from repro_torch.core.pack import stores  # noqa: F401 (registers)
     if kind in STORE_KINDS:
         return STORE_KINDS[kind]
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"store {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
     raise ValueError(f"unknown store kind {kind!r}; have "
-                     f"{sorted(_KINDS + tuple(_NOT_PORTED))}")
+                     f"{sorted(_KINDS + ('sharded',))}")
 
 
 def make_store(kind: str, n: int, *, device=None, **kw):
     """Store factory: ``"auto"``/``"bitmap"`` give a `BitmapStore`,
     ``"indices"`` an `IndexStore`, ``"packed"`` a `PackedBitmapStore`,
-    ``"compressed"`` a `CompressedStore`; ``policy=`` (a
-    `StorePressurePolicy`) and the constructors' other keywords pass
-    through."""
+    ``"compressed"`` a `CompressedStore`, ``"sharded"`` a `ShardedStore`
+    (``mesh=`` required; ``theta_axes=``, ``vertex_axis=``,
+    ``partition=`` and the tile ``codec=``; its devices are the mesh's);
+    ``policy=`` (a `StorePressurePolicy`) and the constructors' other
+    keywords pass through."""
+    if kind == "sharded":
+        if device is not None:
+            raise ValueError("a sharded store's devices are its mesh's; "
+                             "build the mesh on the device instead")
+        return ShardedStore(n, **kw)
     return _store_class(kind)(n, device=device, **kw)
 
 
 def _live_rows_from_state(st) -> tuple[int, np.ndarray]:
-    """Decode a bitmap, packed or compressed snapshot to its live bit
-    rows: ``(n, (live rows, n) uint8)`` — the cross-representation
-    interchange form that any store's ``from_rows`` re-encodes."""
+    """Decode a bitmap, packed, compressed or sharded snapshot to its
+    live bit rows: ``(n, (live rows, n) uint8)`` — the
+    cross-representation interchange form that any store's
+    ``from_rows`` re-encodes (a sharded snapshot's rows are that form
+    already)."""
     from repro_torch.core.pack.codec import token_decode_np, unpack_bits_np
     kind = str(np.asarray(st["kind"]))
     n, count = int(st["n"]), int(st["count"])
@@ -774,23 +1324,40 @@ def _live_rows_from_state(st) -> tuple[int, np.ndarray]:
     return n, rows
 
 
-def store_from_state(st, *, device=None, kind: str = None):
+def store_from_state(st, *, device=None, kind: str = None, mesh=None,
+                     theta_axes=("data",), vertex_axis=None,
+                     partition=None):
     """Rebuild a store from a `state()` tree.  ``kind`` picks the target
-    representation (None keeps the snapshot's own): the same kind
-    restores the arena in place, another kind re-encodes the snapshot's
-    live rows (`from_rows`), so bitmap, packed and compressed snapshots
+    representation (None keeps the snapshot's own; a ``"sharded"``
+    snapshot's own is its ``rep`` tag): the same kind restores the arena
+    in place, another kind re-encodes the snapshot's live rows
+    (`from_rows`), so bitmap, packed, compressed and sharded snapshots
     each restore into any of the three; an index snapshot restores only
     as an `IndexStore`, and only an index snapshot does (lists are not
-    re-encoded, as in the reference)."""
+    re-encoded, as in the reference).  With ``mesh`` the result is a
+    `ShardedStore` whose tiles use the target codec (any layout restores
+    any snapshot but an index one)."""
     snap_kind = str(np.asarray(st["kind"]))
-    target = snap_kind if kind is None else kind
+    default = snap_kind
+    if snap_kind == "sharded":
+        default = str(np.asarray(st["rep"])) if "rep" in st else "bitmap"
+    target = default if kind is None else kind
     for k in (snap_kind, target):
-        if k not in _KINDS:
-            if k in _NOT_PORTED:
-                raise NotImplementedError(
-                    f"restoring a {snap_kind!r} snapshot as {target!r} "
-                    f"needs {_NOT_PORTED[k]}")
+        if k not in _KINDS + ("sharded",):
             raise ValueError(f"unknown store kind {k!r}")
+    if mesh is not None:
+        if "indices" in (snap_kind, target):
+            raise ValueError(
+                f"cannot restore a {snap_kind!r} snapshot as {target!r} on "
+                f"a mesh: a meshed arena is {_ROW_KINDS} tiles (its index "
+                f"lists are a derived index_view)")
+        return ShardedStore.from_state(
+            st, mesh=mesh, theta_axes=theta_axes, vertex_axis=vertex_axis,
+            partition=partition,
+            codec=target if target in _ROW_KINDS else "bitmap")
+    if target == "sharded":
+        raise ValueError(
+            "target representation 'sharded' needs a mesh= argument")
     if "indices" in (snap_kind, target) and snap_kind != target:
         raise ValueError(
             f"cannot restore a {snap_kind!r} snapshot as {target!r}: "

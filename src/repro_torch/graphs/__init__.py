@@ -3,6 +3,14 @@ from repro_torch.graphs.generators import (
     erdos_graph, path_graph, rmat_graph, star_graph,
 )
 from repro_torch.graphs.datasets import SNAP_STATS, synthetic_snap, scaled_snap
+from repro_torch.graphs.partition import (
+    VertexPartition,
+    balance_report,
+    balanced_vertex_partition,
+    partition_edges_by_dst,
+    resolve_partition,
+    vertex_partition,
+)
 
 __all__ = [
     "Graph",
@@ -14,4 +22,10 @@ __all__ = [
     "SNAP_STATS",
     "synthetic_snap",
     "scaled_snap",
+    "VertexPartition",
+    "balance_report",
+    "balanced_vertex_partition",
+    "partition_edges_by_dst",
+    "resolve_partition",
+    "vertex_partition",
 ]

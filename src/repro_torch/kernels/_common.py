@@ -1,14 +1,20 @@
 """Shared plumbing of the kernel wrappers: device dispatch, launch
-counts, stream and row-view checks.
+counts, the launch device and stream, and row-view checks.
 
 A wrapper takes its plain PyTorch version only for CPU tensors; for CUDA
 tensors it launches its kernel or raises — there is no fallback.  Every
 dispatch records ``kernels.dispatch{kernel, impl=cuda|reference}`` on the
 obs registry, and every launch adds one to ``LAUNCHES[kernel]``, so a run
 can show that its main path went through the kernels.
+
+A kernel launches on its operands' card and on that card's current
+stream (`on_device`), whichever card is current: a tile of a mesh on a
+second card, or an engine on ``cuda:1``, runs there.  Operands on two
+devices raise.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 
@@ -37,18 +43,28 @@ def padded_width(n: int) -> int:
 
 def impl_for(kernel: str, *tensors: torch.Tensor) -> str:
     """``"reference"`` when every operand lies on the CPU, ``"cuda"`` when
-    every operand lies on a CUDA device; anything else raises."""
+    every operand lies on one CUDA device; anything else raises."""
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         impl = "reference"
     elif kinds == {"cuda"}:
         impl = "cuda"
+        _one_device(kernel, tensors)
     else:
         raise ValueError(
             f"{kernel}: operands on {sorted(kinds)}; the CUDA kernel takes "
             f"CUDA tensors, the plain version CPU tensors")
     obs.counter("kernels.dispatch", kernel=kernel, impl=impl).add(1)
     return impl
+
+
+def _one_device(kernel: str, tensors) -> torch.device:
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(
+            f"{kernel}: operands on {sorted(str(d) for d in devices)}; a "
+            f"launch takes its operands on one device")
+    return devices.pop()
 
 
 def launched(kernel: str, err: int, design: str | None = None) -> None:
@@ -74,8 +90,14 @@ def reset_launches() -> None:
             LAUNCHES[k] = 0
 
 
-def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+@contextlib.contextmanager
+def on_device(kernel: str, *tensors):
+    """Make the operands' card current for a launch and yield the handle
+    of its current stream; operands (None skipped) on two devices
+    raise."""
+    dev = _one_device(kernel, tensors)
+    with torch.cuda.device(dev):
+        yield torch.cuda.current_stream(dev).cuda_stream
 
 
 def bind(lib, fn: str, argtypes) -> ctypes._CFuncPtr:

@@ -13,7 +13,9 @@ Bound on an H100: operations — about `OPS_PER_COIN` 32-bit ALU
 operations per element against one byte written (and ``4m`` bytes of
 probabilities read).  Design: one thread per element computes its
 threefry counter ``b*m + e`` in registers and stores only the bool
-(``csrc/coins.cu``).
+(``csrc/coins.cu``).  Both kernels take a first row (a flat start for
+the draw), so a theta shard of a mesh batch draws just its row block,
+bitwise those rows of the whole batch's draw.
 
 ``uniform_draw`` is ``prng.uniform(key, shape)`` itself, the float32
 draw the dense and pallas backends test each vertex against (the
@@ -53,34 +55,43 @@ def ic_sparse_hits_plain(key, edge_prob, batch: int, rows=None):
     return out
 
 
-def ic_sparse_hits_cuda(key, edge_prob, batch: int):
+def ic_sparse_hits_cuda(key, edge_prob, batch: int, rows=None):
+    """The kernel's ``(batch, m)`` coin block, or with ``rows=(start,
+    stop)`` just those rows (counters from ``start * m``)."""
     if edge_prob.dtype != torch.float32 or not edge_prob.is_contiguous():
         raise TypeError(f"{KERNEL}: edge_prob must be contiguous float32")
-    if not 0 < batch <= 65535:
-        raise ValueError(f"{KERNEL}: batch {batch} outside 1..65535")
+    start, stop = (0, batch) if rows is None else (int(r) for r in rows)
+    if not 0 <= start < stop <= batch or stop - start > 65535:
+        raise ValueError(f"{KERNEL}: rows [{start}, {stop}) of a batch of "
+                         f"{batch} (at most 65,535 a launch)")
     m = edge_prob.shape[0]
-    out = torch.empty((batch, m), dtype=torch.bool, device=edge_prob.device)
+    out = torch.empty((stop - start, m), dtype=torch.bool,
+                      device=edge_prob.device)
     if m == 0:
         return out
     k0, k1 = (int(v) for v in prng.as_key(key))
     fn = C.bind(build.library("coins"), "repro_ic_sparse_hits",
-                (C.U32, C.U32, C.VOIDP, C.VOIDP, C.I64, C.I32, C.VOIDP))
-    err = fn(k0, k1, edge_prob.data_ptr(), out.data_ptr(), m, batch,
-             C.stream())
+                (C.U32, C.U32, C.VOIDP, C.VOIDP, C.I64, C.I32, C.I64,
+                 C.VOIDP))
+    with C.on_device(KERNEL, edge_prob, out) as stream:
+        err = fn(k0, k1, edge_prob.data_ptr(), out.data_ptr(), m,
+                 stop - start, start, stream)
     C.launched(KERNEL, err)
     return out
 
 
-def uniform_cuda(key, out: torch.Tensor) -> torch.Tensor:
-    """Fill a contiguous float32 CUDA tensor with ``prng.uniform(key,
-    out.shape)``."""
+def uniform_cuda(key, out: torch.Tensor, start: int = 0) -> torch.Tensor:
+    """Fill a contiguous float32 CUDA tensor with the flat elements
+    ``[start, start + out.numel())`` of a ``prng.uniform(key, ...)``
+    draw."""
     if out.dtype != torch.float32 or not out.is_contiguous():
         raise TypeError(f"{KERNEL_UNIFORM}: out must be contiguous float32")
     if out.numel() == 0:
         return out
     k0, k1 = (int(v) for v in prng.as_key(key))
     fn = C.bind(build.library("coins"), "repro_uniform",
-                (C.U32, C.U32, C.VOIDP, C.I64, C.VOIDP))
-    C.launched(KERNEL_UNIFORM, fn(k0, k1, out.data_ptr(), out.numel(),
-                                  C.stream()))
+                (C.U32, C.U32, C.VOIDP, C.I64, C.I64, C.VOIDP))
+    with C.on_device(KERNEL_UNIFORM, out) as stream:
+        err = fn(k0, k1, out.data_ptr(), out.numel(), int(start), stream)
+    C.launched(KERNEL_UNIFORM, err)
     return out

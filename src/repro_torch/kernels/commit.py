@@ -77,8 +77,9 @@ def _launch(kernel: str, symbol: str, rows, out, counter, sizes,
     fn = C.bind(build.library("commit"), symbol,
                 (C.VOIDP, C.I64, C.VOIDP, C.I64, C.VOIDP, C.VOIDP, C.I32,
                  C.I32, C.VOIDP))
-    err = fn(p_in, ld_in, p_out, ld_out, counter.data_ptr(),
-             None if sizes is None else sizes.data_ptr(), B, n, C.stream())
+    with C.on_device(kernel, rows, out, counter, sizes) as stream:
+        err = fn(p_in, ld_in, p_out, ld_out, counter.data_ptr(),
+                 None if sizes is None else sizes.data_ptr(), B, n, stream)
     C.launched(kernel, err)
 
 

@@ -55,6 +55,7 @@ def coverage_matvec_cuda(alive, R) -> torch.Tensor:
     ptr, ld = C.row_view(R, f"{KERNEL} R")
     fn = C.bind(build.library("coverage_matvec"), "repro_coverage_matvec",
                 (C.VOIDP, C.I64, C.VOIDP, C.I32, C.I32, C.VOIDP, C.VOIDP))
-    err = fn(ptr, ld, mask.data_ptr(), theta, n, out.data_ptr(), C.stream())
+    with C.on_device(KERNEL, R, mask, out) as stream:
+        err = fn(ptr, ld, mask.data_ptr(), theta, n, out.data_ptr(), stream)
     C.launched(KERNEL, err)
     return out

@@ -190,8 +190,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     fn = C.bind(build.library(source), f"repro_{source}",
                 (C.VOIDP, C.VOIDP, C.VOIDP, C.VOIDP) + (C.I32,) * 8
                 + (ctypes.c_float, C.VOIDP))
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             B, Hq, Hkv, Sq, Skv, D, int(bool(causal)),
-             max(int(window), 0), 1.0 / math.sqrt(D), C.stream())
+    with C.on_device(KERNEL, q, k, v, out) as stream:
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, Hq, Hkv, Sq, Skv, D, int(bool(causal)),
+                 max(int(window), 0), 1.0 / math.sqrt(D), stream)
     C.launched(KERNEL, err, impl)
     return out

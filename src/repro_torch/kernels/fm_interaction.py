@@ -121,8 +121,9 @@ def fm_interaction_cuda(v) -> torch.Tensor:
         return out.zero_()
     fn = C.bind(build.library("fm_interaction"), "repro_fm_interaction",
                 (C.VOIDP, C.I32, C.VOIDP, C.I32, C.I32, C.I32, C.VOIDP))
-    err = fn(v.data_ptr(), _DTYPES[v.dtype], out.data_ptr(), B, F, K,
-             C.stream())
+    with C.on_device(KERNEL, v, out) as stream:
+        err = fn(v.data_ptr(), _DTYPES[v.dtype], out.data_ptr(), B, F, K,
+                 stream)
     C.launched(KERNEL, err)
     return out
 
@@ -228,8 +229,9 @@ def fm_gather_interaction_cuda(idx, vocab_per_field: int, v, w,
                 "repro_fm_gather_interaction",
                 (C.VOIDP, C.I32, C.VOIDP, C.VOIDP, C.VOIDP, C.I32, C.VOIDP,
                  C.I64, C.I32, C.I32, C.I64, C.I64, C.VOIDP))
-    err = fn(idx.data_ptr(), _IDX_DTYPES[idx.dtype], v.data_ptr(),
-             w.data_ptr(), b.data_ptr(), _DTYPES[v.dtype], out.data_ptr(), B,
-             F, K, int(vocab_per_field), n, C.stream())
+    with C.on_device(KERNEL_GATHER, idx, v, w, b, out) as stream:
+        err = fn(idx.data_ptr(), _IDX_DTYPES[idx.dtype], v.data_ptr(),
+                 w.data_ptr(), b.data_ptr(), _DTYPES[v.dtype],
+                 out.data_ptr(), B, F, K, int(vocab_per_field), n, stream)
     C.launched(KERNEL_GATHER, err)
     return out

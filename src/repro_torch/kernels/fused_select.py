@@ -45,8 +45,9 @@ def fused_select_cuda(alive, R):
     fn = C.bind(build.library("fused_select"), "repro_fused_select",
                 (C.VOIDP, C.I64, C.VOIDP, C.I32, C.I32, C.VOIDP, C.VOIDP,
                  C.VOIDP, C.VOIDP, C.VOIDP))
-    err = fn(ptr, ld, mask.data_ptr(), theta, n, scratch[0].data_ptr(),
-             scratch[1].data_ptr(), best.data_ptr(), idx.data_ptr(),
-             C.stream())
+    with C.on_device(KERNEL, R, mask, idx) as stream:
+        err = fn(ptr, ld, mask.data_ptr(), theta, n, scratch[0].data_ptr(),
+                 scratch[1].data_ptr(), best.data_ptr(), idx.data_ptr(),
+                 stream)
     C.launched(KERNEL, err)
     return best, idx

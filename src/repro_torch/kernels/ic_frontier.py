@@ -278,9 +278,11 @@ def ic_frontier_step_cuda(frontier, visited, logq, rand,
     ldw = -(-n // 4) * 4
     words = torch.empty((tiles, ldw), dtype=torch.int32,
                         device=frontier.device)
-    err = _step_entry()(f_ptr, ld_f, v_ptr, ld_v, cols.col_ptr.data_ptr(),
-                        cols.rows.data_ptr(), cols.vals.data_ptr(), r_ptr,
-                        ld_r, out.data_ptr(), out.stride(0),
-                        words.data_ptr(), ldw, B, n, C.stream())
+    with C.on_device(KERNEL, frontier, visited, rand, cols.vals,
+                     out) as stream:
+        err = _step_entry()(f_ptr, ld_f, v_ptr, ld_v, cols.col_ptr.data_ptr(),
+                            cols.rows.data_ptr(), cols.vals.data_ptr(), r_ptr,
+                            ld_r, out.data_ptr(), out.stride(0),
+                            words.data_ptr(), ldw, B, n, stream)
     C.launched(KERNEL, err)
     return out

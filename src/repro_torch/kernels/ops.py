@@ -9,6 +9,8 @@ executions), and each launch counts in `launch_counts`.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch import prng
@@ -98,20 +100,28 @@ def token_count(tokens, alive, *, n: int):
     return _pc.token_count_plain(tokens, alive, n)
 
 
-def uniform(key, shape, *, device) -> torch.Tensor:
+def uniform(key, shape, *, device, start: int = 0,
+            count: int = None) -> torch.Tensor:
     """``prng.uniform(key, shape)`` on ``device``: the ``uniform_draw``
-    kernel on a CUDA device, the plain threefry on the CPU."""
-    out = torch.empty(shape, dtype=torch.float32, device=device)
+    kernel on a CUDA device, the plain threefry on the CPU.  ``start``/
+    ``count`` give just the flat elements ``[start, start + count)`` of
+    the draw, flat, as `prng.uniform` does."""
+    total = math.prod(shape)
+    count = total - start if count is None else int(count)
+    out = torch.empty(shape if count == total else (count,),
+                      dtype=torch.float32, device=device)
     if impl_for(coins.KERNEL_UNIFORM, out) == "cuda":
-        return coins.uniform_cuda(key, out)
-    return prng.uniform(key, shape, device=out.device)
+        return coins.uniform_cuda(key, out, start)
+    return prng.uniform(key, shape, device=out.device, start=start,
+                        count=count)
 
 
-def ic_sparse_hits(key, edge_prob, batch: int):
-    """``(batch, m) bool``: ``uniform(key, (batch, m)) < edge_prob``."""
+def ic_sparse_hits(key, edge_prob, batch: int, rows=None):
+    """``(batch, m) bool``: ``uniform(key, (batch, m)) < edge_prob``;
+    ``rows=(start, stop)`` gives just that row block."""
     if impl_for(coins.KERNEL, edge_prob) == "cuda":
-        return coins.ic_sparse_hits_cuda(key, edge_prob, batch)
-    return coins.ic_sparse_hits_plain(key, edge_prob, batch)
+        return coins.ic_sparse_hits_cuda(key, edge_prob, batch, rows)
+    return coins.ic_sparse_hits_plain(key, edge_prob, batch, rows)
 
 
 def ic_frontier_step(frontier, visited, logq, rand, *, cols=None):

@@ -146,7 +146,8 @@ def packed_count_cuda(packed, alive, n: int) -> torch.Tensor:
     ptr, ld = C.row_view(packed, f"{KERNEL_PACKED} packed")
     fn = C.bind(build.library("packed_count"), "repro_packed_count",
                 (C.VOIDP, C.I64, C.VOIDP, C.I32, C.I32, C.VOIDP, C.VOIDP))
-    err = fn(ptr, ld, mask.data_ptr(), theta, n, out.data_ptr(), C.stream())
+    with C.on_device(KERNEL_PACKED, packed, mask, out) as stream:
+        err = fn(ptr, ld, mask.data_ptr(), theta, n, out.data_ptr(), stream)
     C.launched(KERNEL_PACKED, err)
     return out
 
@@ -169,7 +170,8 @@ def token_count_cuda(tokens, alive, n: int) -> torch.Tensor:
     fn = C.bind(build.library("token_count"), "repro_token_count",
                 (C.VOIDP, C.I64, C.VOIDP, C.I32, C.I32, C.I32, C.VOIDP,
                  C.VOIDP, C.VOIDP))
-    err = fn(tokens.data_ptr(), ld, mask.data_ptr(), theta, s_pad, n,
-             out.data_ptr(), run_total.data_ptr(), C.stream())
+    with C.on_device(KERNEL_TOKEN, tokens, mask, out) as stream:
+        err = fn(tokens.data_ptr(), ld, mask.data_ptr(), theta, s_pad, n,
+                 out.data_ptr(), run_total.data_ptr(), stream)
     C.launched(KERNEL_TOKEN, err)
     return out

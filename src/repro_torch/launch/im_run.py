@@ -15,9 +15,11 @@ reference's checkpoint format: either package resumes the other's).
 ``--model IC|WC|GT|LT``, ``--backend dense|sparse|pallas|walk`` and
 ``--sampler`` (e.g. ``"IC/pallas+stable"``, ``"LT/walk"``) pick the
 sampler; graphs with n <= 4096 take the dense backend by default and LT
-the walk, as in the reference.  Flags of features not ported yet
-(``--mesh``, ``--store sharded``) raise `NotImplementedError` naming
-their ROADMAP item.
+the walk, as in the reference.  ``--mesh`` takes an int or ``auto`` (1D
+theta sharding) or ``RxC`` (theta x vertex), clipped to the devices
+there are (`repro_torch.configs.imm_snap.make_im_mesh`: the CUDA cards,
+or the host with ``--device cpu``); the JSON line gives the mesh's
+``mesh_shards`` and ``vertex_shards``.
 """
 from __future__ import annotations
 
@@ -28,7 +30,9 @@ import time
 import torch
 
 from repro_torch import obs
-from repro_torch.configs.imm_snap import IMM_EXPERIMENTS
+from repro_torch.configs.imm_snap import (
+    IMM_EXPERIMENTS, make_im_mesh, mesh_engine_kwargs,
+)
 from repro_torch.core.engine import IMMConfig, InfluenceEngine, resolve_device
 from repro_torch.graphs.datasets import scaled_snap, synthetic_snap
 
@@ -44,9 +48,6 @@ def run(graph: str, *, scale: float = None, model: str = "IC", k: int = 50,
         mesh=None, backend: str = None, sampler: str = None,
         store: str = "auto", metrics_out: str = None, trace_out: str = None,
         device: str = "cuda", log=print):
-    if mesh is not None:
-        raise NotImplementedError("--mesh: the sharded store is not ported "
-                                  "yet (ROADMAP A8)")
     dev = resolve_device(device)
     if metrics_out or trace_out:
         obs.enable()
@@ -63,7 +64,9 @@ def run(graph: str, *, scale: float = None, model: str = "IC", k: int = 50,
         selection_method="decrement" if baseline else "rebuild",
         adaptive_representation=not baseline,
     )
-    engine = InfluenceEngine(g, cfg, device=dev)
+    mesh = make_im_mesh(mesh, device=dev)
+    kw = mesh_engine_kwargs(mesh)
+    engine = InfluenceEngine(g, cfg, device=None if kw else dev, **kw)
     if snapshot_dir:
         engine.restore(snapshot_dir)       # resume if a snapshot exists
     t0 = time.time()
@@ -86,7 +89,10 @@ def run(graph: str, *, scale: float = None, model: str = "IC", k: int = 50,
         "graph": graph, "scale": scale, "n": g.n, "m": g.m, "model": model,
         "sampler": engine.sampler_name,
         "k": k, "mode": "ripples-style" if baseline else "efficientimm",
-        "mesh_shards": None, "vertex_shards": None,
+        "mesh_shards": None if mesh is None else int(
+            getattr(engine.store, "D", 1)),
+        "vertex_shards": None if mesh is None else int(
+            getattr(engine.store, "Dv", 1)),
         "influence": res.influence, "covered_frac": res.covered_frac,
         "theta": res.theta, "representation": res.representation,
         "store": engine.store.representation,
@@ -126,7 +132,10 @@ def main(argv=None):
     ap.add_argument("--store", default="auto",
                     choices=("auto", "bitmap", "indices", "packed",
                              "compressed", "sharded"))
-    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--mesh", default=None,
+                    help="RRR store mesh: an int or 'auto' (1D theta "
+                         "sharding), 'RxC' e.g. '2x4' (2D theta x vertex "
+                         "sharding), or omit for single-device")
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--trace-out", default=None)
     ap.add_argument("--device", default="cuda",

@@ -31,7 +31,7 @@ deltas replayed with the refresh worker running::
     PYTHONPATH=src python -m repro_torch.launch.serve --workload tier \
         --tenants 5 --tier-n 256 --max-theta 512 --duration 0.25
 
-``--mesh`` raises naming ROADMAP A8.
+``--mesh`` raises naming ROADMAP A8b.
 """
 from __future__ import annotations
 
@@ -492,7 +492,7 @@ def main(argv=None):
                              "compressed"),
                     help="IM arena at-rest representation")
     ap.add_argument("--mesh", default=None,
-                    help="IM store mesh: not ported yet (ROADMAP A8)")
+                    help="IM store mesh: not ported yet (ROADMAP A8b)")
     ap.add_argument("--tenants", type=int, default=4,
                     help="tier workload: campaigns to register")
     ap.add_argument("--tier-n", type=int, default=512,
@@ -523,7 +523,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mesh is not None:
         raise NotImplementedError(
-            "--mesh: the sharded store is not ported yet (ROADMAP A8)")
+            "--mesh: meshed serving is not ported yet (ROADMAP A8b)")
     if args.metrics_out or args.trace_out:
         obs.enable()
     run = {"tier": _main_tier, "im": _main_im, "lm": _main_lm}

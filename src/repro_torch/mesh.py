@@ -1,0 +1,125 @@
+"""A device mesh held by one process: the port's counterpart of
+``jax.sharding.Mesh`` and of the collectives a ``shard_map`` body uses
+(``psum``, ``all_gather``, and the psum-or of membership bits).
+
+The reference runs a single controller: one process holds the mesh, the
+store hands its tiles to ``shard_map`` and the collectives run inside one
+traced function.  Here one process holds a grid of ``torch.device``
+objects, each tile of a meshed arena is a tensor on its own device, and a
+collective is a function over the list of per-tile tensors that reduces
+them in tile order, so float32 counters (integer-valued, exact below
+2**24) come out the same on every layout.  Across distinct cards a
+collective copies tiles peer to peer (``.to(device, non_blocking=True)``,
+which PyTorch orders after the work queued on the source's stream); no
+tile waits on the host.
+
+A device may repeat in the grid — the counterpart of XLA's
+``--xla_force_host_platform_device_count``: a 2x2 mesh of ``cpu`` runs
+the full tiled code path in one process, and so does a 2x2 mesh of one
+card.  A mesh's devices share one type (all ``cpu`` or all ``cuda``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+class Mesh:
+    """A named grid of devices.  ``devices`` is a nested sequence (or an
+    object ndarray) of ``torch.device`` objects or device strings with one
+    dimension per name in ``axis_names``; ``shape[name]`` is the size of
+    that axis, as on a ``jax.sharding.Mesh``."""
+
+    def __init__(self, devices, axis_names):
+        if isinstance(axis_names, str):
+            axis_names = (axis_names,)
+        names = tuple(axis_names)
+        arr = np.array(devices, dtype=object)
+        if arr.ndim != len(names):
+            raise ValueError(f"a mesh over axes {names} needs a "
+                             f"{len(names)}-d device grid, got {arr.ndim}-d")
+        if len(set(names)) != len(names):
+            raise ValueError(f"mesh axis names repeat: {names}")
+        if arr.size == 0:
+            raise ValueError("a mesh needs at least one device")
+        flat = [_indexed(torch.device(d)) for d in arr.reshape(-1)]
+        if len({d.type for d in flat}) != 1:
+            raise ValueError(f"a mesh's devices share one type, got "
+                             f"{sorted({d.type for d in flat})}")
+        grid = np.empty(arr.shape, dtype=object)
+        grid.reshape(-1)[:] = flat
+        self.devices = grid
+        self.axis_names = names
+        self.shape = dict(zip(names, grid.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    def distinct_devices(self) -> list:
+        """The grid's devices once each, in grid order."""
+        seen = []
+        for d in self.devices.reshape(-1):
+            if d not in seen:
+                seen.append(d)
+        return seen
+
+    def tile_devices(self, theta_axes, vertex_axis=None) -> list:
+        """``[Dt][Dv]`` devices of the tiles of an arena laid out as
+        ``P(theta_axes, vertex_axis)``: theta shard ``t`` is the row-major
+        index over ``theta_axes``, vertex shard ``v`` the index along
+        ``vertex_axis`` (``Dv = 1`` without one).  Tiles are replicated
+        over any other axis; its first device holds them."""
+        theta_axes = ((theta_axes,) if isinstance(theta_axes, str)
+                      else tuple(theta_axes))
+        used = theta_axes + ((vertex_axis,) if vertex_axis else ())
+        for a in used:
+            if a not in self.shape:
+                raise ValueError(f"axis {a!r} is not in mesh axes "
+                                 f"{self.axis_names}")
+        rest = tuple(a for a in self.axis_names if a not in used)
+        order = [self.axis_names.index(a) for a in used + rest]
+        grid = self.devices.transpose(order)
+        grid = grid[(Ellipsis,) + (0,) * len(rest)] if rest else grid
+        dt = int(np.prod([self.shape[a] for a in theta_axes]))
+        dv = int(self.shape[vertex_axis]) if vertex_axis else 1
+        return grid.reshape(dt, dv).tolist()
+
+    def __repr__(self) -> str:
+        dims = ", ".join(f"{a}={n}" for a, n in self.shape.items())
+        return f"Mesh({dims}; {[str(d) for d in self.distinct_devices()]})"
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """``cuda`` as the card it names (the current one), so that a grid of
+    ``"cuda"`` and one of ``"cuda:0"`` hold the same devices; without a
+    card the name is left for `repro_torch.device.resolve_device` to
+    refuse."""
+    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+# ------------------------------------------------------------ collectives --
+
+def psum(parts, device) -> torch.Tensor:
+    """Sum of the per-tile tensors ``parts`` on ``device``, added in
+    tile order."""
+    out = parts[0].to(device, non_blocking=True)
+    for p in parts[1:]:
+        out = out + p.to(device, non_blocking=True)
+    return out
+
+
+def psum_or(parts, device) -> torch.Tensor:
+    """Logical or of the per-tile bool tensors ``parts`` on ``device``."""
+    out = parts[0].to(device, non_blocking=True)
+    for p in parts[1:]:
+        out = out | p.to(device, non_blocking=True)
+    return out
+
+
+def all_gather(parts, device) -> torch.Tensor:
+    """The per-tile tensors ``parts`` stacked in tile order on
+    ``device``."""
+    return torch.stack([p.to(device, non_blocking=True) for p in parts])

@@ -26,7 +26,7 @@ covers only host-side queue and result bookkeeping.  Tenant engines run
 on ``device`` (``cuda`` unless told otherwise), and the refresh worker
 runs on the device and CUDA stream the tier was built on: queries and
 repairs share arena buffers, and the tenant lock orders them only on
-one stream.  A mesh raises (ROADMAP A8).
+one stream.  A mesh raises (ROADMAP A8b).
 """
 from __future__ import annotations
 
@@ -69,7 +69,7 @@ class IMServe:
     round); ``cache_entries`` the result cache's LRU capacity;
     ``refresh_budget`` the rows of repair a `refresh_step`, split by the
     scheduler (None: no tier refresh); ``mesh_kwargs`` engine mesh
-    keywords (a mesh is not ported: ROADMAP A8); ``device`` where every
+    keywords (a mesh is not ported: ROADMAP A8b); ``device`` where every
     tenant engine this tier builds runs (``cuda`` unless told
     otherwise).
     """
@@ -81,7 +81,7 @@ class IMServe:
         if self.mesh_kwargs.get("mesh") is not None:
             raise NotImplementedError(
                 "IMServe on a mesh needs the sharded store, not ported "
-                "yet (ROADMAP A8)")
+                "yet (ROADMAP A8b)")
         self.device = resolve_device(device)
         self.tenants: dict[str, Tenant] = {}
         self.replica_groups: dict[str, ReplicaGroup] = {}

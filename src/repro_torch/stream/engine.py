@@ -32,7 +32,7 @@ canonicalize`) and the sampler upgraded to its delta-stable form
 (`stable_variant`).  ``snapshot``/``restore`` keep the batch keys and
 each row's (batch, position) provenance in the reference's file format.
 The stream runs on ``cuda`` unless ``device="cpu"`` is given; a mesh
-raises (ROADMAP A8).
+raises (ROADMAP A8b).
 """
 from __future__ import annotations
 
@@ -83,7 +83,7 @@ class StreamEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "streaming on a mesh needs the sharded store, not ported "
-                "yet (ROADMAP A8)")
+                "yet (ROADMAP A8b)")
         cfg = cfg if cfg is not None else IMMConfig()
         device = resolve_device(device)
         name = stable_variant(cfg.sampler

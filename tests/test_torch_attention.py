@@ -9,6 +9,8 @@ oracle 1e-5 (the same f32 arithmetic, summed in another order); f32
 against the interpreted TPU kernel 2e-3 (its online softmax, as
 ``tests/test_kernels.py`` holds it); bf16 3e-2 (the output's rounding to
 bf16, one ulp is 2**-8 relative, plus the inputs' own rounding)."""
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -197,7 +199,10 @@ def test_cuda_wrapper_picks_the_kernel_by_dtype(monkeypatch):
     its design; a refused launch raises and counts nothing; each design
     refuses the grid it cannot launch."""
     monkeypatch.setattr(build, "library", _Lib)
-    monkeypatch.setattr(C, "stream", lambda: 0)
+    # host tensors through the CUDA wrapper: no card to make current,
+    # stream handle 0
+    monkeypatch.setattr(C, "on_device",
+                        contextlib.contextmanager(lambda *a: (yield 0)))
     monkeypatch.setattr(_Lib, "calls", [])
     monkeypatch.setattr(_Lib, "err", [0])
     ops.reset_launches()

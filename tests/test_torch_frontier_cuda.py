@@ -201,10 +201,11 @@ def test_checks_and_a_refused_launch(cuda):
     # 65,537 row tiles); the wrapper raises on it and counts nothing
     cols = icf.column_form(L)
     words = torch.zeros((1, n), dtype=torch.int32, device="cuda")
-    err = icf._step_entry()(
-        F.data_ptr(), 0, V.data_ptr(), 0, cols.col_ptr.data_ptr(),
-        cols.rows.data_ptr(), cols.vals.data_ptr(), R.data_ptr(), 0,
-        F.data_ptr(), 0, words.data_ptr(), n, 32 * 65536 + 1, n, C.stream())
+    with C.on_device(icf.KERNEL, F, V, R) as stream:
+        err = icf._step_entry()(
+            F.data_ptr(), 0, V.data_ptr(), 0, cols.col_ptr.data_ptr(),
+            cols.rows.data_ptr(), cols.vals.data_ptr(), R.data_ptr(), 0,
+            F.data_ptr(), 0, words.data_ptr(), n, 32 * 65536 + 1, n, stream)
     assert err != 0
     ops.reset_launches()
     with pytest.raises(RuntimeError, match="launch failed"):

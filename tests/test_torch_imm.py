@@ -144,11 +144,15 @@ def test_unfused_write_path_matches_fused():
 
 
 def test_unported_configurations_raise():
+    from repro_torch.mesh import Mesh
     g = generators.rmat_graph(256, 1024, seed=0)
-    with pytest.raises(NotImplementedError, match="A8"):
+    # the sharded store is ported (A8): it needs a mesh, as in the
+    # reference, and a mesh takes no index-list arena
+    with pytest.raises(ValueError, match="needs a mesh"):
         InfluenceEngine(g, IMMConfig(store="sharded"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        InfluenceEngine(g, IMMConfig(), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="indices"):
+        InfluenceEngine(g, IMMConfig(store="indices"),
+                        mesh=Mesh(["cpu"], ("data",)))
     # the LT walk is ported (A4): an LT engine binds the walk
     assert InfluenceEngine(g, IMMConfig(model="LT"), device="cpu"
                            ).sampler_name == "LT/walk"

@@ -44,7 +44,8 @@ def test_no_module_imports_jax_or_repro():
                  "data.clicks", "checkpoint", "checkpoint.store",
                  "core.adaptive", "core.store", "core.selection",
                  "launch.roofline", "obs.metrics", "sparse",
-                 "sparse.segment", "sparse.scatter", "convert"):
+                 "sparse.segment", "sparse.scatter", "convert",
+                 "mesh", "graphs.partition", "configs.imm_snap"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["leaked"] == []
 
@@ -83,9 +84,23 @@ def test_entry_points_default_to_cuda():
         convert.fm_params_from_jax({"v": np.ones((4, 2), np.float32),
                                     "w": np.ones(4, np.float32),
                                     "b": np.float32(0)})
-    from repro_torch.core.store import make_store
+    from repro_torch.core.store import ShardedStore, make_store
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_store("indices", 16)
+    # the meshed solve (A8): a mesh of the card refuses without one, a
+    # mesh of the host runs there
+    from repro_torch.configs.imm_snap import make_im_mesh
+    from repro_torch.mesh import Mesh
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_im_mesh("2x2")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_store("sharded", 16, mesh=Mesh([["cuda"]], ("data", "vertex")),
+                   vertex_axis="vertex")
+    mesh = make_im_mesh("2x2", device="cpu")
+    assert isinstance(make_store("sharded", 16, mesh=mesh,
+                                 vertex_axis="vertex"), ShardedStore)
+    assert InfluenceEngine(g, mesh=mesh, vertex_axis="vertex"
+                           ).device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         InfluenceEngine(g, store=make_store("indices", g.n, device="cpu"))
     assert resolve_device("cpu").type == "cpu"

@@ -100,16 +100,26 @@ def test_default_sampler_name_matches_jax(n, backend, model, stable):
             == jsampler.default_sampler_name(g, JCfg(**kw)))
 
 
+_PLACED = {"placement": "two cpu shards"}
+
+
 @pytest.mark.parametrize("name,kw,item", [
-    ("LT/walk", {"placement": object()}, "A8"),
-    ("LT/walk+stable", {"placement": object()}, "A8"),
-    ("LT-stable", {"placement": object()}, "A8"),
-    ("IC/dense", {"placement": object()}, "A8"),
-    ("WC/sparse+stable", {"placement": object()}, "A8")])
+    ("LT/walk", _PLACED, "A8b"),
+    ("LT/walk+stable", _PLACED, "A8b"),
+    ("LT-stable", _PLACED, "A8b"),
+    ("IC/dense", _PLACED, "A8b"),
+    ("WC/sparse+stable", _PLACED, "A8b")])
 def test_unported_samplers_name_their_roadmap_item(name, kw, item):
-    """What is still unported raises when the sampler is bound: mesh
-    placement (A8), the walk's too (the walk itself is ported, A4)."""
+    """A mesh placement binds (A8), the walk's too (A4); what is still
+    unported raises when called: re-sampling a row subset of a placed
+    batch (the meshed streaming path, A8b)."""
+    from repro_torch.core.store import BatchPlacement
     g = generators.rmat_graph(64, 256, seed=0)
     factory = sampler.get_sampler(name)
+    placement = BatchPlacement((torch.device("cpu"),) * 2)
+    bound = sampler.bind_sampler(factory, g, IMMConfig(batch=8),
+                                 placement=placement)
+    visited, _, _ = bound(prng.PRNGKey(0))
+    assert [tuple(v.shape) for v in visited] == [(4, 64)] * 2, kw
     with pytest.raises(NotImplementedError, match=item):
-        sampler.bind_sampler(factory, g, IMMConfig(batch=8), **kw)
+        bound(prng.PRNGKey(0), positions=np.arange(2))
