@@ -21,8 +21,14 @@ Phases, one JSON line each:
             but its latency, the stats and the selections identical; and
             mesh cells (2x2 equal and 1x2 balanced meshes of the card and
             of the host under IC/sparse, IC/pallas and LT/walk: each theta
-            shard's rows sampled at a row offset) equal to the
-            single-device run on the host
+            shard's rows sampled at a row offset; the pallas BFS
+            column-blocked on the vertex tiles) equal to the
+            single-device run on the host; the small tier again with
+            every engine on a 2x2 mesh of the card and of the host, equal
+            to the unmeshed replay; and pallas_full's com-LJ cell on a
+            2x2 mesh of the card (the column-blocked BFS, overlap on and
+            off): every row in its shard, the seeds, theta and influence
+            bitwise the single-device pallas run
   imm_full  imm() on the full-size com-Amazon replica (IC, k = 50,
             eps = 0.5, max_theta = 16,384, rebuild), then the fused
             selections and four influence queries on its store
@@ -75,6 +81,19 @@ Phases, one JSON line each:
             replace_rows; IMServer over the stream (refresh budget 512),
             synchronous and with its async worker from one snapshot,
             equal once drained
+  mesh_stream_full
+            stream_full's cell on a 2x2 mesh of the card (packed tiles,
+            balanced blocks): each delta's stale rows and the drained
+            seeds, influence and counter equal stream_full's and a fresh
+            meshed engine's (launches counted apart); a snapshot restored
+            on a 1x1 mesh and that one's on 2x2 again, the next delta
+            repairing all three alike; a bounded meshed stream under the
+            same byte cap (ladder, then per-shard evictions) checked
+            against the per-shard rule after every add_batch and
+            replace_rows; IMServer sync and async (the stream and its
+            2x2 restore);
+            delta_s, refresh_s, stale rows, tile bytes, peak memory and
+            the launches per kernel
   tier_full the IMServe tier at the reference's full serving-tier run
             (benchmarks/serve_tier.py --users 262144 --scale 1, five
             tenants): four R-MAT campaigns of n 262,144 and m 8n under WC
@@ -91,6 +110,12 @@ Phases, one JSON line each:
             equals its primary's, every cached stream answer a recompute
             at its epoch, each drained stream a fresh one (launches
             counted apart), both replicas the primary's store
+  mesh_tier_full
+            tier_full's five tenants with every engine (replicas and the
+            fresh streams too) on a 2x2 mesh of the card, at theta 1,024
+            (the bench's own, cut from 4,096 for the time limit), the
+            same trace, checks and flood; it must drain (the meshed
+            tenants share one dispatch lock)
   pallas_full
             imm() on the com-LJ Table III replica (n = 3,997, IC, k = 50,
             eps = 0.5, max_theta = 65,536) with the pallas backend (every
@@ -151,7 +176,9 @@ against its plain version at the com-LJ replica's logq (B = 256,
 frontier densities 0, 0.1%, 1%,
 30%, 100%), at n = 16,384, on a fully dense logq (n 4,099), with -0.0
 entries, past the kernel's 49,152-vertex staging chunk (n 100,000), on
-ragged shapes and with coins on the threshold, timed beside
+ragged shapes, with coins on the threshold and on column blocks of
+logq (as a meshed BFS's tile hands them: the whole table's columns bit
+for bit, timed at a 2x2 tile), timed beside
 its column form's build, torch.matmul and cuSPARSE; the coin kernels'
 bounds come from their SASS instruction counts (cuobjdump) at the
 card's issue and integer-ALU rates; and
@@ -179,18 +206,25 @@ run that is its path: the bitmap kernels and the coins on imm_full, the
 packed commit and packed_count on packed_full, token_count on
 compressed_full, ic_frontier_step on pallas_full, flash_attention on
 lm_full, both FM kernels on fm_full; beside them its launches on every
-full run, tier_full's and mesh_full's included), the card's name and
+full run, the meshed phases' included), the card's name and
 power limit, and ``{"ok": true, "device": {...}}`` last.
 Any failure exits non-zero without the ok line; so does a machine with
 no CUDA device, or a directory without the repo's src/repro_torch.
+Each phase's end goes to stderr with the seconds since the start.  A
+run still going after WATCHDOG_S seconds, or stopped by a signal, dumps
+every thread's Python stack to stderr; the watchdog then exits with
+code 1, inside the 1,200 s limit.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
+import faulthandler
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -219,6 +253,8 @@ AMAZON_N, BATCH, THETA = 334_863, 256, 16_384
 #: and IMMConfig's default theta cap, the pallas_full cell
 LJ_SCALE, LJ_N, LJ_THETA = 0.001, 3_997, 1 << 16
 DEV = "cuda"
+#: seconds after which a run that has not ended dumps its stacks and exits
+WATCHDOG_S = 1140
 
 
 def emit(phase: str, **kw) -> None:
@@ -913,6 +949,29 @@ def frontier_row(torch, gen, lj_logq) -> dict:
         check(bool((got[live] == fires).all()),
               f"ic_frontier_step tie {shift:+}: wrong side")
     del L, F, V, R, p, live
+    # column blocks of logq, as a tile of the meshed BFS hands them (all
+    # n frontier vertices, w output columns): the whole table's columns
+    # bit for bit; timed at a 2x2 mesh's tile (128 rows, half the columns)
+    block = {}
+    for lo, hi, rows in ((0, n // 2, B // 2), (n // 2, n, B // 2),
+                         (3990, n, 3), (0, 1, 70)):
+        blk = lj_logq[:, lo:hi].contiguous()
+        bcols = icf.column_form(blk)
+        F, V, R = frontier_inputs(torch, gen, rows, n, 0.3, True)
+        got = agree(F, V[:, lo:hi], blk, R[:, lo:hi], f"block {lo}:{hi}",
+                    bcols)
+        whole = ops.ic_frontier_step(F, V, lj_logq, R, cols=lj_cols)
+        check(torch.equal(got, whole[:, lo:hi]),
+              f"ic_frontier_step block {lo}:{hi}: not the table's columns")
+        if lo == 0 and rows == B // 2:
+            block = dict(shape=[rows, n, hi - lo], ms=time_cuda(
+                torch, lambda: ops.ic_frontier_step(
+                    F, V[:, lo:hi], None, R[:, lo:hi], cols=bcols)),
+                graph_ms=time_graph(torch, lambda: ops.ic_frontier_step(
+                    F, V[:, lo:hi], None, R[:, lo:hi], cols=bcols)),
+                whole_ms=time_cuda(torch, lambda: ops.ic_frontier_step(
+                    F, V, None, R, cols=lj_cols)))
+    del F, V, R, blk, bcols
 
     times, lib_ties = {}, {}
     tables = (("solve", lambda: lj_logq, (0.3, 0.01)),
@@ -979,7 +1038,8 @@ def frontier_row(torch, gen, lj_logq) -> dict:
             times[tag] = row
         del F, V, R, L, cols, csr
         torch.cuda.empty_cache()
-    emit("ic_frontier_step", library_near_ties=lib_ties, **times)
+    emit("ic_frontier_step", library_near_ties=lib_ties, column_block=block,
+         **times)
     row = times["solve_0.3"]
     return dict(route="cuda", source="src/repro_torch/kernels/csrc/"
                 "ic_frontier.cu", replaces="src/repro/kernels/"
@@ -1564,7 +1624,7 @@ def kernel_phase(torch, graph, lj_logq):
 
 # -------------------------------------------------------------- parity ----
 
-def parity_phase(torch):
+def parity_phase(torch, lj):
     from repro_torch.core.engine import IMMConfig, InfluenceEngine
     from repro_torch.graphs.generators import rmat_graph
     from repro_torch.kernels import ops
@@ -1612,8 +1672,9 @@ def parity_phase(torch):
     lt = lt_parity(torch, g)
     tier = tier_parity(torch)
     mesh = mesh_parity(torch, g)
+    lj_mesh = lj_mesh_parity(torch, lj)
     emit("parity", n=g.n, m=g.m, theta=rh.theta, rounds=rh.rounds,
-         dense=dense, lt=lt, tier=tier, mesh=mesh,
+         dense=dense, lt=lt, tier=tier, mesh=mesh, lj_mesh=lj_mesh,
          seeds=[int(s) for s in rh.seeds], covered_frac=rh.covered_frac,
          cuda_s=c["s"], cpu_s=h["s"], launches=c["launches"],
          packed_s=out[DEV, "packed"]["s"],
@@ -1996,6 +2057,57 @@ def mesh_parity(torch, g) -> dict:
                           f"parity mesh {cell} on {dev}: {name} {got}")
                 out[f"{cell} {dev}"] = dict(s=s, theta=res.theta,
                                             launches=launches)
+    return out
+
+
+def shard_rows(torch, rows, D: int, batch: int):
+    """A single-device store's rows ``(theta, n)`` (whole batches in
+    order) as a ``D``-shard store holds them: shard ``t`` keeps rows
+    ``[t b, (t + 1) b)`` of every batch, ``b = ceil(batch / D)``, in
+    batch order; the shards' rows concatenated, as ``state()`` gives
+    them."""
+    b = -(-batch // D)
+    per = rows.reshape(-1, batch, rows.shape[1])
+    return torch.cat([per[:, t * b:(t + 1) * b].reshape(-1, rows.shape[1])
+                      for t in range(D)])
+
+
+def lj_mesh_parity(torch, lj) -> dict:
+    """pallas_full's cell (the com-LJ replica, IC, k 50, eps 0.5, the
+    pallas backend) on a 2x2 mesh of the card with the column-blocked
+    BFS, ``overlap`` on and off: every row (in its shard), the seeds,
+    theta and influence bitwise the single-device pallas run."""
+    from repro_torch.core.engine import IMMConfig, InfluenceEngine
+    from repro_torch.kernels import ops
+
+    cfg = IMMConfig(k=50, eps=0.5, model="IC", backend="pallas",
+                    batch=BATCH, max_theta=LJ_THETA, seed=0)
+    ref_eng = InfluenceEngine(lj, cfg, device=DEV)
+    ref = ref_eng.run()
+    out = {}
+    for overlap in (True, False):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = InfluenceEngine(lj, dataclasses.replace(cfg, overlap=overlap),
+                              mesh=grid(DEV, (2, 2)), vertex_axis="vertex")
+        res = eng.run()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        tag = f"com-LJ 2x2 pallas overlap={overlap}"
+        check(list(res.seeds) == list(ref.seeds) and res.theta == ref.theta
+              and res.influence == ref.influence
+              and res.covered_frac == ref.covered_frac,
+              f"parity {tag}: seeds, theta or influence")
+        check((res.counter == ref.counter).all(), f"parity {tag}: counter")
+        want = shard_rows(torch, ref_eng.store.R[:ref.theta].cpu(), 2, BATCH)
+        got = torch.from_numpy(eng.store.state()["R"])
+        check(torch.equal(got, want), f"parity {tag}: rows")
+        check(launches.get("ic_frontier_step", 0) > 0,
+              f"parity {tag}: no ic_frontier_step on the tiles")
+        out[f"overlap={overlap}"] = dict(s=s, theta=res.theta,
+                                         launches=launches)
     return out
 
 
@@ -2732,13 +2844,42 @@ def serve_through(torch, server, stream, probe, seed: int) -> list:
     return answers
 
 
-def stream_full(torch, graph, max_theta: int) -> dict:
+def serve_sync_async(torch, tag, stream, twin, probe) -> dict:
+    """IMServer over ``stream`` (synchronous) and over ``twin``, a stream
+    in the same state (its async worker), through the same two deltas
+    (`serve_through`): equal answers, epochs, counters and seeds once
+    drained.  Returns each run's numbers."""
+    from repro_torch.launch.serve import IMServer
+
+    runs = {}
+    for mode, eng in (("sync", stream), ("async", twin)):
+        with IMServer(eng, refresh_budget=512,
+                      async_refresh=mode == "async") as server:
+            t0 = time.perf_counter()
+            answers = serve_through(torch, server, eng, probe, seed=33)
+            runs[mode] = dict(
+                s=time.perf_counter() - t0, answers=answers,
+                drained=server.influence(probe), epoch=server.served_epoch,
+                worker_slices=server.refreshes_run)
+    check(runs["sync"]["drained"] == runs["async"]["drained"]
+          and runs["sync"]["epoch"] == runs["async"]["epoch"],
+          f"{tag}: the sync and async servers disagree once drained")
+    check(torch.equal(stream.store.counter, twin.store.counter)
+          and list(stream.select(50).seeds) == list(twin.select(50).seeds),
+          f"{tag}: sync and async stores differ once drained")
+    check(runs["async"]["worker_slices"] > 0, f"{tag}: async worker idle")
+    return runs
+
+
+def stream_full(torch, graph, max_theta: int, keep: dict = None) -> dict:
     """The streaming slice at full size on the com-Amazon replica under
     LT: a StreamEngine on a packed store extended to ``max_theta``, four
     fringe deltas, refresh until drained, equal to a fresh engine on the
     post-delta graph; a bounded stream that steps down the ladder and
     evicts under a byte cap; IMServer over the stream, synchronous and
-    with its async worker, equal once drained.  Returns the launches."""
+    with its async worker, equal once drained.  Returns the launches;
+    ``keep`` receives the drained stream's answers and timings (what
+    mesh_stream_full is held to)."""
     import tempfile
 
     import numpy as np
@@ -2747,7 +2888,6 @@ def stream_full(torch, graph, max_theta: int) -> dict:
     from repro_torch.core.engine import InfluenceEngine
     from repro_torch.core.store import StorePressurePolicy
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import IMServer
     from repro_torch.stream import StreamEngine
 
     obs.reset()
@@ -2791,6 +2931,12 @@ def stream_full(torch, graph, max_theta: int) -> dict:
     check(torch.equal(colsum, stream.store.counter),
           "stream_full counter == arena sums")
     del fresh
+    if keep is not None:
+        keep.update(stale=list(stale), seeds=[int(x) for x in sel.seeds],
+                    influence=sel.influence,
+                    covered_frac=sel.covered_frac,
+                    counter=stream.store.counter.cpu(), extend_s=extend_s,
+                    delta_s=list(delta_s), refresh_s=refresh_s)
 
     # bounded: packed rows down the ladder to tokens, then evictions
     obs.reset()
@@ -2843,24 +2989,8 @@ def stream_full(torch, graph, max_theta: int) -> dict:
         stream.snapshot(d)
         twin = StreamEngine(stream.graph, stream.cfg, device=DEV)
         check(twin.restore(d), "stream_full: snapshot restore")
-    runs = {}
-    for mode, eng in (("sync", stream), ("async", twin)):
-        with IMServer(eng, refresh_budget=512,
-                      async_refresh=mode == "async") as server:
-            t0 = time.perf_counter()
-            answers = serve_through(torch, server, eng, probe, seed=33)
-            runs[mode] = dict(
-                s=time.perf_counter() - t0, answers=answers,
-                drained=server.influence(probe), epoch=server.served_epoch,
-                worker_slices=server.refreshes_run)
+    runs = serve_sync_async(torch, "stream_full", stream, twin, probe)
     serve_launches = ops.launch_counts()
-    check(runs["sync"]["drained"] == runs["async"]["drained"]
-          and runs["sync"]["epoch"] == runs["async"]["epoch"],
-          "stream_full: the sync and async servers disagree once drained")
-    check(torch.equal(stream.store.counter, twin.store.counter)
-          and list(stream.select(50).seeds) == list(twin.select(50).seeds),
-          "stream_full: sync and async stores differ once drained")
-    check(runs["async"]["worker_slices"] > 0, "async worker idle")
     obs.reset()
     launches = {k: main_launches.get(k, 0) + bounded_launches.get(k, 0)
                 + serve_launches.get(k, 0)
@@ -2900,6 +3030,240 @@ def stream_full(torch, graph, max_theta: int) -> dict:
     return launches
 
 
+# ------------------------------------------------ the meshed stream ----
+
+#: mesh_stream_full's layout: stream_full's cell on a 2x2 mesh of the
+#: card, packed tiles on balanced vertex blocks
+MESH_STREAM_SHAPE = (2, 2)
+#: the kernels its streams must launch on the tiles: packed writes and
+#: repairs, kills counted on packed tiles, then on token tiles (bounded)
+MESH_STREAM_LAUNCHED = ("arena_commit_packed", "packed_count",
+                        "token_count")
+
+
+def tile_colsum(torch, st):
+    """The column sums of a sharded store's live rows, decoded tile by
+    tile on the tiles' devices, in global vertex order."""
+    out = []
+    for v in range(st.Dv):
+        col = torch.zeros(st.n_local, dtype=torch.int32,
+                          device=st.devices[0][v])
+        for t in range(st.D):
+            tile, c = st.tile(t, v), int(st.counts[t])
+            live = st._live[t].to(tile.device)
+            for lo in range(0, c, 1024):
+                hi = min(lo + 1024, c)
+                bits = st.codec.decode(tile[lo:hi])[live[lo:hi]]
+                col += bits.sum(dim=0, dtype=torch.int32).to(col.device)
+        out.append(col[:st.col_width[v]])
+    return torch.cat(out)
+
+
+def shard_capped(st, max_bytes, writes, tag):
+    """Wrap a sharded store's add_batch and replace_rows so that after
+    every call each shard holds at most ``row_cap // D`` rows and
+    capacity x row bytes stays within ``max_bytes``."""
+    def capped(write):
+        def run(*a):
+            out = write(*a)
+            writes[0] += 1
+            check(max(st.counts) <= st.row_cap // st.D,
+                  f"{tag}: a shard holds {max(st.counts)} rows, over "
+                  f"{st.row_cap // st.D} after write {writes[0]} "
+                  f"({write.__name__})")
+            check(st.capacity * st._row_bytes() <= max_bytes,
+                  f"{tag}: {st.capacity} rows x {st._row_bytes()} bytes "
+                  f"over the cap after write {writes[0]} "
+                  f"({write.__name__})")
+            return out
+        return run
+    st.add_batch = capped(st.add_batch)
+    st.replace_rows = capped(st.replace_rows)
+
+
+def mesh_stream_full(torch, graph, max_theta: int, ref: dict) -> dict:
+    """stream_full's cell (com-Amazon at full width, LT/walk+stable,
+    theta 16,384, four fringe deltas, seed 21) on a 2x2 mesh of the card,
+    packed tiles on balanced vertex blocks: the stale rows of each delta,
+    and, drained, the seeds, influence and counter equal stream_full's
+    single-device stream (``ref``) and a fresh meshed engine on the
+    post-delta graph (its launches counted apart); the stream restored
+    from its snapshot on a 1x1 mesh, that one's on 2x2 again, the next
+    delta repairing all three to the same rows; a bounded meshed stream
+    under stream_full's byte cap down the ladder and into evictions,
+    checked against the per-shard rule after every write; IMServer over
+    the meshed stream and its 2x2 restore, sync and async, equal once
+    drained.  Returns the streams' launches."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.core.engine import InfluenceEngine
+    from repro_torch.core.store import StorePressurePolicy
+    from repro_torch.kernels import ops
+    from repro_torch.stream import StreamEngine
+
+    tag = "mesh_stream_full"
+    kw = dict(mesh=grid(DEV, MESH_STREAM_SHAPE), vertex_axis="vertex")
+    cfg = dataclasses.replace(stream_cfg("packed"), partition="balanced")
+    obs.reset()
+    obs.enable()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    stream, init_s = timed(torch, lambda: StreamEngine(graph, cfg, **kw))
+    _, extend_s = timed(torch, lambda: stream.extend(max_theta))
+    check(stream.theta == max_theta, f"{tag} theta")
+    rng = np.random.default_rng(STREAM_SEED)
+    stale, delta_s = [], []
+    for i in range(STREAM_DELTAS):
+        n_stale, sec = timed(torch, lambda: stream_deltas(
+            stream, rng, 1, stream.apply_delta)[0])
+        stale.append(n_stale)
+        delta_s.append(sec)
+        check(n_stale == ref["stale"][i], f"{tag}: delta {i} staled "
+              f"{n_stale} rows, stream_full's {ref['stale'][i]}")
+    left, refresh_s = timed(torch, stream.refresh)
+    check(left == 0 and stream.consistent, f"{tag}: refresh drained")
+    sel, select_s = timed(torch, lambda: stream.select(50))
+    main_launches = ops.launch_counts()
+    counters = obs.snapshot()["counters"]
+    peak = torch.cuda.max_memory_allocated()
+    st = stream.store
+    check(torch.equal(tile_colsum(torch, st), st.counter),
+          f"{tag}: counter != the tiles' live column sums")
+    check([int(x) for x in sel.seeds] == ref["seeds"]
+          and sel.influence == ref["influence"]
+          and torch.equal(st.counter.cpu(), ref["counter"]),
+          f"{tag}: the drained meshed stream differs from stream_full's")
+    ops.reset_launches()
+    fresh = InfluenceEngine(stream.graph, stream.cfg, **kw)
+    _, fresh_s = timed(torch, lambda: fresh.extend(stream.theta))
+    want = fresh.select(50)
+    fresh_launches = ops.launch_counts()
+    check(list(sel.seeds) == list(want.seeds)
+          and sel.covered_frac == want.covered_frac
+          and torch.equal(st.counter, fresh.store.counter),
+          f"{tag}: the drained stream differs from a fresh meshed engine")
+    del fresh
+
+    # snapshots across layouts: 2x2 -> 1x1 -> 2x2, then one more delta
+    ops.reset_launches()
+    moves = {}
+    with tempfile.TemporaryDirectory() as d:
+        _, moves["snapshot_2x2_s"] = timed(
+            torch, lambda: stream.snapshot(f"{d}/a"))
+        one = StreamEngine(stream.graph, cfg, mesh=grid(DEV, (1, 1)),
+                           vertex_axis="vertex")
+        ok, moves["restore_1x1_s"] = timed(torch, lambda: one.restore(
+            f"{d}/a"))
+        check(ok, f"{tag}: restore on 1x1")
+        one.snapshot(f"{d}/b")
+        back = StreamEngine(stream.graph, cfg, **kw)
+        ok, moves["restore_2x2_s"] = timed(torch, lambda: back.restore(
+            f"{d}/b"))
+        check(ok, f"{tag}: restore on 2x2")
+    next_stale = []
+    for s in (stream, one, back):
+        drng = np.random.default_rng(STREAM_SEED + 1)
+        next_stale.append(stream_deltas(s, drng, 1, s.apply_delta)[0])
+        s.refresh()
+    check(len(set(next_stale)) == 1, f"{tag}: the next delta staled "
+          f"{next_stale} rows across the layouts")
+    for s, name in ((one, "1x1"), (back, "2x2 again")):
+        check(torch.equal(s.store.counter, stream.store.counter)
+              and list(s.select(50).seeds) == list(stream.select(50).seeds),
+              f"{tag}: the {name} restore repaired to other rows")
+    moves["launches"] = ops.launch_counts()
+    del one
+
+    # bounded: packed tiles down the ladder to tokens, then evictions
+    obs.reset()
+    obs.enable()
+    ops.reset_launches()
+    policy = StorePressurePolicy(max_bytes=BOUNDED_BYTES,
+                                 ladder=("compressed",))
+    bounded = StreamEngine(graph, cfg, policy=policy, **kw)
+    bst = bounded.store
+    writes = [0]
+    shard_capped(bst, BOUNDED_BYTES, writes, f"{tag} bounded")
+    _, bounded_extend_s = timed(torch, lambda: (bounded.extend(max_theta),
+                                                bounded.extend(max_theta)))
+    b_counters = obs.snapshot()["counters"]
+    check(bst.representation == "compressed"
+          and b_counters.get("store.compress_steps", 0) == 1,
+          f"{tag} bounded: the ladder did not step once")
+    check(b_counters.get("store.rows_evicted", 0) > 0,
+          f"{tag} bounded: nothing was evicted")
+    b_stale = stream_deltas(bounded, np.random.default_rng(STREAM_SEED), 2,
+                            bounded.apply_delta)
+    bounded.refresh()
+    check(bounded.stale == 0 and bst.live_count == bst.row_cap,
+          f"{tag} bounded: not drained to its cap")
+    check(torch.equal(tile_colsum(torch, bst), bst.counter),
+          f"{tag} bounded counter == the tiles' live column sums")
+    b_counters = obs.snapshot()["counters"]
+    bounded_launches = ops.launch_counts()
+    bounded_sel = bounded.select(50)
+    bounded_info = dict(
+        max_bytes=BOUNDED_BYTES, extend_s=bounded_extend_s,
+        representation=bst.representation, s_pad=bst.codec.s_pad,
+        row_bytes=bst._row_bytes(), capacity=bst.capacity,
+        cap_local=bst.cap_local, row_cap=bst.row_cap,
+        counts=[int(c) for c in bst.counts], writes_checked=writes[0],
+        compress_steps=b_counters.get("store.compress_steps", 0),
+        evicted=b_counters.get("store.rows_evicted", 0),
+        compactions=b_counters.get("store.compactions", 0),
+        stale_per_delta=b_stale, tile_bytes=bst.tile_bytes(),
+        influence=bounded_sel.influence)
+    del bounded
+
+    # IMServer: the same meshed stream state served twice (the stream
+    # and its 2x2 restore, which holds the same rows)
+    obs.reset()
+    obs.enable()
+    ops.reset_launches()
+    probe = np.asarray(sel.seeds)
+    twin = back
+    runs = serve_sync_async(torch, tag, stream, twin, probe)
+    serve_launches = ops.launch_counts()
+    obs.reset()
+    del twin
+    parts = (main_launches, moves["launches"], bounded_launches,
+             serve_launches)
+    launches = {k: sum(p.get(k, 0) for p in parts)
+                for k in set().union(*parts)}
+    for name in MESH_STREAM_LAUNCHED:
+        check(launches.get(name, 0) > 0, f"{tag}: {name} not launched")
+    emit(tag, graph="com-Amazon", model="LT", sampler=stream.cfg.sampler,
+         mesh="x".join(map(str, MESH_STREAM_SHAPE)), store="packed",
+         partition="balanced", n=graph.n, m=graph.m, theta=stream.theta,
+         deltas=STREAM_DELTAS, delta=STREAM_DELTA, init_s=init_s,
+         extend_s=extend_s, delta_s=delta_s, stale_per_delta=stale,
+         refresh_s=refresh_s, select_s=select_s, fresh_extend_s=fresh_s,
+         single_device={k: ref[k] for k in ("extend_s", "delta_s",
+                                            "refresh_s", "stale",
+                                            "influence")},
+         seeds=[int(x) for x in sel.seeds[:10]], influence=sel.influence,
+         kills=counters.get("store.rows_killed", 0),
+         replaced=counters.get("store.rows_replaced", 0),
+         compactions=counters.get("store.compactions", 0),
+         repaired=counters.get("stream.rows_repaired", 0),
+         n_local=st.n_local, cap_local=st.cap_local,
+         counts=[int(c) for c in st.counts], tile_bytes=st.tile_bytes(),
+         tile_devices=[str(x) for row in st.devices for x in row],
+         arena_bytes=st.arena_bytes, max_memory_allocated=peak,
+         layouts=dict(next_stale=next_stale, **{
+             k: v for k, v in moves.items() if k != "launches"}),
+         bounded=bounded_info, serve=runs,
+         launches={k: launches.get(k, 0) for k in STREAM_KERNELS},
+         launches_main=main_launches, launches_layouts=moves["launches"],
+         launches_bounded=bounded_launches, launches_serve=serve_launches,
+         launches_fresh=fresh_launches)
+    return launches
+
+
 # -------------------------------------------------------- IMServe tier ----
 
 #: tier_full: the reference's full serving-tier run (``benchmarks/
@@ -2931,20 +3295,32 @@ TIER_STORES = (
 #: (campaign-0's selection), the packed count and the positional coins
 TIER_KERNELS = ("arena_commit", "arena_commit_packed", "coverage_matvec",
                 "fused_select", "packed_count", "ic_sparse_hits")
+#: mesh_tier_full: tier_full's tenants with every engine on a 2x2 mesh of
+#: the card at the bench's own theta, 1,024 (cut from tier_full's 4,096
+#: for the time limit: registration and the fresh streams are the streams'
+#: stable coins, plain PyTorch, ROADMAP B10); the sharded selections
+#: reduce partials, so no fused_select
+MESH_TIER_SHAPE, MESH_TIER_THETA = (2, 2), 1_024
+MESH_TIER_KERNELS = ("arena_commit", "arena_commit_packed",
+                     "coverage_matvec", "packed_count", "ic_sparse_hits")
 
 
-def tier_specs(n: int, theta: int, replicas: int, max_pending: int):
+def tier_specs(n: int, theta: int, replicas: int, max_pending: int,
+               meshed: bool = False):
     """The bench's tenant mix (``serve_tier._specs``): campaign-0 static,
     strict, weight 2; campaign-1 and -3 streaming; campaign-2 static,
     relaxed, with replicas; campaign-4 a slot on campaign-0's engine at
     weight 0.5; every engine on the sparse sampler (a stream on its
-    ``+stable`` form)."""
+    ``+stable`` form).  ``meshed``: the bitmap stores are "auto" (bitmap
+    tiles; a mesh takes no single-device kind)."""
     from repro_torch.core.engine import IMMConfig
     from repro_torch.graphs import rmat_graph
     from repro_torch.serve import TenantSpec
 
     specs = []
     for i, store in enumerate(TIER_STORES):
+        if meshed and store["store"] == "bitmap":
+            store = dict(store, store="auto")
         cfg = IMMConfig(k=TIER_K, batch=max(theta // 4, 64),
                         max_theta=max(theta, 1 << 20), seed=i,
                         sampler="IC/sparse", **store)
@@ -2985,61 +3361,91 @@ def served_record(r) -> tuple:
     return (r.ticket, r.tenant, r.value, r.epoch, r.cached, r.replica)
 
 
-def tier_parity(torch) -> dict:
-    """The five-tenant mix at n 2,048 and theta 1,024 (sparse sampler),
-    the same trace replayed synchronously (a refresh step after every
-    pump, no worker) on the card and on the host: every ServedQuery but
-    its latency, the stats, the cache's epochs and the selections equal."""
+def tier_replay(torch, dev, mesh_kwargs=None) -> dict:
+    """The five-tenant mix at n 2,048 and theta 1,024 on ``dev`` (every
+    engine on ``mesh_kwargs``'s mesh when given), its trace replayed
+    synchronously (a refresh step after every pump, no worker)."""
     from repro_torch.kernels import ops
     from repro_torch.serve import KIND_DELTA, IMServe
 
-    out = {}
-    for dev in (DEV, "cpu"):
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        tier = IMServe(device=dev, quantum=8, refresh_budget=64)
-        for spec in tier_specs(2048, 1024, TIER_REPLICAS, TIER_MAX_PENDING):
-            tier.register(spec)
-        events = tier_trace(tier, duration=1.0, qps=96.0, skew=1.0,
-                            delta_ops=4, seed=0)
-        tickets = []
-        for e in events:
-            if e.kind == KIND_DELTA:
-                tier.apply_delta(e.tenant, e.delta)
-            else:
-                tickets.append(tier.submit(e.tenant, e.seeds))
-            if tier.pending >= TIER_PUMP:
-                tier.pump()
-                tier.refresh_step()
-        while tier.pending:
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tier = IMServe(device=dev, quantum=8, refresh_budget=64,
+                   mesh_kwargs=mesh_kwargs)
+    for spec in tier_specs(2048, 1024, TIER_REPLICAS, TIER_MAX_PENDING,
+                           meshed=mesh_kwargs is not None):
+        tier.register(spec)
+    events = tier_trace(tier, duration=1.0, qps=96.0, skew=1.0,
+                        delta_ops=4, seed=0)
+    tickets = []
+    for e in events:
+        if e.kind == KIND_DELTA:
+            tier.apply_delta(e.tenant, e.delta)
+        else:
+            tickets.append(tier.submit(e.tenant, e.seeds))
+        if tier.pending >= TIER_PUMP:
             tier.pump()
             tier.refresh_step()
-        check(tier.drain(timeout=None), f"tier parity {dev}: drain")
-        recs = [served_record(tier.result(t)) for t in tickets]
-        out[dev] = dict(
-            events=[(e.t, e.tenant, e.kind,
-                     None if e.seeds is None else e.seeds.tolist())
-                    for e in events],
-            recs=recs, stats=tier.stats(),
-            epochs={n: sorted(tier.cache.epochs(n)) for n in tier.tenants},
-            sels={n: [int(s) for s in tier.select(n, TIER_K).seeds]
-                  for n in tier.tenants},
-            s=time.perf_counter() - t0, launches=ops.launch_counts())
-    c, h = out[DEV], out["cpu"]
-    for key in ("events", "recs", "stats", "epochs", "sels"):
-        check(c[key] == h[key], f"tier parity: {key} differ on cuda and cpu")
+    while tier.pending:
+        tier.pump()
+        tier.refresh_step()
+    check(tier.drain(timeout=600.0), f"tier parity {dev}: drain")
+    stats = tier.stats()
+    shipped = stats["replicas"]["campaign-2"]["bytes_shipped"]
+    check(shipped > 0, f"tier parity {dev}: nothing shipped")
+    return dict(
+        events=[(e.t, e.tenant, e.kind,
+                 None if e.seeds is None else e.seeds.tolist())
+                for e in events],
+        recs=[served_record(tier.result(t)) for t in tickets], stats=stats,
+        epochs={n: sorted(tier.cache.epochs(n)) for n in tier.tenants},
+        sels={n: [int(s) for s in tier.select(n, TIER_K).seeds]
+              for n in tier.tenants},
+        s=time.perf_counter() - t0, launches=ops.launch_counts())
+
+
+def tier_parity(torch) -> dict:
+    """The five-tenant mix at n 2,048 and theta 1,024 (sparse sampler),
+    the same trace replayed synchronously on the card and on the host,
+    then with every engine on a 2x2 mesh of the card and of the host:
+    every ServedQuery but its latency, the stats, the cache's epochs and
+    the selections equal the unmeshed replay."""
+    out = {dev: tier_replay(torch, dev) for dev in (DEV, "cpu")}
+    for dev in (DEV, "cpu"):
+        out[f"{dev} 2x2"] = tier_replay(torch, dev, {
+            "mesh": grid(dev, (2, 2)), "theta_axes": ("data",),
+            "vertex_axis": "vertex"})
+    c = out[DEV]
+    # the replica fan-out ships the store's snapshot tree, whose size is
+    # its layout's (live rows compacted on a mesh, the arena off it): the
+    # meshed runs' bytes_shipped equal each other's, every other stat
+    # equals the unmeshed replay's
+    meshed = [out[f"{dev} 2x2"]["stats"] for dev in (DEV, "cpu")]
+    shipped = [m["replicas"]["campaign-2"].pop("bytes_shipped")
+               for m in meshed]
+    check(shipped[0] == shipped[1], f"tier parity: bytes_shipped differ on "
+          f"{DEV} 2x2 and cpu 2x2: {shipped}")
+    unmeshed = copy.deepcopy(c["stats"])
+    unmeshed["replicas"]["campaign-2"].pop("bytes_shipped")
+    for run, o in out.items():
+        for key in ("events", "recs", "stats", "epochs", "sels"):
+            want = unmeshed if key == "stats" and "2x2" in run else c[key]
+            check(o[key] == want, f"tier parity: {key} differ on {run} "
+                  f"and {DEV}")
+        on_card = sum(o["launches"].values())
+        check(on_card > 0 if run.startswith(DEV) else on_card == 0,
+              f"tier parity {run}: launches on the wrong device")
     flags = {(r[4], r[5]) for r in c["recs"]}
     check((True, False) in flags and (False, True) in flags,
           "tier parity: no cached or no replica answer")
-    check(sum(c["launches"].values()) > 0
-          and sum(h["launches"].values()) == 0,
-          "tier parity: launches on the wrong device")
-    return dict(queries=len(c["recs"]), cuda_s=c["s"], cpu_s=h["s"],
+    return dict(queries=len(c["recs"]),
+                s={run: o["s"] for run, o in out.items()},
                 cached=sum(r[4] for r in c["recs"]),
                 replica=sum(r[5] for r in c["recs"]),
                 epochs=max(r[3] for r in c["recs"]),
                 cache=c["stats"]["cache"], refresh=c["stats"]["refresh"],
-                launches=c["launches"])
+                launches=c["launches"],
+                mesh_launches=out[f"{DEV} 2x2"]["launches"])
 
 
 def percentiles_ms(lat_s) -> dict:
@@ -3050,7 +3456,7 @@ def percentiles_ms(lat_s) -> dict:
             "p99": float(np.percentile(arr, 99))}
 
 
-def tier_full(torch) -> dict:
+def tier_full(torch, mesh_shape=None) -> dict:
     """The IMServe tier at the reference bench's full size: five tenants
     registered on the card (timed one by one), the bench's trace built
     (timed apart: its deltas rebuild each graph on the host), replayed
@@ -3058,8 +3464,15 @@ def tier_full(torch) -> dict:
     while the refresh worker repairs, then a drain, a top-k selection
     per tenant and an admission flood.  Checks every answer against the
     primaries and fresh engines (launches counted apart).  Returns the
-    tier's own launches."""
+    tier's own launches.  With ``mesh_shape`` (mesh_tier_full) every
+    engine, replicas and fresh streams too, is on a mesh of the card of
+    that shape, at theta 1,024 an engine (the bench's own, cut from
+    tier_full's 4,096 for the smoke's time limit: registration and the
+    fresh streams are the streams' stable coins, plain PyTorch, ROADMAP
+    B10), and it must drain with no deadlock (the meshed tenants share
+    one dispatch lock)."""
     import gc
+    import hashlib
 
     import numpy as np
 
@@ -3070,15 +3483,21 @@ def tier_full(torch) -> dict:
     )
     from repro_torch.stream import StreamEngine
 
+    meshed = mesh_shape is not None
+    tag = "mesh_tier_full" if meshed else "tier_full"
+    theta = MESH_TIER_THETA if meshed else TIER_THETA
+    mesh_kw = ({"mesh": grid(DEV, mesh_shape), "theta_axes": ("data",),
+                "vertex_axis": "vertex"} if meshed else {})
     gc.collect()
     torch.cuda.empty_cache()
     obs.reset()
     obs.enable()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    specs = tier_specs(TIER_N, TIER_THETA, TIER_REPLICAS, TIER_MAX_PENDING)
+    specs = tier_specs(TIER_N, theta, TIER_REPLICAS, TIER_MAX_PENDING,
+                       meshed=meshed)
     ops.reset_launches()
-    tier = IMServe(device=DEV, **TIER_SERVE)
+    tier = IMServe(device=DEV, mesh_kwargs=mesh_kw or None, **TIER_SERVE)
     register_s = {}
     for spec in specs:
         _, register_s[spec.name] = timed(torch, lambda: tier.register(spec))
@@ -3103,16 +3522,16 @@ def tier_full(torch) -> dict:
                 with t.lock:
                     check(t.backlog == 0 and all(
                         r.epoch == t.epoch for r in recs),
-                        f"tier_full {name}: a cached answer off its epoch")
+                        f"{tag} {name}: a cached answer off its epoch")
                     want = t.engine.influences(
                         [seeds_of[r.ticket] for r in recs])
                 check(all(float(w) == r.value for w, r in zip(want, recs)),
-                      f"tier_full {name}: a cached answer differs from a "
+                      f"{tag} {name}: a cached answer differs from a "
                       f"recompute at its epoch")
                 checked_cached += len(recs)
         for name, t in tier.tenants.items():
             check(tier.cache.epochs(name) <= {t.served_epoch},
-                  f"tier_full {name}: a cache entry outlived its epoch")
+                  f"{tag} {name}: a cache entry outlived its epoch")
 
     with tier:
         tier.start_refresh_worker()
@@ -3141,12 +3560,18 @@ def tier_full(torch) -> dict:
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0 - check_s
         (drained, drain_s) = timed(torch, lambda: tier.drain(timeout=600.0))
-    check(drained, "tier_full: the tier did not drain")
-    check(not tier.refreshing, "tier_full: the worker outlived close")
+    check(drained, f"{tag}: the tier did not drain")
+    check(not tier.refreshing, f"{tag}: the worker outlived close")
+    if meshed:
+        owners = [t for t in tier.tenants.values() if t.owns_engine]
+        check(all(t.engine.store.__class__.__name__ == "ShardedStore"
+                  for t in owners) and len({id(t.lock) for t in
+                                            tier.tenants.values()}) == 1,
+              f"{tag}: a tenant off the mesh or off the dispatch lock")
     n_queries = sum(1 for e in events if e.kind != KIND_DELTA)
     check(len(answered) + rejected == n_queries and all(
         tier.result(t) is not None for t in answered),
-        "tier_full: an admitted query went unanswered")
+        f"{tag}: an admitted query went unanswered")
     sels, select_s = timed(torch, lambda: {
         n: tier.select(n, TIER_K) for n in tier.tenants})
     stats = tier.stats()
@@ -3171,21 +3596,21 @@ def tier_full(torch) -> dict:
             tier.result(tid).tenant, 0) + 1
     want_round = {n: int(TIER_SERVE["quantum"] * t.spec.weight)
                   for n, t in tier.tenants.items()}
-    check(flood_rejected == 64, f"tier_full: the flood gave "
+    check(flood_rejected == 64, f"{tag}: the flood gave "
           f"{flood_rejected} rejections, not 64")
-    check(per_round == want_round, f"tier_full: the flood's first round "
+    check(per_round == want_round, f"{tag}: the flood's first round "
           f"served {per_round}, not {want_round}")
     _, flood_s = timed(torch, tier.flush)
     check(all(tier.result(t) is not None for t in flood_ids)
           and all(tier.result(t) is not None
                   for ids in others.values() for t in ids),
-          "tier_full: the flood left queries unanswered")
+          f"{tag}: the flood left queries unanswered")
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    for name in TIER_KERNELS:
+    for name in MESH_TIER_KERNELS if meshed else TIER_KERNELS:
         check(launches.get(name, 0) > 0,
-              f"tier_full: the tier launched no {name}")
+              f"{tag}: the tier launched no {name}")
 
     # check 2: static answers (primary, replica or cache) == the primary's
     ops.reset_launches()
@@ -3200,23 +3625,32 @@ def tier_full(torch) -> dict:
             want = tier.tenants[name].engine.influences(
                 [seeds_of[r.ticket] for r in rs])
         check(all(float(w) == r.value for w, r in zip(want, rs)),
-              f"tier_full {name}: an answer differs from the primary's")
+              f"{tag} {name}: an answer differs from the primary's")
     group = tier.replica_groups["campaign-2"]
     primary = tier.tenants["campaign-2"].engine
+
+    def rows_of(store):
+        """A store's rows as a multiset of digests (a meshed replica
+        holds the primary's live rows in its own slots)."""
+        if not meshed:
+            return store.R
+        return sorted(hashlib.sha1(r.tobytes()).digest()
+                      for r in store.state()["R"])
     for rep in group.replicas:
-        check(torch.equal(rep.store.R, primary.store.R)
-              and torch.equal(rep.store.counter, primary.store.counter),
-              "tier_full: a replica's store differs from the primary's")
+        same = (torch.equal(rep.store.R, primary.store.R) if not meshed
+                else rows_of(rep.store) == rows_of(primary.store))
+        check(same and torch.equal(rep.store.counter, primary.store.counter),
+              f"{tag}: a replica's store differs from the primary's")
     # check 3: each drained stream == a fresh stream on its graph
     fresh_s = {}
     for name in streams:
         t = tier.tenants[name]
-        fresh = StreamEngine(t.graph, t.engine.cfg, device=DEV)
-        _, fresh_s[name] = timed(torch, lambda: fresh.extend(TIER_THETA))
+        fresh = StreamEngine(t.graph, t.engine.cfg, device=DEV, **mesh_kw)
+        _, fresh_s[name] = timed(torch, lambda: fresh.extend(theta))
         check(torch.equal(t.engine.store.counter, fresh.store.counter),
-              f"tier_full {name}: counter differs from a fresh stream's")
+              f"{tag} {name}: counter differs from a fresh stream's")
         check(list(sels[name].seeds) == list(fresh.select(TIER_K).seeds),
-              f"tier_full {name}: select({TIER_K}) differs from a fresh "
+              f"{tag} {name}: select({TIER_K}) differs from a fresh "
               f"stream's")
         del fresh
     check_launches = ops.launch_counts()
@@ -3231,18 +3665,29 @@ def tier_full(torch) -> dict:
                     for k in ("count", "p50", "p99", "max")}
                 for n in tier.tenants
                 if f"serve.latency_ms{{tenant={n}}}" in hist}
-    emit("tier_full", source="benchmarks/serve_tier.py --users 262144 "
+    changed = (["theta 1,024 an engine (the bench's own; cut from "
+                "tier_full's 4,096 for the time limit)",
+                "every engine on a 2x2 mesh of the card",
+                "stores and selections vary across campaigns (bitmap "
+                "tiles fused-rebuild, packed tiles, auto, bitmap tiles "
+                "rebuild)"] if meshed else
+               ["theta 4,096 an engine, not 1,024",
+                "stores and selections vary across campaigns "
+                "(bitmap fused-rebuild, packed, auto, bitmap rebuild)"])
+    emit(tag, source="benchmarks/serve_tier.py --users 262144 "
          "--scale 1 --tenants 5", n=TIER_N,
          m={n: t.graph.m for n, t in tier.tenants.items() if t.owns_engine},
-         theta=TIER_THETA, trace=TIER_TRACE, serve=TIER_SERVE,
+         theta=theta, trace=TIER_TRACE, serve=TIER_SERVE,
+         mesh=None if not meshed else "x".join(map(str, mesh_shape)),
          max_pending=TIER_MAX_PENDING, replicas=TIER_REPLICAS,
-         changed=["theta 4,096 an engine, not 1,024",
-                  "stores and selections vary across campaigns "
-                  "(bitmap fused-rebuild, packed, auto, bitmap rebuild)",
-                  "campaign-2 has 2 replicas, not 1",
-                  "sampler IC/sparse named (the bench's default at this n)"],
+         changed=changed + [
+             "campaign-2 has 2 replicas, not 1",
+             "sampler IC/sparse named (the bench's default at this n)"],
          reduced=[], stores={n: t.engine.store.representation
                              for n, t in tier.tenants.items()},
+         tile_bytes={n: t.engine.store.tile_bytes()
+                     for n, t in tier.tenants.items()
+                     if meshed and t.owns_engine},
          register_s=register_s, trace_build_s=trace_s,
          events=trace_summary(events),
          serve_s=serve_s, check_s=check_s, drain_s=drain_s,
@@ -4038,22 +4483,45 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="kernels,parity,imm_full,packed_full,"
                             "compressed_full,mesh_full,indices_full,lt_full,"
-                            "stream_full,tier_full,pallas_full,lm_parity,"
+                            "stream_full,mesh_stream_full,tier_full,"
+                            "mesh_tier_full,pallas_full,lm_parity,"
                             "lm_full,fm_parity,fm_full,fm_profile",
                     help="comma list of kernels, parity, imm_full, "
                          "packed_full, compressed_full, mesh_full, "
-                         "indices_full, "
-                         "lt_full, stream_full, tier_full, pallas_full, "
-                         "lm_parity, "
+                         "indices_full, lt_full, stream_full, "
+                         "mesh_stream_full, tier_full, mesh_tier_full, "
+                         "pallas_full, lm_parity, "
                          "lm_full, fm_parity, fm_full, fm_profile and the "
                          "optional profile")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
+    if "mesh_stream_full" in phases:
+        # the meshed stream is held to the single-device stream's answers
+        phases.add("stream_full")
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
+    faulthandler.enable()
+    faulthandler.register(signal.SIGTERM, all_threads=True, chain=True)
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    try:
+        return run_phases(torch, phases, args.max_theta)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+def run_phases(torch, phases: set, max_theta: int) -> int:
+    """Every phase in ``phases``, then the kernel table and the ok line;
+    0, or an exception at the first failure."""
+    t_run = time.perf_counter()
+
+    def ended(phase: str) -> None:
+        print(f"chip_smoke: {phase} ended at "
+              f"{time.perf_counter() - t_run:.1f} s", file=sys.stderr,
+              flush=True)
+
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
         load_peaks()
@@ -4083,48 +4551,74 @@ def main(argv=None) -> int:
     lj = scaled_snap("com-LJ", LJ_SCALE, seed=0)
     emit("graph", name="com-LJ", scale=LJ_SCALE, n=lj.n, m=lj.m)
     check(lj.n == LJ_N, "com-LJ replica size")
+    ended("graphs")
 
     rows = (kernel_phase(torch, graph, make_logq(lj.to(DEV)))
             if "kernels" in phases else {})
+    ended("kernels")
     if "parity" in phases:
-        parity_phase(torch)
+        parity_phase(torch, lj)
+        ended("parity")
     launches, ref = {}, None
     keep = {} if "mesh_full" in phases else None
     for store in ("bitmap", "packed", "compressed"):
         if PHASE[store] in phases:
             launches[PHASE[store]], summary = full_phase(
-                torch, graph, args.max_theta, store, ref,
+                torch, graph, max_theta, store, ref,
                 keep if store == "bitmap" else None)
             if store == "bitmap":
                 ref = summary
+            ended(PHASE[store])
     if "mesh_full" in phases:
         launches["mesh_full"] = mesh_full(
-            torch, graph, args.max_theta,
+            torch, graph, max_theta,
             dict(ref, **keep) if ref is not None else None)
         keep = None
+        ended("mesh_full")
     if "indices_full" in phases:
-        launches["indices_full"] = indices_full(torch, graph, args.max_theta)
+        launches["indices_full"] = indices_full(torch, graph, max_theta)
+        ended("indices_full")
     if "lt_full" in phases:
-        launches["lt_full"] = lt_full(torch, graph, args.max_theta)
+        launches["lt_full"] = lt_full(torch, graph, max_theta)
+        ended("lt_full")
+    stream_ref = {}
     if "stream_full" in phases:
-        launches["stream_full"] = stream_full(torch, graph, args.max_theta)
+        launches["stream_full"] = stream_full(torch, graph, max_theta,
+                                              stream_ref)
+        ended("stream_full")
+    if "mesh_stream_full" in phases:
+        launches["mesh_stream_full"] = mesh_stream_full(
+            torch, graph, max_theta, stream_ref)
+        ended("mesh_stream_full")
     if "tier_full" in phases:
         launches["tier_full"] = tier_full(torch)
+        ended("tier_full")
+    if "mesh_tier_full" in phases:
+        launches["mesh_tier_full"] = tier_full(torch, MESH_TIER_SHAPE)
+        ended("mesh_tier_full")
     if "pallas_full" in phases:
         launches["pallas_full"] = pallas_full(torch, lj, LJ_THETA)
+        ended("pallas_full")
     if "lm_parity" in phases:
         lm_parity_phase(torch)
+        ended("lm_parity")
     if "lm_full" in phases:
         launches["lm_full"] = lm_full_phase(torch)
+        ended("lm_full")
     if "fm_parity" in phases:
         fm_parity_phase(torch)
+        ended("fm_parity")
     if "fm_full" in phases:
         launches["fm_full"] = fm_full_phase(torch)
+        ended("fm_full")
     if "profile" in phases:
         profile_phase(torch, graph)
+        ended("profile")
     if "fm_profile" in phases:
         fm_profile_phase(torch)
+        ended("fm_profile")
     two_card_phase(torch)
+    ended("two_cards")
     # each kernel's launches on the full run that is its path
     table = []
     for name, row in rows.items():

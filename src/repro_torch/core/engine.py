@@ -45,7 +45,12 @@ shard's device, and selection reads the tiles in place (the C4 choice
 per vertex shard, through the store's tile-local ``index_view``).  A
 meshed engine is seed for seed the single-device one; its snapshots
 restore across layouts (none, 1D, 2D) both ways.  It writes each batch
-through ``ShardedStore.add_batch`` and has no fused extender.
+through ``ShardedStore.add_batch`` and has no fused extender.  On a 2D
+mesh the dense and pallas samplers column-block their BFS over the
+vertex tiles (``cfg.overlap`` overlaps the frontier gather with the
+step).  A stable sampler re-samples a row subset of a meshed batch
+(`resample` with ``positions``), so a `repro_torch.stream.StreamEngine`
+runs on a mesh too.
 """
 from __future__ import annotations
 
@@ -54,7 +59,9 @@ import inspect
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
+from repro_torch import mesh as mesh_ops
 from repro_torch import obs, prng
 from repro_torch.checkpoint import store as ckpt
 from repro_torch.core import martingale as mg
@@ -82,10 +89,10 @@ _LAYOUTS = {"bitmap": "dense", "packed": "packed", "compressed": "compressed",
 @dataclasses.dataclass
 class IMMConfig:
     """The reference's configuration, field for field.  Inert here:
-    ``pallas_interpret`` (no Pallas), ``overlap`` (the overlapped
-    frontier gather: A8b; it changes no result), ``fuse_counters``
-    (informational in the reference too).  ``partition`` lays out a 2D
-    mesh's vertex axis (``"equal"`` or ``"balanced"``)."""
+    ``pallas_interpret`` (no Pallas), ``fuse_counters`` (informational in
+    the reference too).  ``partition`` lays out a 2D mesh's vertex axis
+    (``"equal"`` or ``"balanced"``); ``overlap`` runs a column-blocked
+    BFS's frontier gather on a side stream (it changes no result)."""
     k: int = 50
     eps: float = 0.5
     ell: float = 1.0
@@ -292,13 +299,18 @@ class InfluenceEngine:
         """Re-run the sampler for a recorded batch key: returns
         ``(visited, counter)``.  ``positions`` (requires
         `supports_row_resample`) re-generates only those rows of the
-        batch, bitwise the rows of the full batch."""
+        batch, bitwise the rows of the full batch (on a mesh, sampled on
+        the first shard's device).  A whole meshed batch comes back as
+        one ``(B, n)`` tensor there too."""
         key = prng.as_key(batch_key)
         if positions is None:
             visited, counter, _ = self._sample(key)
         else:
             visited, counter, _ = self._sample(
                 key, positions=np.asarray(positions, np.int32))
+        if isinstance(visited, tuple):
+            visited = torch.cat([b.to(self.device) for b in visited])
+            counter = mesh_ops.psum(list(counter), self.device)
         return visited, counter
 
     def rebind_graph(self, graph: Graph) -> None:

@@ -207,6 +207,12 @@ class CodecStore(_ArenaBase):
         return StoreView(self.representation, self.R, self._valid(),
                          self.n, self.count)
 
+    def rows_touching(self, verts) -> torch.Tensor:
+        """Rows whose traversal touched any of ``verts``: ``decode_cols``
+        of the touched columns (the arena never expands)."""
+        v = torch.as_tensor(np.asarray(verts, np.int64), device=self.device)
+        return self.codec.decode_cols(self.R, v).any(dim=1)
+
     def hits(self, S) -> torch.Tensor:
         """Covered fraction per query: ``S (Q, L) int`` -> ``(Q,) f32``,
         one query's ``decode_cols`` membership at a time."""

@@ -48,11 +48,32 @@ coins of a block from its rows' counters (``ic_sparse_hits`` and
 ``uniform_draw`` take a first row; stable coins key on the rows' global
 positions), so every block is bitwise its rows of the unplaced batch.
 Rows never interact and an empty frontier never changes a row, so each
-block ends its BFS at its own step.  The reference's column-blocked
-dense BFS with the overlapped frontier all-gather waits for ROADMAP A8b:
-each block here runs at full width, and ``overlap`` is accepted and
-changes nothing, as it changes no result in the reference.
-``pallas_interpret`` is inert (no Pallas).
+block ends its BFS at its own step.  A stable sampler re-samples a row
+subset (``positions``) of a placed batch unplaced, on the first shard's
+device, as the reference does; the rows go to the store's
+``replace_rows``, which sends each tile its columns.
+
+On a 2D placement (a meshed store with a vertex axis) the dense and
+pallas backends column-block the BFS over the store's vertex tiles, as
+the reference's ``_dense_loop`` does under ``_shard_cols``: tile ``(t,
+v)`` holds logq's columns of vertex block ``v`` (only its live columns:
+the pad columns of a balanced block are never sampled, so they never
+activate) and, for pallas, their column form, built once per bound
+sampler per tile device.  Each step every tile computes its own columns
+of ``new`` from the frontier gathered over the vertex axis
+(`repro_torch.mesh.all_gather_cols`).  With ``overlap`` (``cfg.overlap``)
+step t+1's gather runs on a side CUDA stream as soon as step t's
+``new`` exists, ordered by events, while the next step's coins are
+drawn: a pure scheduling change.  Positional coins are the columns of
+the shard's row block of the one ``(B, n)`` draw: the row block is drawn
+once on the shard's device (``uniform_draw`` takes one flat start, and a
+column block is not contiguous in the flat index) and each tile takes
+its column slice, so no kernel needs a strided form; stable coins key on
+global vertex ids.  The pallas kernel sums each column's nonzeros in
+ascending v whatever block the column is in, so every row is bitwise
+the unblocked port's, overlap on or off; the dense backend's library
+product may round a blocked column otherwise (near-ties,
+`repro_torch.core.ties`).  ``pallas_interpret`` is inert (no Pallas).
 """
 from __future__ import annotations
 
@@ -64,6 +85,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import mesh as mesh_ops
 from repro_torch import obs, prng
 from repro_torch.core.adaptive import bitmap_to_indices
 from repro_torch.core.store import next_pow2
@@ -76,7 +98,7 @@ from repro_torch.kernels.ic_frontier import activation, column_form
 _LOGQ_CLAMP = -30.0  # exp(-30) ~ 1e-13: treat p=1 edges as prob 1-1e-13
 
 
-def _placed(bind_block, graph: Graph, placement, batch: int):
+def _placed(bind_block, graph: Graph, placement, batch: int, stable: bool):
     """A bound sampler under a mesh ``placement``: ``bind_block(g)`` binds
     the unplaced sampler on ``g`` (the graph on one shard's device, bound
     once a device), and each call samples every theta shard's row block
@@ -87,10 +109,23 @@ def _placed(bind_block, graph: Graph, placement, batch: int):
         if dev not in bound:
             bound[dev] = bind_block(graph.to(dev))
 
-    def sample(key, **kw):
-        _no_subset(kw.get("positions"))
+    def run(key, **kw):
         return _per_block(placement, batch,
-                          lambda dev, rows: bound[dev](key, rows=rows))
+                          lambda dev, rows: bound[dev](key, rows=rows, **kw))
+    return _with_subsets(run, lambda: bound[placement.devices[0]], stable)
+
+
+def _with_subsets(run, home_sampler, stable: bool):
+    """The placed sampler ``run``, and for a ``stable`` one its row
+    subsets (``positions``), sampled unplaced by ``home_sampler()``, the
+    unplaced sampler on the first shard's device."""
+    if not stable:
+        return run
+
+    def sample(key, positions=None, **kw):
+        if positions is not None:
+            return home_sampler()(key, positions=positions, **kw)
+        return run(key, **kw)
     return sample
 
 
@@ -100,13 +135,6 @@ def _per_block(placement, batch: int, run):
     counter, roots)`` tuples of one block per shard."""
     out = [run(dev, (lo, hi)) for dev, lo, hi in placement.blocks(batch)]
     return tuple(tuple(o[i] for o in out) for i in range(3))
-
-
-def _no_subset(positions) -> None:
-    if positions is not None:
-        raise NotImplementedError(
-            "re-sampling a row subset under a mesh placement: the meshed "
-            "streaming path (ROADMAP A8b)")
 
 
 # ---------------------------------------------------------------- models ----
@@ -303,7 +331,10 @@ def _frontier_count(frontier: torch.Tensor) -> int:
     """Members of the frontier (one host sync a BFS step; a walk's
     frontier is its active rows), also counted on
     ``sampler.frontier_cells`` / ``sampler.steps``."""
-    cells = int(frontier.sum())
+    return _note_cells(int(frontier.sum()))
+
+
+def _note_cells(cells: int) -> int:
     if cells:
         obs.counter("sampler.steps").add(1)
         obs.counter("sampler.frontier_cells").add(cells)
@@ -318,40 +349,133 @@ def _dense_loop(key, logq, positions=None, *, batch: int, max_steps: int = 0,
     """Dense log-semiring frontier expansion (the ``dense`` backend, or
     with ``kernel=True`` the ``pallas`` backend: each step is one
     `kops.ic_frontier_step`, handed ``cols``, logq's `column_form`, when
-    the caller built it once).  Both share the coins and the
-    epilogue and differ only in how ``frontier @ logq`` is summed.
-    ``rows=(lo, hi)`` samples just that row block of the batch.
+    the caller built it once) on logq's device: `_dense_loop_tiled` with
+    one tile holding every column.  ``rows=(lo, hi)`` samples just that
+    row block of the batch.
 
     Returns ``(visited (K, n) uint8, counter (n,) int32, roots (K,))``,
     ``K = len(positions)`` or the batch; ``visited`` is a row-padded view.
     """
     n = logq.shape[0]
-    dev = logq.device
-    if not kernel and dev.type == "cuda" \
-            and torch.backends.cuda.matmul.allow_tf32:
+    return _dense_loop_tiled(key, [(logq.device, 0, n, logq, cols)],
+                             positions, batch=batch, n=n, home=logq.device,
+                             rows=rows, max_steps=max_steps, stable=stable,
+                             kernel=kernel)
+
+
+def _padded_bool(K: int, w: int, device) -> torch.Tensor:
+    """A zeroed ``(K, w)`` bool view of a row-padded buffer."""
+    return torch.zeros((K, kops.padded_width(w)), dtype=torch.bool,
+                       device=device)[:, :w]
+
+
+def _gather_cols(parts, home, K: int, n: int) -> torch.Tensor:
+    """The tiles' column blocks as one ``(K, n)`` row-padded block on
+    ``home``: a lone part already there is returned as it is."""
+    if len(parts) == 1 and parts[0].device == home:
+        return parts[0]
+    return mesh_ops.all_gather_cols(parts, home, _padded_bool(K, n, home))
+
+
+class _Gather:
+    """The vertex-axis frontier exchange of a column-blocked BFS: the
+    tiles' ``new`` blocks gathered into the ``(K, n)`` frontier on the
+    shard's device.  With ``overlap`` on a card and more than one tile
+    the gather runs on a side stream, after an event on each tile's
+    stream, and the next step's users wait on its event; otherwise it
+    runs in line."""
+
+    def __init__(self, home, overlap: bool, n_tiles: int):
+        self.home = home
+        self.side = (torch.cuda.Stream(home) if overlap and n_tiles > 1
+                     and home.type == "cuda" else None)
+        self.done = None
+
+    def __call__(self, parts, K: int, n: int) -> torch.Tensor:
+        if self.side is None:
+            return _gather_cols(parts, self.home, K, n)
+        for p in parts:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(p.device))
+            self.side.wait_event(ev)
+            p.record_stream(self.side)
+        with torch.cuda.stream(self.side):
+            out = mesh_ops.all_gather_cols(
+                parts, self.home, _padded_bool(K, n, self.home))
+        self.done = torch.cuda.Event()
+        self.done.record(self.side)
+        return out
+
+    def ready_on(self, frontier, device) -> torch.Tensor:
+        """The gathered frontier for a tile on ``device`` (its stream made
+        to wait for the gather first)."""
+        if self.side is not None and self.done is not None:
+            stream = torch.cuda.current_stream(device)
+            stream.wait_event(self.done)
+            frontier.record_stream(stream)
+        return frontier.to(device, non_blocking=True)
+
+
+def _dense_loop_tiled(key, tiles, positions=None, *, batch: int, n: int,
+                      home, rows=None, max_steps: int = 0,
+                      stable: bool = False, kernel: bool = False,
+                      overlap: bool = False):
+    """The dense/pallas BFS of the batch's rows (``positions``, or the row
+    block ``rows=(lo, hi)``, or all of them), column-blocked over vertex
+    tiles: ``tiles`` is a list over ``v`` of ``(device, c0, c1, logq
+    block (n, c1 - c0), its column form or None)``.  Each tile keeps its
+    columns of ``visited`` and computes its columns of ``new`` from the
+    whole frontier (a library product on ``dense``, the kernel on
+    ``pallas``); the frontier is gathered over the tiles each step
+    (`_Gather`).  One key chain, roots and coins whatever the tiling:
+    positional coins are the columns of the rows' one draw, stable ones
+    key on global vertex ids.  Returns ``(visited (K, n) uint8, counter,
+    roots)`` on ``home``."""
+    if not kernel and torch.backends.cuda.matmul.allow_tf32 \
+            and any(t[0].type == "cuda" for t in tiles):
         raise RuntimeError(
             "the dense backend sums frontier @ logq in float32: set "
             "torch.backends.cuda.matmul.allow_tf32 = False (the default)")
     max_steps = max_steps or n
-    k, roots, visited, bb = _setup(key, batch, n, dev, positions, stable,
-                                   rows)
-    K = visited.shape[0]
+    k, roots, visited0, bb = _setup(key, batch, n, home, positions, stable,
+                                    rows)
+    K = visited0.shape[0]
     row0 = 0 if rows is None else rows[0]
-    uids = torch.arange(n, dtype=torch.int32, device=dev) if stable else None
-    frontier = visited.clone()
-    step = 0
-    while step < max_steps and _frontier_count(frontier):
-        k, sub = prng.split(k)
-        coin = _dense_coins(sub, batch, K, n, uids, bb, dev, row0)
-        if kernel:
-            new = kops.ic_frontier_step(frontier, visited, logq, coin,
-                                        cols=cols).view(torch.bool)
+    one = len(tiles) == 1 and tiles[0][0] == home
+    vis, uids, bbs = [], [], []
+    for dev, c0, c1, _, _ in tiles:
+        if one:
+            blk = visited0
         else:
-            new = activation(frontier.to(torch.float32) @ logq, coin,
-                             visited)
-        visited |= new
-        frontier = new
+            blk = _padded_bool(K, c1 - c0, dev)
+            blk.copy_(visited0[:, c0:c1])
+        vis.append(blk)
+        uids.append(torch.arange(c0, c1, dtype=torch.int32, device=dev)
+                    if stable else None)
+        bbs.append(bb.to(dev) if stable else None)
+    gather = _Gather(home, overlap, len(tiles))
+    frontier = visited0.clone()
+    parts = [frontier]
+    step = 0
+    while step < max_steps and _note_cells(sum(int(p.sum()) for p in parts)):
+        k, sub = prng.split(k)
+        full = (None if stable else
+                _dense_coins(sub, batch, K, n, None, None, home, row0))
+        parts = []
+        for v, (dev, c0, c1, lq, cols) in enumerate(tiles):
+            coin = (_dense_coins(sub, batch, K, n, uids[v], bbs[v], dev)
+                    if stable else full[:, c0:c1].to(dev))
+            f = gather.ready_on(frontier, dev)
+            if kernel:
+                new = kops.ic_frontier_step(f, vis[v], lq, coin,
+                                            cols=cols).view(torch.bool)
+            else:
+                new = activation(f.to(torch.float32) @ lq, coin, vis[v])
+            vis[v] |= new
+            parts.append(new)
+        frontier = gather(parts, K, n)
         step += 1
+    visited = _gather_cols(vis, home, K, n)
     counter = visited.sum(dim=0, dtype=torch.int32)
     return visited.view(torch.uint8), counter, roots
 
@@ -519,8 +643,7 @@ def sample_ic_dense(key, logq, *, batch: int, max_steps: int = 0,
 def sample_ic_dense_stable(key, logq, positions=None, *, batch: int,
                            max_steps: int = 0, placement=None):
     """Identity-keyed dense sampling with ``positions`` row subsets."""
-    if placement is not None:
-        _no_subset(positions)
+    if placement is not None and positions is None:
         return _per_block(placement, batch, lambda dev, rows: _dense_loop(
             key, logq.to(dev), batch=batch, max_steps=max_steps,
             stable=True, rows=rows))
@@ -544,8 +667,7 @@ def sample_ic_sparse_stable(key, edge_src, edge_dst, edge_prob,
                             positions=None, *, n_nodes: int, batch: int,
                             max_steps: int = 0, placement=None):
     """Edge-identity-keyed sparse sampling with ``positions`` subsets."""
-    if placement is not None:
-        _no_subset(positions)
+    if placement is not None and positions is None:
         return _per_block(placement, batch, lambda dev, rows: _sparse_loop(
             key, edge_src.long().to(dev), edge_dst.long().to(dev),
             edge_prob.to(dev), n_nodes=n_nodes, batch=batch,
@@ -573,8 +695,7 @@ def sample_lt_stable(key, dst_offsets, in_src, in_lt_cum, in_lt_total,
                      positions=None, *, batch: int, max_steps: int = 0,
                      max_indeg_log2: int = 32, placement=None):
     """Identity-keyed LT walk with ``positions`` row subsets."""
-    if placement is not None:
-        _no_subset(positions)
+    if placement is not None and positions is None:
         return _per_block(placement, batch, lambda dev, rows: _walk_loop(
             key, dst_offsets.to(dev), in_src.to(dev), in_lt_cum.to(dev),
             in_lt_total.to(dev), batch=batch, max_steps=max_steps,
@@ -614,12 +735,52 @@ class TraversalBackend:
     bind: Callable
 
 
+def _bind_dense_tiled(model, graph: Graph, cfg, *, stable, placement,
+                      kernel):
+    """The dense or pallas sampler column-blocked over a 2D placement's
+    vertex tiles (see the module docstring): logq built once on the host,
+    each tile device given its column blocks and, for pallas, their
+    column forms, once per bound sampler.  Row subsets (``positions``)
+    run unplaced on the first shard's device, bound at first use."""
+    g_host = graph.to("cpu")
+    logq = logq_from_probs(g_host, _edge_probs(model, g_host))
+    starts = [int(x) for x in placement.partition.starts]
+    blocks = {}
+    for row in placement.tiles:
+        for v, dev in enumerate(row):
+            if (dev, v) not in blocks:
+                lq = logq[:, starts[v]:starts[v + 1]].contiguous().to(dev)
+                blocks[(dev, v)] = (lq, column_form(lq) if kernel else None)
+    tiles = [[(dev, starts[v], starts[v + 1]) + blocks[(dev, v)]
+              for v, dev in enumerate(row)] for row in placement.tiles]
+    overlap = bool(getattr(cfg, "overlap", False))
+    home = {}
+
+    def home_sampler():
+        if not home:
+            home["s"] = _bind_dense(model, graph.to(placement.devices[0]),
+                                    cfg, stable=stable, placement=None,
+                                    kernel=kernel)
+        return home["s"]
+
+    def run(key):
+        out = [_dense_loop_tiled(
+            key, tiles[t], batch=cfg.batch, n=graph.n, home=dev,
+            rows=(lo, hi), stable=stable, kernel=kernel, overlap=overlap)
+            for t, (dev, lo, hi) in enumerate(placement.blocks(cfg.batch))]
+        return tuple(tuple(o[i] for o in out) for i in range(3))
+    return _with_subsets(run, home_sampler, stable)
+
+
 def _bind_dense(model, graph: Graph, cfg, *, stable, placement,
                 kernel=False):
+    if placement is not None and placement.tiles is not None:
+        return _bind_dense_tiled(model, graph, cfg, stable=stable,
+                                 placement=placement, kernel=kernel)
     if placement is not None:
         return _placed(lambda g: _bind_dense(
             model, g, cfg, stable=stable, placement=None, kernel=kernel),
-            graph, placement, cfg.batch)
+            graph, placement, cfg.batch, stable)
     logq = logq_from_probs(graph, _edge_probs(model, graph))
     # the frontier step walks logq's column form, which depends on logq
     # alone: build it once per bound sampler, not at every BFS step
@@ -645,7 +806,7 @@ def _bind_pallas(model, graph: Graph, cfg, *, stable, placement):
 def _bind_sparse(model, graph: Graph, cfg, *, stable=False, placement=None):
     if placement is not None:
         return _placed(lambda g: _bind_sparse(model, g, cfg, stable=stable),
-                       graph, placement, cfg.batch)
+                       graph, placement, cfg.batch, stable)
     src, dst = graph.edge_src.long(), graph.edge_dst.long()
     prob = _edge_probs(model, graph)
     if stable:
@@ -671,7 +832,7 @@ def _bind_walk(model, graph: Graph, cfg, *, stable, placement):
     if placement is not None:
         return _placed(lambda g: _bind_walk(model, g, cfg, stable=stable,
                                             placement=None),
-                       graph, placement, cfg.batch)
+                       graph, placement, cfg.batch, stable)
     tables = tuple(t.to(graph.device) for t in model.walk_tables(graph))
     # the search's iteration count needs the largest in-degree: read it
     # once per bound sampler, not at every step

@@ -51,7 +51,9 @@ one tile per (theta shard, vertex shard), each its own tensor on its own
 device in the reference's layout, written by ``arena_commit`` a tile at
 a time and read in place by the sharded selections; its snapshots
 restore onto any layout and into any single-device store.  Its row
-lifecycle and pressure policy wait for ROADMAP A8b.
+lifecycle and pressure policy run tile by tile (each tile's kills
+through its codec's counter kernel, its repairs through
+``arena_commit``), with one live mask per theta shard.
 """
 from __future__ import annotations
 
@@ -213,7 +215,10 @@ class RRRStore(Protocol):
     seed-set queries as covered fractions; ``state()`` is a host tree
     for `repro_torch.checkpoint`.  Streaming adds the row lifecycle
     (``kill_rows``, ``replace_rows``, ``compact``, ``live_count``,
-    ``row_cap``)."""
+    ``row_cap``), ``rows_touching(verts)``, the ``(capacity,) bool``
+    rows holding any of the unique global vertices ``verts``, and
+    ``state_slots()``, the host ``(capacity,) bool`` mask of the slots
+    whose rows ``state()`` holds, in its row order."""
     representation: str
     n: int
     count: int
@@ -225,8 +230,29 @@ class RRRStore(Protocol):
     def add_batch(self, visited, counter=None) -> np.ndarray: ...
     def view(self) -> StoreView: ...
     def hits(self, S) -> torch.Tensor: ...
+    def rows_touching(self, verts) -> torch.Tensor: ...
     def coverage_stats(self) -> tuple[float, int]: ...
     def state(self) -> dict: ...
+    def state_slots(self) -> np.ndarray: ...
+
+
+def _compact_rows(arena, kept: np.ndarray, fill) -> None:
+    """Move ``arena``'s rows ``kept`` (ascending) to its head in place, a
+    block of rows at a time, and fill the rows after them."""
+    step = max(1, CONVERT_BLOCK_ELEMS // max(arena.shape[1], 1))
+    # a kept row only moves toward the head (kept[i] >= i), so each
+    # block's sources are read before any later write reaches them
+    for lo in range(0, kept.size, step):
+        src = torch.as_tensor(kept[lo:lo + step], device=arena.device)
+        arena[lo:lo + src.numel()] = arena.index_select(0, src)
+    arena[kept.size:] = fill
+
+
+def _compact_vec(vec, kept: np.ndarray):
+    """``vec``'s entries ``kept`` at its head, zeros after them."""
+    out = torch.zeros_like(vec)
+    out[:kept.size] = vec[torch.as_tensor(kept, device=vec.device)]
+    return out
 
 
 class _ArenaBase:
@@ -331,6 +357,11 @@ class _ArenaBase:
         mask by the fill prefix, as ``view().valid`` does)."""
         return self.live
 
+    def state_slots(self) -> np.ndarray:
+        """Every slot: ``state()`` holds the whole arena, dead rows and
+        all."""
+        return np.ones(self.capacity, bool)
+
     def drain_remaps(self) -> list[np.ndarray]:
         """Pop the slot remaps recorded since the last drain (recorded
         only while ``track_remaps`` is set): old slot -> new slot, -1 for
@@ -407,20 +438,9 @@ class _ArenaBase:
         for a reclaimed slot), or None when nothing was dead."""
         if self.dead == 0:
             return None
-        keep = self._valid().cpu().numpy()
-        kept = np.flatnonzero(keep)
-        arena = self._arena
-        step = max(1, CONVERT_BLOCK_ELEMS // max(arena.shape[1], 1))
-        # a kept row only moves toward the head (kept[i] >= i), so each
-        # block's sources are read before any later write reaches them
-        for lo in range(0, kept.size, step):
-            src = torch.as_tensor(kept[lo:lo + step], device=self.device)
-            arena[lo:lo + src.numel()] = arena.index_select(0, src)
-        arena[kept.size:] = self._fill_value()
-        sizes = torch.zeros_like(self.sizes)
-        sizes[:kept.size] = self.sizes[torch.as_tensor(kept,
-                                                       device=self.device)]
-        self.sizes = sizes
+        kept = np.flatnonzero(self._valid().cpu().numpy())
+        _compact_rows(self._arena, kept, self._fill_value())
+        self.sizes = _compact_vec(self.sizes, kept)
         remap = np.full(self.capacity, -1, np.int64)
         remap[kept] = np.arange(kept.size)
         self.count = int(kept.size)
@@ -565,6 +585,12 @@ class BitmapStore(_ArenaBase):
         until the arena next changes."""
         return _cached_index_view(self, l_pad, lambda lo, hi: self.R[lo:hi])
 
+    def rows_touching(self, verts) -> torch.Tensor:
+        """Rows whose traversal touched any of ``verts``: a gather of the
+        touched columns."""
+        v = torch.as_tensor(np.asarray(verts, np.int64), device=self.device)
+        return (self.R.index_select(1, v) > 0).any(dim=1)
+
     def hits(self, S) -> torch.Tensor:
         """Covered fraction per query: ``S (Q, L) int`` -> ``(Q,) f32``."""
         with obs.span("count", tier="store", kind="bitmap"):
@@ -705,6 +731,16 @@ class IndexStore(_ArenaBase):
     def view(self) -> StoreView:
         return StoreView("indices", self.R, self._valid(), self.n, self.count)
 
+    def rows_touching(self, verts) -> torch.Tensor:
+        """Rows listing any of ``verts``: a vertex mask gathered at every
+        list entry (the sentinel ``n`` never matches)."""
+        R = self.R
+        mask = torch.zeros(self.n + 1, dtype=torch.bool, device=R.device)
+        mask[torch.as_tensor(np.asarray(verts, np.int64),
+                             device=R.device)] = True
+        return mask.index_select(0, R.reshape(-1).long()).view(
+            R.shape).any(dim=1)
+
     def hits(self, S) -> torch.Tensor:
         """Covered fraction per query: ``S (Q, L) int`` -> ``(Q,) f32``."""
         with obs.span("count", tier="store", kind="indices"):
@@ -735,11 +771,6 @@ class IndexStore(_ArenaBase):
 
 # ------------------------------------------------------- sharded (C1) ----
 
-#: what the row lifecycle, the pressure policy and the meshed stream and
-#: serving layers wait for
-A8B = "the meshed row lifecycle and streaming (ROADMAP A8b)"
-
-
 def _tile_codec(kind: str, n_cols: int, s_pad=None):
     """Per-tile codec of a meshed arena (``bitmap``/``packed``/
     ``compressed`` over a tile's ``n_cols`` columns)."""
@@ -753,8 +784,12 @@ class BatchPlacement:
     """Where a meshed store wants a batch's rows: theta shard ``t``
     samples and holds rows ``[t * b, (t + 1) * b)`` (``b = ceil(B /
     Dt)``, the last blocks cut at ``B``) on ``devices[t]``, the device
-    of its first vertex tile."""
+    of its first vertex tile.  On a 2D mesh ``tiles`` is the store's
+    ``[Dt][Dv]`` grid of tile devices and ``partition`` its vertex
+    blocks: the dense samplers then column-block their BFS over them."""
     devices: tuple
+    tiles: tuple = None
+    partition: object = None
 
     def blocks(self, batch: int) -> list:
         """``[(device, lo, hi)]`` of each theta shard's row block of a
@@ -780,11 +815,13 @@ class ShardedStore:
         n_local``; pad columns stay zero), encoded by the tile codec
         (``bitmap``, ``packed`` or ``compressed``), rows at a 16-byte
         stride so the kernels read them with 16-byte loads;
-      * ``cap_local`` is a power of two, grown per shard by doubling;
+      * ``cap_local`` is a power of two, grown per shard by doubling
+        (under a `StorePressurePolicy` it is clamped to the per-shard
+        cap ``row_cap // D``, which need not be one);
       * counter partials ``(Dt, n_pad)`` (tile ``(t, v)`` counts its own
-        rows over its own columns), ``sizes`` per theta shard (on the
-        shard's first tile's device), per-shard row counts with a host
-        mirror.
+        rows over its own columns), ``sizes`` and the live bits per theta
+        shard (on the shard's first tile's device, the live bits with a
+        host mirror), per-shard row counts with a host mirror.
 
     ``add_batch`` splits a batch into ``ceil(B / D)``-row blocks and
     ``Dv`` column blocks; every bitmap or packed tile writes its block
@@ -796,20 +833,32 @@ class ShardedStore:
 
     Reads hand the tiles over: ``view()`` is a `StoreView` whose ``R``
     is the ``[Dt][Dv]`` grid of tile views and whose ``valid`` holds one
-    row mask per theta shard — the sharded selections consume them in
-    place, and no concatenation of the arena is ever made.  Selection,
-    ``hits`` and the counter are permutation-invariant over rows and
-    exact integer sums over columns, so a store fed the batches of a
-    `BitmapStore` answers bitwise as it does on any mesh shape.
+    row mask per theta shard (filled and live) — the sharded selections
+    consume them in place, and no concatenation of the arena is ever
+    made.  Selection, ``hits`` and the counter are permutation-invariant
+    over rows and exact integer sums over columns, so a store fed the
+    batches of a `BitmapStore` answers bitwise as it does on any mesh
+    shape.
 
-    ``state``/``from_state`` are elastic: a snapshot holds the valid
-    rows compacted in shard order, decoded and in global vertex order
-    (kind ``"sharded"``, the reference's format), so it restores onto
-    any layout — none, 1D or 2D, equal or balanced, any codec.
+    The **row lifecycle** runs tile by tile, and nothing row-sized
+    crosses tiles: ``kill_rows`` subtracts each tile's dead rows from its
+    own counter partial through the tile codec's counter
+    (``coverage_matvec``, ``packed_count`` or ``token_count``);
+    ``replace_rows`` writes each tile's column slice of the targets in
+    its theta block (bitmap and packed tiles through ``arena_commit``,
+    token tiles widened first); ``compact`` moves each shard's live rows
+    to the head of its block and returns the global remap.  Under a
+    `StorePressurePolicy` each shard holds at most ``row_cap // D`` rows:
+    a write compacts, then walks the codec ladder (the tiles decoded and
+    re-encoded tile by tile), then evicts each over-full shard's oldest
+    rows.  Growth renumbers the global slots (``t * cap + i`` becomes
+    ``t * new_cap + i``), and ``drain_remaps`` hands every renumbering,
+    growth and compaction alike, to a provenance tracker.
 
-    The row lifecycle (``kill_rows``, ``replace_rows``, ``compact``),
-    a `StorePressurePolicy` and slot remaps raise `NotImplementedError`
-    (ROADMAP A8b).
+    ``state``/``from_state`` are elastic: a snapshot holds the live rows
+    compacted in shard order, decoded and in global vertex order (kind
+    ``"sharded"``, the reference's format), so it restores onto any
+    layout — none, 1D or 2D, equal or balanced, any codec.
     """
 
     #: rows a restore feeds per `add_batch` (bounds the host -> device
@@ -822,9 +871,6 @@ class ShardedStore:
                  partition=None, codec: str = "bitmap", s_pad=None):
         if mesh is None:
             raise ValueError("ShardedStore needs a repro_torch.mesh.Mesh")
-        if policy is not None:
-            raise NotImplementedError(
-                f"a StorePressurePolicy on a sharded store: {A8B}")
         if isinstance(theta_axes, str):
             theta_axes = (theta_axes,)
         self.n = int(n)
@@ -849,14 +895,26 @@ class ShardedStore:
         self.codec = _tile_codec(codec, self.n_local, s_pad)
         self.cap_local = next_pow2(-(-int(capacity) // self.D))
         self.version = 0
-        self.policy = None
+        self.policy = policy
         self.track_remaps = False
+        self._remaps: list[np.ndarray] = []
         self._counts_host = np.zeros((self.D,), np.int64)
+        if policy is not None:
+            cap = policy.row_cap(self._row_bytes())
+            if cap // self.D < 1:
+                raise ValueError(
+                    f"policy row cap {cap} is below one row per shard "
+                    f"(D={self.D})")
+            self.cap_local = min(self.cap_local, cap // self.D)
+        self._live_host = np.ones((self.D * self.cap_local,), bool)
         self._tiles = [[self._new_tile(t, v, self.cap_local)
                         for v in range(self.Dv)] for t in range(self.D)]
         self._sizes = [torch.zeros(self.cap_local, dtype=torch.int32,
                                    device=self._home(t))
                        for t in range(self.D)]
+        self._live = [torch.ones(self.cap_local, dtype=torch.bool,
+                                 device=self._home(t))
+                      for t in range(self.D)]
         self._counter = [[torch.zeros(self.n_local, dtype=torch.int32,
                                       device=self.devices[t][v])
                           for v in range(self.Dv)] for t in range(self.D)]
@@ -911,8 +969,58 @@ class ShardedStore:
 
     @property
     def counts(self) -> np.ndarray:
-        """Per-shard valid row counts ``(D,)`` (a host copy)."""
+        """Per-shard filled row counts ``(D,)`` (a host copy)."""
         return self._counts_host.copy()
+
+    def _filled_host(self) -> np.ndarray:
+        """Host ``(capacity,) bool`` per-shard fill-prefix mask."""
+        iota = np.arange(self.cap_local)
+        return (iota[None, :] < self._counts_host[:, None]).reshape(-1)
+
+    @property
+    def dead(self) -> int:
+        """Filled rows whose live bit is cleared (stale or evicted)."""
+        return int((self._filled_host() & ~self._live_host).sum())
+
+    @property
+    def live_count(self) -> int:
+        """Filled rows that are still live (the streaming theta)."""
+        return self.count - self.dead
+
+    def _row_bytes(self) -> int:
+        """At-rest bytes a global row, what a byte cap meters: ``n`` for
+        bitmap tiles (the reference's accounting), otherwise the ``Dv``
+        tiles' codec width times its element size."""
+        if self.codec.kind == "bitmap":
+            return self.n
+        item = torch.empty((), dtype=self.codec.dtype).element_size()
+        return self.Dv * self.codec.width * item
+
+    @property
+    def row_cap(self) -> int | None:
+        """The policy's row capacity floored to a multiple of ``D`` (each
+        shard holds ``row_cap // D`` rows), or None."""
+        if self.policy is None:
+            return None
+        return (self.policy.row_cap(self._row_bytes()) // self.D) * self.D
+
+    def live_mask(self) -> torch.Tensor:
+        """``(capacity,) bool`` live bits in global slot order, on the
+        first tile's device (True for unfilled slots too)."""
+        return mesh_ops.all_gather(self._live, self.device).reshape(-1)
+
+    def state_slots(self) -> np.ndarray:
+        """The filled live slots: ``state()`` holds the live rows of every
+        shard compacted in shard order."""
+        return self._filled_host() & self._live_host
+
+    def drain_remaps(self) -> list[np.ndarray]:
+        """Pop the slot remaps recorded since the last drain (recorded
+        only while ``track_remaps`` is set): compactions and per-shard
+        growth alike, old global slot -> new, -1 for a reclaimed slot,
+        to apply in order."""
+        out, self._remaps = self._remaps, []
+        return out
 
     @property
     def arena_bytes(self) -> int:
@@ -927,8 +1035,13 @@ class ShardedStore:
     @property
     def batch_placement(self) -> BatchPlacement:
         """The placement a sampler samples its batches under, so each
-        theta shard's rows are born on the shard's device."""
-        return BatchPlacement(tuple(self._home(t) for t in range(self.D)))
+        theta shard's rows are born on the shard's device; on a 2D mesh
+        it also names the tiles and the vertex blocks."""
+        return BatchPlacement(
+            tuple(self._home(t) for t in range(self.D)),
+            tiles=(tuple(tuple(row) for row in self.devices)
+                   if self.Dv > 1 else None),
+            partition=self.partition if self.Dv > 1 else None)
 
     @property
     def sizes(self) -> torch.Tensor:
@@ -947,24 +1060,51 @@ class ShardedStore:
 
     # ---------------------------------------------------------- writing ----
 
-    def _grow_rows(self, incoming: int):
-        need = int(self._counts_host.max(initial=0)) + int(incoming)
-        new_cap = next_pow2(need, self.cap_local)
-        if new_cap == self.cap_local:
-            return
-        pad = new_cap - self.cap_local
+    def _resize_rows(self, new_cap: int) -> None:
+        """Give every shard ``new_cap`` local rows (growth, or a cut once
+        wider tokens lowered the cap; the rows kept stay in place).  The
+        shard blocks move: global slot ``t * cap_local + i`` becomes
+        ``t * new_cap + i``, recorded for provenance trackers."""
+        old = self.cap_local
+        keep = min(old, new_cap)
         for t in range(self.D):
             for v in range(self.Dv):
                 tile = self._new_tile(t, v, new_cap)
-                tile[:self.cap_local] = self._tiles[t][v]
+                tile[:keep] = self._tiles[t][v][:keep]
                 self._tiles[t][v] = tile
-            self._sizes[t] = torch.cat([self._sizes[t], torch.zeros(
-                pad, dtype=torch.int32, device=self._home(t))])
+            self._sizes[t] = self._resized(self._sizes[t], new_cap, 0)
+            self._live[t] = self._resized(self._live[t], new_cap, True)
             for v in range(self.Dv if self._tile_sizes else 0):
-                self._tile_sizes[t][v] = torch.cat([
-                    self._tile_sizes[t][v], torch.zeros(
-                        pad, dtype=torch.int32, device=self.devices[t][v])])
+                self._tile_sizes[t][v] = self._resized(
+                    self._tile_sizes[t][v], new_cap, 0)
+        live_host = np.ones((self.D * new_cap,), bool)
+        remap = np.full((self.D * old,), -1, np.int64)
+        for t in range(self.D):
+            remap[t * old:t * old + keep] = t * new_cap + np.arange(keep)
+            live_host[t * new_cap:t * new_cap + keep] = \
+                self._live_host[t * old:t * old + keep]
+        self._live_host = live_host
+        if self.track_remaps:
+            self._remaps.append(remap)
         self.cap_local = new_cap
+        self._idx_cache = None
+        self.version += 1
+
+    @staticmethod
+    def _resized(vec, rows: int, fill):
+        out = torch.full((rows,), fill, dtype=vec.dtype, device=vec.device)
+        k = min(rows, vec.shape[0])
+        out[:k] = vec[:k]
+        return out
+
+    def _grow_rows(self, incoming: int):
+        need = int(self._counts_host.max(initial=0)) + int(incoming)
+        new_cap = next_pow2(need, self.cap_local)
+        cap = self.row_cap
+        if cap is not None:
+            new_cap = min(new_cap, max(cap // self.D, self.cap_local))
+        if new_cap != self.cap_local:
+            self._resize_rows(new_cap)
 
     def _row_blocks(self, visited) -> list:
         """One row block per theta shard: a placed batch (a sequence of
@@ -1001,6 +1141,24 @@ class ShardedStore:
         bits[:, :cols.shape[1]] = cols
         return bits
 
+    def _set_codec(self, codec) -> None:
+        """Morph every tile to ``codec`` in place, tile by tile (decoded
+        and re-encoded a block of rows at a time: nothing crosses
+        tiles); counters and sizes stay."""
+        from repro_torch.core.pack.stores import _recode
+        if codec == self.codec:
+            return
+        old_codec = self.codec
+        old = [[self.tile(t, v) for v in range(self.Dv)]
+               for t in range(self.D)]
+        self.codec = codec
+        for t in range(self.D):
+            for v in range(self.Dv):
+                self._tiles[t][v] = self._new_tile(t, v, self.cap_local)
+                _recode(old[t][v], self.tile(t, v), old_codec, codec)
+        self._idx_cache = None
+        self.version += 1
+
     def _widen_tokens(self, blocks) -> None:
         """Grow the token tiles' ``s_pad`` (a power of two) to hold the
         most tokens any row of ``blocks`` needs in any vertex tile; the
@@ -1009,6 +1167,7 @@ class ShardedStore:
             MIN_TOKEN_PAD, TokenCodec, tokens_needed)
         need = 0
         for t, block in enumerate(blocks):
+            t = min(t, self.D - 1)
             for v in range(self.Dv if block.shape[0] else 0):
                 need = max(need, int(tokens_needed(
                     self._tile_bits(block, t, v)).max()))
@@ -1025,41 +1184,145 @@ class ShardedStore:
         self._idx_cache = None
         self.version += 1
 
-    def _write_tile(self, t: int, v: int, lo: int, block, sizes) -> None:
-        """Write tile ``(t, v)``'s columns of a row block at local row
-        ``lo``: the block's column sums into the tile's counter partial,
-        its row sums into ``sizes``."""
+    def _compress_step(self) -> bool:
+        """Morph the tiles one step down the policy's ladder (packed ->
+        compressed: the token width covers every resident row of every
+        tile); True when a step was taken."""
+        from repro_torch.core.pack.codec import MIN_TOKEN_PAD, TokenCodec
+        from repro_torch.core.pack.stores import _max_tokens
+        ladder = self.policy.ladder if self.policy is not None else ()
+        nxt = _ladder_next(self.codec.kind, ladder)
+        if nxt is None:
+            return False
+        if nxt == "compressed":
+            need = max(_max_tokens(self.tile(t, v), self.codec)
+                       for t in range(self.D) for v in range(self.Dv))
+            new = TokenCodec(self.n_local,
+                             next_pow2(max(need, 1), MIN_TOKEN_PAD))
+        else:
+            new = _tile_codec(nxt, self.n_local)
+        self._set_codec(new)
+        obs.counter("store.compress_steps").add(1)
+        return True
+
+    def _ensure_room(self, b: int) -> None:
+        """Per-shard pressure before a write of ``b`` rows a shard:
+        compact away dead rows first, then climb the policy's ladder
+        (each step shrinks a row's bytes and so raises a byte cap's row
+        cap), and only then evict each over-full shard's oldest live
+        rows.  A shard holds at most ``row_cap // D`` rows; ``b = 0``
+        brings tiles whose rows grew wider back under the cap, which
+        also cuts ``cap_local`` to it (the reference keeps the larger
+        tiles, past its byte cap)."""
+        cap = self.row_cap
+        if cap is None:
+            return
+        local_cap = cap // self.D
+
+        def over() -> bool:
+            return int(self._counts_host.max(initial=0)) + b > local_cap
+        if over() and self.dead:
+            self.compact()
+        while over() and self._compress_step():
+            cap = self.row_cap
+            local_cap = cap // self.D
+        if b > local_cap:
+            raise ValueError(
+                f"batch of {b} rows per shard exceeds the per-shard "
+                f"policy cap of {local_cap} (row cap {cap} over "
+                f"{self.D} shards)")
+        if over():
+            self.compact()
+            excess = self._counts_host + b - local_cap
+            if (excess > 0).any():
+                mask = np.zeros((self.capacity,), bool)
+                for t in range(self.D):
+                    if excess[t] > 0:
+                        lo = t * self.cap_local
+                        mask[lo:lo + int(excess[t])] = True
+                evicted = self.kill_rows(mask)
+                obs.counter("store.rows_evicted").add(evicted)
+                self.compact()
+        if self.cap_local > local_cap:
+            self._resize_rows(local_cap)
+
+    def _encode_tile(self, t: int, v: int, block, out, sizes) -> None:
+        """Encode tile ``(t, v)``'s columns of a row block into ``out``
+        (its ``k`` rows of the tile's at-rest form), add the block's
+        column sums to the tile's counter partial and write its row sums
+        into ``sizes``: one ``arena_commit`` launch on bitmap and packed
+        tiles, PyTorch on token ones."""
         kind = self.codec.kind
         counter = self._counter[t][v]
         if kind in kops.COMMIT_KINDS:
             cols = self._tile_cols(block, t, v)
-            k, w = cols.shape
-            width = w if kind == "bitmap" else -(-w // 8)
-            out = self._tiles[t][v][lo:lo + k, :width]
-            kops.arena_commit(kops.commit_rows(cols), out, counter[:w],
-                              kind=kind, sizes=sizes)
+            w = cols.shape[1]
+            kops.arena_commit(kops.commit_rows(cols), out[:, :self._width(w)],
+                              counter[:w], kind=kind, sizes=sizes)
         else:
             bits = self._tile_bits(block, t, v)
-            k = bits.shape[0]
-            self._tiles[t][v][lo:lo + k, :self.codec.width] = \
-                self.codec.encode(bits)
+            out[:, :self.codec.width] = self.codec.encode(bits)
             counter += bits.sum(dim=0, dtype=torch.int32)
             sizes.copy_(bits.sum(dim=1, dtype=torch.int32))
+
+    def _width(self, w: int) -> int:
+        """Elements a row of ``w`` live columns fills in a commit tile."""
+        return w if self.codec.kind == "bitmap" else -(-w // 8)
+
+    def _write_block(self, t: int, block, at) -> None:
+        """Write theta shard ``t``'s row block into its tiles, with the
+        rows' sizes and live bits: at ``at``, a slice of local rows
+        (appended: encoded in place) or their indices (a repair: encoded
+        into a staging block, then scattered)."""
+        in_place = isinstance(at, slice)
+        k = int(block.shape[0])
+        parts = []
+        for v in range(self.Dv):
+            dev = self.devices[t][v]
+            if in_place:
+                out = self._tiles[t][v][at]
+                sizes = (self._sizes[t][at] if self.Dv == 1
+                         else self._tile_sizes[t][v][at])
+            else:
+                # zeros: a row's pad columns and bytes stay zero
+                out = torch.zeros((k, self.row_stride),
+                                  dtype=self.codec.dtype, device=dev)
+                sizes = torch.empty(k, dtype=torch.int32, device=dev)
+            self._encode_tile(t, v, block, out, sizes)
+            if not in_place:
+                self._tiles[t][v][at.to(dev)] = out
+                if self.Dv > 1:
+                    self._tile_sizes[t][v][at.to(dev)] = sizes
+            parts.append(sizes)
+        home = at if in_place else at.to(self._home(t))
+        if self.Dv > 1:
+            self._sizes[t][home] = mesh_ops.psum(parts, self._home(t))
+        elif not in_place:
+            self._sizes[t][home] = parts[0]
+        self._live[t][home] = True
 
     def add_batch(self, visited, counter=None) -> np.ndarray:
         """Append ``visited (B, n)`` 0/1 rows (or a placed batch: one row
         block per theta shard), block-split across the tiles.  ``counter``
         is not needed: each tile counts its own block.  Returns the
-        global slot of each batch row."""
+        global slot of each batch row.  Under a `StorePressurePolicy`
+        the write may first compact, morph and evict per shard."""
         del counter
         with obs.span("store.write", tier="store", kind="sharded"):
             blocks = self._row_blocks(visited)
             B = sum(int(b.shape[0]) for b in blocks)
             if B == 0:
                 return np.zeros((0,), np.int64)
+            b = -(-B // self.D)
             if self.codec.kind == "compressed":
                 self._widen_tokens(blocks)
-            b = -(-B // self.D)
+            kind = self.codec.kind
+            self._ensure_room(b)
+            if self.codec.kind == "compressed" and kind != "compressed":
+                # the ladder sized its tokens for the resident rows: size
+                # them for this batch too, and fit the cap again
+                self._widen_tokens(blocks)
+                self._ensure_room(b)
             self._grow_rows(b)
             slots = np.empty((B,), np.int64)
             for t, block in enumerate(blocks):
@@ -1068,15 +1331,8 @@ class ShardedStore:
                     continue
                 c = int(self._counts_host[t])
                 slots[t * b:t * b + k] = t * self.cap_local + c + np.arange(k)
-                home = self._sizes[t][c:c + k]
-                if self.Dv == 1:
-                    self._write_tile(t, 0, c, block, home)
-                else:
-                    parts = [self._tile_sizes[t][v][c:c + k]
-                             for v in range(self.Dv)]
-                    for v, part in enumerate(parts):
-                        self._write_tile(t, v, c, block, part)
-                    home.copy_(mesh_ops.psum(parts, home.device))
+                self._write_block(t, block.to(self._home(t)),
+                                  slice(c, c + k))
                 self._counts_host[t] += k
             self._note_write(B)
         return slots
@@ -1091,31 +1347,125 @@ class ShardedStore:
 
     # ----------------------------------------------------- row lifecycle ----
 
+    def _tile_contrib(self, t: int, v: int, mask) -> torch.Tensor:
+        """Tile ``(t, v)``'s counter partial over the masked local rows,
+        from the tile codec's counter kernel."""
+        tile, kind = self.tile(t, v), self.codec.kind
+        if kind == "bitmap":
+            return kops.coverage_matvec(mask, tile).to(torch.int32)
+        if kind == "packed":
+            return kops.packed_count(tile, mask, n=self.n_local)
+        return kops.token_count(tile, mask, n=self.n_local)
+
     def kill_rows(self, dead) -> int:
-        raise NotImplementedError(f"kill_rows on a sharded store: {A8B}")
+        """Mark rows dead shard by shard: each tile subtracts its dead
+        rows' contribution from its own counter partial (nothing crosses
+        tiles).  ``dead`` is a global ``(capacity,) bool`` mask (host or
+        device); bits outside the filled, live rows are ignored.  Returns
+        the number of newly dead rows."""
+        dead = (dead.cpu().numpy() if isinstance(dead, torch.Tensor)
+                else np.asarray(dead))
+        dead = dead.astype(bool) & self._filled_host() & self._live_host
+        k = int(dead.sum())
+        if k == 0:
+            return 0
+        cap = self.cap_local
+        for t in range(self.D):
+            dt = dead[t * cap:(t + 1) * cap]
+            if not dt.any():
+                continue
+            mask = torch.from_numpy(dt).to(self._home(t))
+            for v in range(self.Dv):
+                m = mask.to(self.devices[t][v])
+                self._counter[t][v] -= self._tile_contrib(t, v, m)
+                if self._tile_sizes is not None:
+                    self._tile_sizes[t][v].masked_fill_(m, 0)
+            self._sizes[t].masked_fill_(mask, 0)
+            self._live[t] &= ~mask
+        self._live_host &= ~dead
+        self.version += 1
+        obs.counter("store.rows_killed").add(k)
+        return k
 
     def replace_rows(self, idx, rows) -> None:
-        raise NotImplementedError(f"replace_rows on a sharded store: {A8B}")
+        """Write fresh ``rows (K, n)`` 0/1 into the dead slots ``idx (K,)``
+        and revive them (the streaming refresh write): each tile writes
+        its own column slice of the targets in its theta block.  Targets
+        must be filled, dead slots; entries of -1 are padding, neither
+        stored nor counted.  Token tiles widen first; under a policy the
+        store then fits its cap again (a widening lowers it)."""
+        idx = np.asarray(idx, np.int64).reshape(-1)
+        real = idx >= 0
+        k = int(real.sum())
+        if k == 0:
+            return
+        tgt = idx[real]
+        if ((tgt >= self.capacity).any() or not self._filled_host()[tgt].all()
+                or self._live_host[tgt].any()):
+            raise ValueError("replace_rows targets must be filled, dead "
+                             "slots (kill_rows them first)")
+        with obs.span("store.write", tier="store", kind="sharded-replace"):
+            rows = torch.as_tensor(rows)
+            if k != rows.shape[0]:
+                rows = rows.index_select(0, torch.as_tensor(
+                    np.flatnonzero(real), device=rows.device))
+            if self.codec.kind == "compressed":
+                self._widen_tokens([rows])
+            cap = self.cap_local
+            for t in range(self.D):
+                sel = np.flatnonzero(tgt // cap == t)
+                if not sel.size:
+                    continue
+                home = self._home(t)
+                block = rows.index_select(0, torch.as_tensor(
+                    sel, device=rows.device)).to(home)
+                self._write_block(t, block, torch.as_tensor(
+                    tgt[sel] - t * cap, device=home))
+            self._live_host[tgt] = True
+            self.version += 1
+        obs.counter("store.rows_replaced").add(k)
+        self._ensure_room(0)
 
-    def compact(self):
-        raise NotImplementedError(f"compact on a sharded store: {A8B}")
-
-    def drain_remaps(self) -> list:
-        raise NotImplementedError(f"slot remaps of a sharded store: {A8B}")
-
-    def _compress_step(self) -> bool:
-        raise NotImplementedError(
-            f"the codec ladder on a sharded store: {A8B}")
+    def compact(self) -> np.ndarray | None:
+        """Move each shard's live rows to the head of its block in place
+        (their order kept: the oldest first, the FIFO order eviction
+        relies on), reclaiming dead slots shard by shard.  Returns the
+        global old -> new slot remap (-1 for a reclaimed slot), or None
+        when nothing was dead."""
+        if self.dead == 0:
+            return None
+        keep = self._filled_host() & self._live_host
+        cap = self.cap_local
+        remap = np.full((self.capacity,), -1, np.int64)
+        for t in range(self.D):
+            kept = np.flatnonzero(keep[t * cap:(t + 1) * cap])
+            remap[t * cap + kept] = t * cap + np.arange(kept.size)
+            if kept.size != self._counts_host[t]:
+                for v in range(self.Dv):
+                    _compact_rows(self._tiles[t][v], kept, self.codec.fill)
+                    if self._tile_sizes is not None:
+                        self._tile_sizes[t][v] = _compact_vec(
+                            self._tile_sizes[t][v], kept)
+                self._sizes[t] = _compact_vec(self._sizes[t], kept)
+            self._counts_host[t] = kept.size
+            self._live[t] = torch.ones(cap, dtype=torch.bool,
+                                       device=self._home(t))
+        self._live_host = np.ones((self.capacity,), bool)
+        self.version += 1
+        obs.counter("store.compactions").add(1)
+        if self.track_remaps:
+            self._remaps.append(remap)
+        return remap
 
     # ---------------------------------------------------------- reading ----
 
     def valid_mask(self) -> tuple:
-        """One ``(cap_local,) bool`` mask of the filled rows per theta
-        shard, on the shard's device (every row lives until the meshed
-        row lifecycle, A8b)."""
+        """One ``(cap_local,) bool`` mask of the filled, live rows per
+        theta shard, on the shard's device."""
         return tuple(
-            torch.arange(self.cap_local, device=self._home(t))
-            < int(self._counts_host[t]) for t in range(self.D))
+            (torch.arange(self.cap_local, device=self._home(t))
+             < int(self._counts_host[t])) & self._live[t]
+            for t in range(self.D))
 
     def view(self) -> StoreView:
         """The tiles in place: ``R`` is the ``[Dt][Dv]`` grid of tile
@@ -1172,9 +1522,14 @@ class ShardedStore:
             out.append(mesh_ops.psum_or(parts, self._home(t)))
         return mesh_ops.all_gather(out, self.device).reshape(-1)
 
+    def rows_touching(self, verts) -> torch.Tensor:
+        """``rows_touching_cols`` of every vertex in ``verts``."""
+        return self.rows_touching_cols(verts, np.ones(len(verts), bool))
+
     def coverage_stats(self) -> tuple[float, int]:
-        """(avg fractional set coverage, max set size) over stored sets."""
-        return _coverage_stats(self.sizes, self.count, self.n)
+        """(avg fractional set coverage, max set size) over live sets
+        (killed rows have their sizes zeroed)."""
+        return _coverage_stats(self.sizes, self.live_count, self.n)
 
     def max_local_size(self) -> int:
         """Max per-vertex-shard set size over valid rows — the statistic
@@ -1222,23 +1577,25 @@ class ShardedStore:
 
     def state(self) -> dict:
         """Host snapshot (kind ``"sharded"``, the reference's format): the
-        valid rows of every shard compacted in shard order, decoded per
-        tile and put back in global vertex order, so any layout restores
-        it; ``rep`` names the tile codec."""
+        live rows of every shard compacted in shard order (dead rows
+        dropped), decoded per tile and put back in global vertex order,
+        so any layout restores it; ``rep`` names the tile codec."""
         rows, sizes = [], []
         for t in range(self.D):
             c = int(self._counts_host[t])
-            if c == 0:
+            live = self._live_host[t * self.cap_local:t * self.cap_local + c]
+            if not live.any():
                 continue
             rows.append(np.concatenate(
                 [self.codec.decode_np(self.tile(t, v)[:c].cpu().numpy())
-                 [:, :self.col_width[v]] for v in range(self.Dv)], axis=1))
-            sizes.append(self._sizes[t][:c].cpu().numpy())
+                 [:, :self.col_width[v]] for v in range(self.Dv)],
+                axis=1)[live])
+            sizes.append(self._sizes[t][:c].cpu().numpy()[live])
         return {
             "kind": np.asarray("sharded"),
             "rep": np.asarray(self.codec.kind),
             "n": np.int64(self.n),
-            "count": np.int64(self.count),
+            "count": np.int64(self.live_count),
             "R": (np.concatenate(rows).astype(np.uint8, copy=False) if rows
                   else np.zeros((0, self.n), np.uint8)),
             "sizes": (np.concatenate(sizes) if sizes

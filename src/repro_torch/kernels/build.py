@@ -82,13 +82,21 @@ def build_all(names=SOURCES) -> float:
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
         errors = []
-        for name, out, tmp, proc in procs:
-            log, _ = proc.communicate()
-            (BUILD_DIR / f"{name}.log").write_text(log)
-            if proc.returncode != 0:
-                errors.append(f"--- {name}.cu (exit {proc.returncode})\n{log}")
-            else:
-                os.replace(tmp, out)
+        try:
+            for name, out, tmp, proc in procs:
+                log, _ = proc.communicate()
+                (BUILD_DIR / f"{name}.log").write_text(log)
+                if proc.returncode != 0:
+                    errors.append(
+                        f"--- {name}.cu (exit {proc.returncode})\n{log}")
+                else:
+                    os.replace(tmp, out)
+        finally:
+            # an interrupted build leaves no compiler running
+            for *_, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
         return time.perf_counter() - t0

@@ -14,6 +14,9 @@
 // -expm1((double)acc)), new = rand < p && !visited.  The plain PyTorch
 // version walks the same form in the same order and shares the epilogue,
 // so the two agree bitwise.  No atomics, no tensor cores, no TF32.
+// A meshed BFS hands a column block of logq: n frontier vertices (the
+// form's rows) and n_out output columns (its columns); each column's sum
+// is the same as in the whole table.
 //
 // Bound on an H100: bytes, 7 B n (frontier, visited, out one byte a cell,
 // rand four) + 8 nnz + 4 (n + 1) (the form) at 3.35 TB/s, against one f32
@@ -93,13 +96,13 @@ __device__ __forceinline__ uint32_t row_bits(const uint8_t* __restrict__ f,
 // the frontier packed vertex-major: words[t * ldw + v] bit r is
 // frontier[32 t + r, v] != 0, zero for v in [n, ldw).  A warp packs 32
 // vertices of one row tile: a lane loads 32 bytes of its row and the warp
-// transposes the 32 x 32 bits.  The block of the last vertices also
-// zeroes the output's row padding [n, ld_o).
+// transposes the 32 x 32 bits.  The first block also zeroes the output's
+// row padding [n_out, ld_o).
 __global__ void __launch_bounds__(256)
 pack_frontier_kernel(const uint8_t* __restrict__ frontier, int64_t ld_f,
                      uint32_t* __restrict__ words, int ldw,
                      uint8_t* __restrict__ out, int64_t ld_o, int B, int n,
-                     int aligned) {
+                     int n_out, int aligned) {
   const int lane = threadIdx.x & 31;
   const int g = 32 * (blockIdx.x * 8 + (threadIdx.x >> 5));
   if (g >= ldw) return;
@@ -109,8 +112,8 @@ pack_frontier_kernel(const uint8_t* __restrict__ frontier, int64_t ld_f,
               : 0u;
   const uint32_t w = transpose32(m, lane);       // lane k: vertex g + k
   if (g + lane < ldw) words[(int64_t)blockIdx.y * ldw + g + lane] = w;
-  if (g <= n - 1 && n - 1 < g + 32 && row < B)
-    for (int64_t c = n; c < ld_o; ++c) out[row * ld_o + c] = 0;
+  if (g == 0 && row < B)
+    for (int64_t c = n_out; c < ld_o; ++c) out[row * ld_o + c] = 0;
 }
 
 // copy a row tile's packed words for vertices [lo, lo + span) into fw
@@ -166,7 +169,7 @@ ic_frontier_kernel(const uint32_t* __restrict__ words, int ldw,
                    const float* __restrict__ vals,
                    const float* __restrict__ rand, int64_t ld_r,
                    uint8_t* __restrict__ out, int64_t ld_o, int B, int n,
-                   int fw_words) {
+                   int n_out, int fw_words) {
   extern __shared__ uint32_t smem[];
   __shared__ int cols_s[2];                // this block's columns
   __shared__ int ptr_s[kRound + 1];        // col_ptr over the round
@@ -179,11 +182,12 @@ ic_frontier_kernel(const uint32_t* __restrict__ words, int ldw,
   // so a block of hub columns is no longer than the others
   if (threadIdx.x < 2) {
     const int x = blockIdx.x + threadIdx.x;
-    const long long total = __ldg(col_ptr + n) + (long long)kColW * n;
+    const long long total =
+        __ldg(col_ptr + n_out) + (long long)kColW * n_out;
     cols_s[threadIdx.x] =
         x == 0 ? 0 : x == (int)gridDim.x
-                         ? n
-                         : weighted_bound(col_ptr, n,
+                         ? n_out
+                         : weighted_bound(col_ptr, n_out,
                                           (total * x + gridDim.x - 1) /
                                               gridDim.x);
   }
@@ -328,8 +332,9 @@ extern "C" int repro_ic_frontier_step(const void* frontier, long long ld_f,
                                       const void* vals, const void* rand,
                                       long long ld_r, void* out,
                                       long long ld_o, void* words, int ldw,
-                                      int batch, int n, void* stream) {
-  if (batch <= 0 || n <= 0) return 0;
+                                      int batch, int n, int n_out,
+                                      void* stream) {
+  if (batch <= 0 || n <= 0 || n_out <= 0) return 0;
   // the SM count and the dynamic shared memory allowance are a device's
   // own: read and set once for each device a launch lands on
   constexpr int kMaxDevices = 64;
@@ -351,10 +356,10 @@ extern "C" int repro_ic_frontier_step(const void* frontier, long long ld_f,
   const dim3 pgrid((unsigned)((ldw + 255) / 256), (unsigned)row_tiles);
   pack_frontier_kernel<<<pgrid, 256, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)frontier, (int64_t)ld_f, (uint32_t*)words, ldw,
-      (uint8_t*)out, (int64_t)ld_o, batch, n, aligned);
+      (uint8_t*)out, (int64_t)ld_o, batch, n, n_out, aligned);
   // about kBlocksPerSm blocks a SM over the grid, a column tile no
   // narrower than 32 columns on average
-  const long long widths = (n + 31) / 32;
+  const long long widths = (n_out + 31) / 32;
   const long long want =
       (kBlocksPerSm * (long long)sms + row_tiles - 1) / row_tiles;
   const long long col_tiles = want < widths ? want : widths;
@@ -365,6 +370,6 @@ extern "C" int repro_ic_frontier_step(const void* frontier, long long ld_f,
       (const uint32_t*)words, ldw, (const uint8_t*)visited, (int64_t)ld_v,
       (const int*)col_ptr, (const int*)rows, (const float*)vals,
       (const float*)rand, (int64_t)ld_r, (uint8_t*)out, (int64_t)ld_o,
-      batch, n, fw_words);
+      batch, n, n_out, fw_words);
   return (int)cudaGetLastError();
 }

@@ -27,7 +27,11 @@ The column form (`column_form`, set-up work in plain PyTorch, one host
 sync a build): logq's entries with ``q != 0`` (``-0.0`` and ``+0.0``
 both dropped) grouped by column ``u`` and ascending in ``v`` within each,
 as CSC arrays ``col_ptr (n + 1,) int32``, ``rows (nnz,) int32`` and
-``vals (nnz,) float32``.  A caller that steps on one table builds it
+``vals (nnz,) float32``.  A column block of logq, ``(n, w)`` (a tile of
+a meshed BFS, which computes its own ``w`` columns of ``new`` from the
+whole frontier), has a form of ``w`` columns over the same ``n`` rows:
+``col_ptr (w + 1,)``, and the step's visited, rand and output are
+``(B, w)``; each column's sum is the same, bit for bit.  A caller that steps on one table builds it
 once (the dense sampler, per bound sampler); the plain version walks the
 same form one rank at a time (`column_terms`).  Neither reads logq when
 handed its form, so the form records the logq it came from (storage,
@@ -78,14 +82,20 @@ class ColumnForm:
     """logq's nonzeros by column, ascending ``v`` within each column:
     column ``u`` holds ``rows[col_ptr[u]:col_ptr[u + 1]]`` and the
     matching ``vals`` (``logq[v, u]``).  All three on logq's device."""
-    col_ptr: torch.Tensor   # (n + 1,) int32
-    rows: torch.Tensor      # (nnz,) int32
+    col_ptr: torch.Tensor   # (width + 1,) int32
+    rows: torch.Tensor      # (nnz,) int32, in [0, n)
     vals: torch.Tensor      # (nnz,) float32
-    n: int
+    n: int                  # logq's rows: the frontier's vertices
     nnz: int
     #: the logq this form was built from (`_source_of`), or None for a
     #: form made without one; a step handed both checks they match
     source: tuple | None = None
+    #: logq's columns, the step's output width (None: ``n``, square)
+    n_cols: int | None = None
+
+    @property
+    def width(self) -> int:
+        return self.n if self.n_cols is None else self.n_cols
 
     @property
     def device(self) -> torch.device:
@@ -93,7 +103,7 @@ class ColumnForm:
 
     @property
     def nbytes(self) -> int:
-        return 4 * (self.n + 1) + 8 * self.nnz
+        return 4 * (self.width + 1) + 8 * self.nnz
 
     @functools.cached_property
     def terms(self) -> list:
@@ -111,36 +121,42 @@ def _source_of(logq) -> tuple:
 
 
 def column_form(logq) -> ColumnForm:
-    """The `ColumnForm` of a square float32 ``logq``."""
-    if logq.dim() != 2 or logq.shape[0] != logq.shape[1] \
-            or logq.dtype != torch.float32:
-        raise ValueError(f"{KERNEL}: logq must be a square float32 matrix, "
-                         f"got {tuple(logq.shape)} {logq.dtype}")
-    n = logq.shape[0]
+    """The `ColumnForm` of a float32 ``logq``: the square table, or an
+    ``(n, w)`` block of its columns."""
+    if logq.dim() != 2 or logq.dtype != torch.float32:
+        raise ValueError(f"{KERNEL}: logq must be a float32 matrix, got "
+                         f"{tuple(logq.shape)} {logq.dtype}")
+    n, w = logq.shape
     u, v = logq.t().nonzero(as_tuple=True)     # sorted by u, then v
     vals = logq[v, u]
-    col_ptr = torch.zeros(n + 1, dtype=torch.int64, device=logq.device)
-    torch.cumsum(torch.bincount(u, minlength=n), 0, out=col_ptr[1:])
+    col_ptr = torch.zeros(w + 1, dtype=torch.int64, device=logq.device)
+    torch.cumsum(torch.bincount(u, minlength=w), 0, out=col_ptr[1:])
     nnz = int(u.shape[0])
     if nnz >= 1 << 31:
         raise ValueError(f"{KERNEL}: {nnz} nonzeros exceed int32 offsets")
     return ColumnForm(col_ptr.to(torch.int32), v.to(torch.int32),
-                      vals.contiguous(), n, nnz, _source_of(logq))
+                      vals.contiguous(), n, nnz, _source_of(logq),
+                      None if w == n else w)
 
 
-def check_form(cols: ColumnForm, n: int, device, logq=None) -> None:
-    """Raise unless ``cols`` is a column form of an ``(n, n)`` logq with
-    its tensors on ``device`` and, when ``logq`` is given, the form that
-    `column_form` built from this ``logq`` as it stands (not a stale
-    one, nor one of another table)."""
+def check_form(cols: ColumnForm, n: int, device, logq=None,
+               width: int = None) -> None:
+    """Raise unless ``cols`` is a column form of an ``(n, width)`` logq
+    (``width`` defaults to ``n``) with its tensors on ``device`` and,
+    when ``logq`` is given, the form that `column_form` built from this
+    ``logq`` as it stands (not a stale one, nor one of another
+    table)."""
     if not isinstance(cols, ColumnForm):
         raise TypeError(f"{KERNEL}: cols must be a ColumnForm, got "
                         f"{type(cols).__name__}")
-    if cols.n != n or tuple(cols.col_ptr.shape) != (n + 1,) \
+    width = n if width is None else width
+    if cols.n != n or cols.width != width \
+            or tuple(cols.col_ptr.shape) != (width + 1,) \
             or tuple(cols.rows.shape) != (cols.nnz,) \
             or tuple(cols.vals.shape) != (cols.nnz,):
-        raise ValueError(f"{KERNEL}: a column form of n = {cols.n} "
-                         f"(nnz {cols.nnz}) does not fit n = {n}")
+        raise ValueError(f"{KERNEL}: a column form of n = {cols.n} by "
+                         f"{cols.width} (nnz {cols.nnz}) does not fit "
+                         f"n = {n} by {width}")
     if (cols.col_ptr.dtype, cols.rows.dtype, cols.vals.dtype) != (
             torch.int32, torch.int32, torch.float32):
         raise TypeError(f"{KERNEL}: cols must hold int32 col_ptr and rows "
@@ -165,7 +181,7 @@ def column_terms(cols: ColumnForm) -> list:
     ``(v, q = logq[v, u])`` in ascending ``v``."""
     ptr = cols.col_ptr.long()
     counts = ptr[1:] - ptr[:-1]
-    u = torch.repeat_interleave(torch.arange(cols.n, device=cols.device),
+    u = torch.repeat_interleave(torch.arange(cols.width, device=cols.device),
                                 counts, output_size=cols.nnz)
     rank = torch.arange(cols.nnz, device=cols.device) - ptr[u]
     order = torch.argsort(rank, stable=True)
@@ -188,7 +204,8 @@ def ascending_acc(frontier, logq, cols=None) -> torch.Tensor:
     ``logq`` is not read and may be None)."""
     cols = column_form(logq) if cols is None else cols
     f = C.as_bytes(frontier) != 0
-    acc = torch.zeros(f.shape, dtype=torch.float32, device=f.device)
+    acc = torch.zeros((f.shape[0], cols.width), dtype=torch.float32,
+                      device=f.device)
     for u, v, q in cols.terms:
         cur = acc[:, u]
         acc[:, u] = torch.where(f[:, v], cur + q, cur)
@@ -200,28 +217,30 @@ def ic_frontier_step_plain(frontier, visited, logq, rand,
     """The kernel's function in plain PyTorch, bitwise its result
     (`ascending_acc` over ``cols``, built here when not given, then
     `activation`).  ``logq`` may be None when ``cols`` is given; given
-    both, ``cols`` must be ``logq``'s form (`check_form`).  Returns a
-    ``(B, n)`` uint8 view of a row-padded buffer."""
+    both, ``cols`` must be ``logq``'s form (`check_form`).  A column
+    block ``logq (n, w)`` takes ``visited`` and ``rand`` of ``(B, w)``.
+    Returns a ``(B, w)`` uint8 view of a row-padded buffer."""
     B, n = frontier.shape
-    cols = _form_for(logq, cols, n, frontier.device)
-    out = _padded_out(B, n, frontier.device)
+    w = visited.shape[1]
+    cols = _form_for(logq, cols, n, frontier.device, w)
+    out = _padded_out(B, w, frontier.device)
     out.copy_(activation(ascending_acc(frontier, logq, cols), rand,
                          visited))
     return out
 
 
-def _form_for(logq, cols, n: int, device) -> ColumnForm:
-    """The form a step walks: ``cols``, checked against ``n``, ``device``
-    and ``logq`` (when given), or ``logq``'s, built here."""
-    if logq is not None and (tuple(logq.shape) != (n, n)
+def _form_for(logq, cols, n: int, device, width: int) -> ColumnForm:
+    """The form a step walks: ``cols``, checked against ``(n, width)``,
+    ``device`` and ``logq`` (when given), or ``logq``'s, built here."""
+    if logq is not None and (tuple(logq.shape) != (n, width)
                              or logq.dtype != torch.float32):
-        raise ValueError(f"{KERNEL}: logq must be a ({n}, {n}) float32 "
+        raise ValueError(f"{KERNEL}: logq must be a ({n}, {width}) float32 "
                          f"matrix, got {tuple(logq.shape)} {logq.dtype}")
     if cols is None:
         if logq is None:
             raise ValueError(f"{KERNEL}: give logq or its column form")
         cols = column_form(logq)
-    check_form(cols, n, device, logq)
+    check_form(cols, n, device, logq, width)
     return cols
 
 
@@ -249,27 +268,29 @@ def _step_entry():
             build.library("ic_frontier"), "repro_ic_frontier_step",
             (C.VOIDP, C.I64, C.VOIDP, C.I64, C.VOIDP, C.VOIDP, C.VOIDP,
              C.VOIDP, C.I64, C.VOIDP, C.I64, C.VOIDP, C.I32, C.I32, C.I32,
-             C.VOIDP))
+             C.I32, C.VOIDP))
     return _step_fn
 
 
 def ic_frontier_step_cuda(frontier, visited, logq, rand,
                           cols=None) -> torch.Tensor:
     B, n = frontier.shape
-    if tuple(visited.shape) != (B, n) or tuple(rand.shape) != (B, n):
+    w = visited.shape[1] if visited.dim() == 2 else -1
+    if visited.shape[0] != B or tuple(rand.shape) != (B, w):
         raise ValueError(f"{KERNEL}: frontier {tuple(frontier.shape)}, "
                          f"visited {tuple(visited.shape)} and rand "
-                         f"{tuple(rand.shape)} must share one (B, n) shape")
+                         f"{tuple(rand.shape)} must be (B, n), (B, w) and "
+                         f"(B, w)")
     if rand.dtype != torch.float32:
         raise TypeError(f"{KERNEL}: rand must be float32, got {rand.dtype}")
     tiles = -(-B // ROWS_PER_BLOCK)
     if tiles > 65535:
         raise ValueError(f"{KERNEL}: B = {B} exceeds the kernel's grid")
-    cols = _form_for(logq, cols, n, frontier.device)
+    cols = _form_for(logq, cols, n, frontier.device, w)
     # the kernel writes every byte of the row-padded output, pad included
-    out = torch.empty((B, C.padded_width(n)), dtype=torch.uint8,
-                      device=frontier.device)[:, :n]
-    if B == 0 or n == 0:
+    out = torch.empty((B, C.padded_width(w)), dtype=torch.uint8,
+                      device=frontier.device)[:, :w]
+    if B == 0 or n == 0 or w == 0:
         return out.zero_()
     f_ptr, ld_f = _row_block(C.as_bytes(frontier), "frontier")
     v_ptr, ld_v = _row_block(C.as_bytes(visited), "visited")
@@ -283,6 +304,6 @@ def ic_frontier_step_cuda(frontier, visited, logq, rand,
         err = _step_entry()(f_ptr, ld_f, v_ptr, ld_v, cols.col_ptr.data_ptr(),
                             cols.rows.data_ptr(), cols.vals.data_ptr(), r_ptr,
                             ld_r, out.data_ptr(), out.stride(0),
-                            words.data_ptr(), ldw, B, n, stream)
+                            words.data_ptr(), ldw, B, n, w, stream)
     C.launched(KERNEL, err)
     return out

@@ -31,7 +31,12 @@ deltas replayed with the refresh worker running::
     PYTHONPATH=src python -m repro_torch.launch.serve --workload tier \
         --tenants 5 --tier-n 256 --max-theta 512 --duration 0.25
 
-``--mesh`` raises naming ROADMAP A8b.
+``--mesh`` (an int or ``auto``: 1D theta sharding; ``RxC``: theta x
+vertex) runs the IM engine, the stream and every tier tenant on a
+`repro_torch.mesh.Mesh` of the devices there are
+(`repro_torch.configs.imm_snap.make_im_mesh`: the CUDA cards, or the
+host with ``--device cpu``); every printed number must equal the
+mesh-less run's.
 """
 from __future__ import annotations
 
@@ -313,21 +318,25 @@ def _main_im(args, log=print) -> dict:
     queries from it; with ``--deltas``, serve through random graph
     deltas on a `StreamEngine` and drain the backlog.  Returns the
     numbers it printed."""
-    from repro_torch.configs.imm_snap import IMM_EXPERIMENTS
+    from repro_torch.configs.imm_snap import (
+        IMM_EXPERIMENTS, make_im_mesh, mesh_engine_kwargs,
+    )
     from repro_torch.core.engine import IMMConfig, InfluenceEngine
     from repro_torch.graphs.datasets import scaled_snap
 
     exp = IMM_EXPERIMENTS[args.graph]
     scale = exp.bench_scale if args.scale is None else args.scale
     g = scaled_snap(args.graph, scale, seed=0)
+    mesh = make_im_mesh(args.mesh, device=args.device)
+    mesh_kw = mesh_engine_kwargs(mesh)
     cfg = IMMConfig(k=args.k, model=args.model, backend=args.backend,
                     sampler=args.sampler, max_theta=args.max_theta,
                     store=args.store)
     if args.deltas:
         from repro_torch.stream import StreamEngine
-        engine = StreamEngine(g, cfg, device=args.device)
+        engine = StreamEngine(g, cfg, device=args.device, **mesh_kw)
     else:
-        engine = InfluenceEngine(g, cfg, device=args.device)
+        engine = InfluenceEngine(g, cfg, device=args.device, **mesh_kw)
     dev = engine.store.device
     t0 = time.time()
     engine.extend(args.max_theta)
@@ -337,6 +346,12 @@ def _main_im(args, log=print) -> dict:
         engine,
         refresh_budget=args.refresh_budget if args.deltas else None,
         async_refresh=bool(args.deltas and args.async_refresh))
+    if mesh is not None:
+        log(f"[serve-im] sharded store: theta axis over "
+            f"{engine.store.D} shard(s) x vertex axis over "
+            f"{getattr(engine.store, 'Dv', 1)} shard(s), "
+            f"cap_local={engine.store.cap_local}, "
+            f"n_local={getattr(engine.store, 'n_local', g.n)}")
 
     # a mixed workload: top-k selections of several sizes and a burst of
     # random candidate-set influence queries, all from one store
@@ -401,17 +416,19 @@ def _main_tier(args) -> dict:
     replicas when there are any), a Zipf-skewed Poisson trace of queries
     and deltas replayed in arrival order with the refresh worker
     running, then a drain.  Returns the numbers it printed."""
+    from repro_torch.configs.imm_snap import make_im_mesh, mesh_engine_kwargs
     from repro_torch.core.engine import IMMConfig
     from repro_torch.graphs import rmat_graph
     from repro_torch.serve import (
         IMServe, TenantSpec, make_trace, replay, trace_summary, zipf_rates,
     )
 
+    mesh_kw = mesh_engine_kwargs(make_im_mesh(args.mesh, device=args.device))
     cfg = IMMConfig(k=args.k, batch=min(args.max_theta, 256),
                     max_theta=max(args.max_theta, 1 << 20), seed=0,
                     store=args.store)
     tier = IMServe(quantum=args.quantum, refresh_budget=args.refresh_budget,
-                   device=args.device)
+                   mesh_kwargs=mesh_kw, device=args.device)
     graphs, stream_map = {}, {}
     for i in range(args.tenants):
         name = f"tenant{i}"
@@ -427,7 +444,7 @@ def _main_tier(args) -> dict:
             max_pending=args.max_pending))
         graphs[name], stream_map[name] = g, streaming
     print(f"[serve-tier] {args.tenants} tenants x n={args.tier_n} "
-          f"(theta={args.max_theta}, mesh=1) registered")
+          f"(theta={args.max_theta}, mesh={args.mesh or 1}) registered")
 
     events = make_trace(
         graphs, duration=args.duration,
@@ -492,7 +509,9 @@ def main(argv=None):
                              "compressed"),
                     help="IM arena at-rest representation")
     ap.add_argument("--mesh", default=None,
-                    help="IM store mesh: not ported yet (ROADMAP A8b)")
+                    help="IM store mesh: int or 'auto' (1D theta "
+                         "sharding), 'RxC' e.g. '2x2' (2D theta x "
+                         "vertex), or omit for single-device")
     ap.add_argument("--tenants", type=int, default=4,
                     help="tier workload: campaigns to register")
     ap.add_argument("--tier-n", type=int, default=512,
@@ -521,9 +540,6 @@ def main(argv=None):
                     help="enable repro_torch.obs and write the Chrome "
                          "trace-event JSON here at exit")
     args = ap.parse_args(argv)
-    if args.mesh is not None:
-        raise NotImplementedError(
-            "--mesh: meshed serving is not ported yet (ROADMAP A8b)")
     if args.metrics_out or args.trace_out:
         obs.enable()
     run = {"tier": _main_tier, "im": _main_im, "lm": _main_lm}

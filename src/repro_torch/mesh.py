@@ -1,6 +1,7 @@
 """A device mesh held by one process: the port's counterpart of
 ``jax.sharding.Mesh`` and of the collectives a ``shard_map`` body uses
-(``psum``, ``all_gather``, and the psum-or of membership bits).
+(``psum``, ``all_gather``, and the psum-or of membership bits), and the
+column gather a column-blocked BFS exchanges its frontier with.
 
 The reference runs a single controller: one process holds the mesh, the
 store hands its tiles to ``shard_map`` and the collectives run inside one
@@ -123,3 +124,15 @@ def all_gather(parts, device) -> torch.Tensor:
     """The per-tile tensors ``parts`` stacked in tile order on
     ``device``."""
     return torch.stack([p.to(device, non_blocking=True) for p in parts])
+
+
+def all_gather_cols(parts, device, out) -> torch.Tensor:
+    """The per-tile column blocks ``parts`` (each ``(K, w_v)``) gathered
+    in tile order into ``out (K, sum w_v)`` on ``device``: the frontier
+    exchange of a column-blocked BFS."""
+    lo = 0
+    for p in parts:
+        w = p.shape[1]
+        out[:, lo:lo + w].copy_(p.to(device, non_blocking=True))
+        lo += w
+    return out

@@ -5,7 +5,8 @@ one slot on another tenant's engine.
 class, fairness weight, admission depth, replicas); `Tenant` is the
 runtime object the tier schedules.  It owns the engine (a port
 `StreamEngine` for an evolving graph, an `InfluenceEngine` for a static
-one, built on the device the tier passes down), the lock that every
+one, built on the device and, with ``mesh_kwargs``, the mesh the tier
+passes down), the lock that every
 query batch, delta, refresh slice and replica snapshot holds, and the
 serving counters.  ``share_engine_with`` points a tenant at a registered
 tenant's engine and lock (campaigns planning on one network share one

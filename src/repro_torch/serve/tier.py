@@ -26,7 +26,9 @@ covers only host-side queue and result bookkeeping.  Tenant engines run
 on ``device`` (``cuda`` unless told otherwise), and the refresh worker
 runs on the device and CUDA stream the tier was built on: queries and
 repairs share arena buffers, and the tenant lock orders them only on
-one stream.  A mesh raises (ROADMAP A8b).
+one stream.  With ``mesh_kwargs`` every engine the tier builds runs on
+the mesh (`repro_torch.configs.imm_snap.mesh_engine_kwargs`), and the
+meshed tenants share one dispatch lock (see `IMServe`).
 """
 from __future__ import annotations
 
@@ -68,20 +70,28 @@ class IMServe:
     ``quantum`` is the DRR quantum (queries a weight-1.0 tenant serves a
     round); ``cache_entries`` the result cache's LRU capacity;
     ``refresh_budget`` the rows of repair a `refresh_step`, split by the
-    scheduler (None: no tier refresh); ``mesh_kwargs`` engine mesh
-    keywords (a mesh is not ported: ROADMAP A8b); ``device`` where every
-    tenant engine this tier builds runs (``cuda`` unless told
-    otherwise).
+    scheduler (None: no tier refresh); ``mesh_kwargs`` the engine mesh
+    keywords every tenant engine this tier builds takes; ``device`` where
+    those engines run (``cuda`` unless told otherwise; a meshed engine's
+    tiles are on its mesh's devices).
+
+    Meshed tenants share one dispatch ``RLock`` (the reference's
+    ``_mesh_lock``), held in place of each tenant's own lock.  The
+    reference needs it because two threads' collectives on one set of
+    devices can interleave their rendezvous and deadlock.  The port has
+    no rendezvous, but the lock stays: every meshed engine launches on
+    every tile device's current stream and stages its collectives there
+    (peer copies, the BFS's side-stream frontier gather), so a worker's
+    repair and another tenant's query would interleave their work on
+    the same device streams; one lock keeps each meshed call whole on
+    them and keeps the reference's schedule (one meshed dispatch at a
+    time).  Off a mesh each tenant keeps its own lock.
     """
 
     def __init__(self, *, quantum: int = 8, cache_entries: int = 65536,
                  refresh_budget: Optional[int] = None,
                  mesh_kwargs: dict = None, device=None):
         self.mesh_kwargs = dict(mesh_kwargs or {})
-        if self.mesh_kwargs.get("mesh") is not None:
-            raise NotImplementedError(
-                "IMServe on a mesh needs the sharded store, not ported "
-                "yet (ROADMAP A8b)")
         self.device = resolve_device(device)
         self.tenants: dict[str, Tenant] = {}
         self.replica_groups: dict[str, ReplicaGroup] = {}
@@ -92,6 +102,7 @@ class IMServe:
         self.queries_served = 0
         self._results: dict[int, ServedQuery] = {}
         self._next_ticket = 0
+        self._mesh_lock = threading.RLock()
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._worker: Optional[threading.Thread] = None
@@ -116,6 +127,8 @@ class IMServe:
         else:
             tenant = Tenant(spec, mesh_kwargs=self.mesh_kwargs,
                             device=self.device)
+            if self.mesh_kwargs.get("mesh") is not None:
+                tenant.lock = self._mesh_lock   # see the class docstring
         self.tenants[spec.name] = tenant
         self.queue.register(spec.name, weight=spec.weight,
                             max_pending=spec.max_pending)

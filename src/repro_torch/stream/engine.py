@@ -31,8 +31,16 @@ The input graph is canonicalized once (`repro_torch.stream.delta.
 canonicalize`) and the sampler upgraded to its delta-stable form
 (`stable_variant`).  ``snapshot``/``restore`` keep the batch keys and
 each row's (batch, position) provenance in the reference's file format.
-The stream runs on ``cuda`` unless ``device="cpu"`` is given; a mesh
-raises (ROADMAP A8b).
+The stream runs on ``cuda`` unless ``device="cpu"`` is given.
+
+On a mesh (``mesh``, ``theta_axes``, ``vertex_axis``) the store is a
+`ShardedStore` (``cfg.store`` auto, sharded, packed or compressed tiles)
+whose kills, repairs, compactions and pressure run tile by tile; a
+balanced vertex partition is resolved from the *initial* graph and kept
+across deltas.  The seed stream is layout-independent, so a meshed
+stream refreshes to the same rows as a single-device one, and its
+snapshots restore across layouts both ways (through the restored
+store's ``_restore_slots``).
 """
 from __future__ import annotations
 
@@ -50,6 +58,7 @@ from repro_torch.core.sampler import default_sampler_name, stable_variant
 from repro_torch.core.store import StorePressurePolicy, make_store, next_pow2
 from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import Graph, edge_arrays
+from repro_torch.graphs.partition import resolve_partition
 from repro_torch.stream.delta import GraphDelta, canonicalize
 from repro_torch.stream.invalidate import invalidate
 
@@ -79,19 +88,35 @@ class StreamEngine:
     `StorePressurePolicy`; the wrapped engine is ``.engine``."""
 
     def __init__(self, graph: Graph, cfg: IMMConfig = None, *, mesh=None,
+                 theta_axes=("data",), vertex_axis=None,
                  policy: StorePressurePolicy | None = None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "streaming on a mesh needs the sharded store, not ported "
-                "yet (ROADMAP A8b)")
         cfg = cfg if cfg is not None else IMMConfig()
-        device = resolve_device(device)
         name = stable_variant(cfg.sampler
                               or default_sampler_name(graph, cfg))
         cfg = dataclasses.replace(cfg, sampler=name)
         graph = canonicalize(graph)
-        kind = "bitmap" if cfg.store in ("auto", "sharded") else cfg.store
-        store = make_store(kind, graph.n, policy=policy, device=device)
+        if mesh is not None:
+            if cfg.store not in ("auto", "sharded", "packed", "compressed"):
+                raise ValueError(
+                    "streaming on a mesh requires a sharded dense-at-rest "
+                    "store: cfg.store='auto' (sharded bitmap), 'packed', "
+                    "or 'compressed'")
+            part = None
+            if vertex_axis is not None:
+                part = resolve_partition(
+                    getattr(cfg, "partition", "equal"), graph.n,
+                    int(mesh.shape[vertex_axis]),
+                    dst=graph.edge_dst.cpu().numpy())
+            codec = ("bitmap" if cfg.store in ("auto", "sharded")
+                     else cfg.store)
+            store = make_store("sharded", graph.n, mesh=mesh,
+                               theta_axes=theta_axes,
+                               vertex_axis=vertex_axis, policy=policy,
+                               partition=part, codec=codec)
+        else:
+            device = resolve_device(device)
+            kind = "bitmap" if cfg.store in ("auto", "sharded") else cfg.store
+            store = make_store(kind, graph.n, policy=policy, device=device)
         store.track_remaps = True
         self.engine = InfluenceEngine(graph, cfg, store=store, device=device)
         self.policy = policy
@@ -298,14 +323,19 @@ class StreamEngine:
         batch key, the (batch, position) of every arena slot, dead rows
         included) in one atomic file, the reference's format."""
         self._sync_layout()
+        # the provenance follows the rows the store's state holds (a
+        # sharded one's live rows compacted in shard order)
+        keep = self.store.state_slots()
+        slot_batch = self._slot_batch[keep]
+        slot_pos = self._slot_pos[keep]
         keys = (np.stack([np.asarray(k) for k in self._batch_keys])
                 if self._batch_keys else np.zeros((0, 2), np.uint32))
         tree = {
             "engine": self.engine.snapshot_tree(),
             "stream": {
                 "batch_keys": keys,
-                "slot_batch": np.asarray(self._slot_batch, np.int64),
-                "slot_pos": np.asarray(self._slot_pos, np.int64),
+                "slot_batch": np.asarray(slot_batch, np.int64),
+                "slot_pos": np.asarray(slot_pos, np.int64),
                 "batch": np.int64(self.cfg.batch),
                 "graph_sha": np.asarray(_graph_fingerprint(self.graph)),
                 "target_theta": np.int64(self.target_theta),
@@ -363,13 +393,15 @@ class StreamEngine:
             self._slot_batch[:k] = prov_b[:k]
             self._slot_pos[:k] = prov_p[:k]
             return True
-        # re-added rows are the snapshot's live rows: filter alike
         snap_store = tree["engine"]["store"]
-        count = int(snap_store["count"])
-        prov_b, prov_p = prov_b[:count], prov_p[:count]
-        if "live" in snap_store:
-            live = np.asarray(snap_store["live"])[:count].astype(bool)
-            prov_b, prov_p = prov_b[live], prov_p[live]
+        if str(np.asarray(snap_store["kind"])) != "sharded":
+            # a full-arena snapshot re-added row by row keeps its live
+            # rows only: filter the provenance alike
+            count = int(snap_store["count"])
+            prov_b, prov_p = prov_b[:count], prov_p[:count]
+            if "live" in snap_store:
+                live = np.asarray(snap_store["live"])[:count].astype(bool)
+                prov_b, prov_p = prov_b[live], prov_p[live]
         self._slot_batch[slots] = prov_b[:slots.shape[0]]
         self._slot_pos[slots] = prov_p[:slots.shape[0]]
         return True

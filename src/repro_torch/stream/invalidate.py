@@ -7,7 +7,8 @@ row is the list of touched vertices.  A staleness query after a
 `GraphDelta` is a masked column reduction — a gather of the touched
 columns of a bitmap arena, ``decode_cols`` of an encoded one (the
 compressed arena never expands), a vertex mask gathered at every list
-entry of an index arena.
+entry of an index arena; on a meshed arena each tile answers for its
+own block of columns and rows.
 
 ``invalidate(store, vertices)`` kills the touched rows through the
 store's ``kill_rows``: they leave selection, ``hits`` and the fused
@@ -30,21 +31,16 @@ def _touched_vertices(vertices, n: int) -> np.ndarray:
 def rows_touching(store, vertices) -> torch.Tensor:
     """``(capacity,) bool``: the arena rows whose RRR traversal touched
     any of ``vertices`` (unfilled rows are all zero or all sentinel, so
-    they never match)."""
+    they never match), answered by the store's ``rows_touching``.  A
+    `ShardedStore` answers tile by tile (each tile tests the touched
+    vertices in its own column block against its own rows, hit bits
+    or-ed over the vertex axis); its dead rows may match, and
+    ``kill_rows`` ignores them."""
     verts = _touched_vertices(vertices, store.n)
-    R = store.R
     if not verts.size:
-        return torch.zeros(R.shape[0], dtype=torch.bool, device=R.device)
-    v = torch.as_tensor(verts, device=R.device)
-    rep = store.representation
-    if rep in ("packed", "compressed"):
-        return store.codec.decode_cols(R, v).any(dim=1)
-    if rep == "bitmap":
-        return (R.index_select(1, v) > 0).any(dim=1)
-    mask = torch.zeros(store.n + 1, dtype=torch.bool, device=R.device)
-    mask[v] = True
-    return mask.index_select(0, R.reshape(-1).long()).view(
-        R.shape).any(dim=1)
+        return torch.zeros(store.capacity, dtype=torch.bool,
+                           device=store.device)
+    return store.rows_touching(verts)
 
 
 def invalidate(store, vertices) -> int:

@@ -205,7 +205,8 @@ def test_checks_and_a_refused_launch(cuda):
         err = icf._step_entry()(
             F.data_ptr(), 0, V.data_ptr(), 0, cols.col_ptr.data_ptr(),
             cols.rows.data_ptr(), cols.vals.data_ptr(), R.data_ptr(), 0,
-            F.data_ptr(), 0, words.data_ptr(), n, 32 * 65536 + 1, n, stream)
+            F.data_ptr(), 0, words.data_ptr(), n, 32 * 65536 + 1, n, n,
+            stream)
     assert err != 0
     ops.reset_launches()
     with pytest.raises(RuntimeError, match="launch failed"):

@@ -227,8 +227,10 @@ def test_cli_serves_on_the_cpu_and_refuses_unported_workloads(capsys):
                       "--batch", "2", "--prompt-len", "10", "--gen", "4"])
     assert tuple(out.shape) == (2, 4)
     assert "h2o-danube-3-4b on cpu" in capsys.readouterr().out
-    # --workload im and tier are ported (A6, A7); their mesh is not (A8)
-    with pytest.raises(NotImplementedError, match="A8"):
-        serve.main(["--workload", "im", "--mesh", "4"])
-    with pytest.raises(NotImplementedError, match="A8"):
-        serve.main(["--workload", "tier", "--mesh", "4"])
+    # --workload im and tier are ported (A6, A7), and their mesh (A8b):
+    # like the engines, a mesh of the card refuses without one
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve.main(["--workload", "im", "--mesh", "4"])
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve.main(["--workload", "tier", "--mesh", "4"])

@@ -45,7 +45,10 @@ def test_no_module_imports_jax_or_repro():
                  "core.adaptive", "core.store", "core.selection",
                  "launch.roofline", "obs.metrics", "sparse",
                  "sparse.segment", "sparse.scatter", "convert",
-                 "mesh", "graphs.partition", "configs.imm_snap"):
+                 "mesh", "graphs.partition", "configs.imm_snap",
+                 "stream", "stream.engine", "stream.invalidate",
+                 "stream.delta", "serve", "serve.tier", "serve.tenant",
+                 "serve.replica", "core.engine", "core.store"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["leaked"] == []
 
@@ -103,6 +106,20 @@ def test_entry_points_default_to_cuda():
                            ).device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         InfluenceEngine(g, store=make_store("indices", g.n, device="cpu"))
+    # the meshed stream and tier (A8b): a mesh of the card refuses
+    # without one, a mesh of the host runs there
+    from repro_torch.serve import IMServe
+    from repro_torch.stream import StreamEngine
+    small = generators.rmat_graph(64, 256, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamEngine(small, mesh=Mesh([["cuda"]], ("data", "vertex")),
+                     vertex_axis="vertex")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        IMServe(mesh_kwargs={"mesh": mesh, "vertex_axis": "vertex"})
+    meshed = StreamEngine(small, mesh=mesh, vertex_axis="vertex")
+    assert meshed.store.device.type == "cpu"
+    assert IMServe(mesh_kwargs={"mesh": mesh, "vertex_axis": "vertex"},
+                   device="cpu").device.type == "cpu"
     assert resolve_device("cpu").type == "cpu"
 
 

@@ -110,16 +110,23 @@ _PLACED = {"placement": "two cpu shards"}
     ("IC/dense", _PLACED, "A8b"),
     ("WC/sparse+stable", _PLACED, "A8b")])
 def test_unported_samplers_name_their_roadmap_item(name, kw, item):
-    """A mesh placement binds (A8), the walk's too (A4); what is still
-    unported raises when called: re-sampling a row subset of a placed
-    batch (the meshed streaming path, A8b)."""
+    """A mesh placement binds (A8), the walk's too (A4), and since
+    ``item`` (A8b) a stable sampler re-samples a row subset of a placed
+    batch: unplaced, bitwise those rows of the batch; a positional
+    sampler takes no ``positions``, placed or not."""
     from repro_torch.core.store import BatchPlacement
     g = generators.rmat_graph(64, 256, seed=0)
     factory = sampler.get_sampler(name)
     placement = BatchPlacement((torch.device("cpu"),) * 2)
-    bound = sampler.bind_sampler(factory, g, IMMConfig(batch=8),
-                                 placement=placement)
+    cfg = IMMConfig(batch=8)
+    bound = sampler.bind_sampler(factory, g, cfg, placement=placement)
     visited, _, _ = bound(prng.PRNGKey(0))
     assert [tuple(v.shape) for v in visited] == [(4, 64)] * 2, kw
-    with pytest.raises(NotImplementedError, match=item):
-        bound(prng.PRNGKey(0), positions=np.arange(2))
+    whole = factory(g, cfg)(prng.PRNGKey(0))[0]
+    assert torch.equal(torch.cat(visited), whole)
+    if "stable" not in name:
+        with pytest.raises(TypeError, match="positions"):
+            bound(prng.PRNGKey(0), positions=np.arange(2))
+        return
+    sub = bound(prng.PRNGKey(0), positions=np.array([6, 1]))[0]
+    assert torch.equal(sub, whole[[6, 1]]), item

@@ -283,8 +283,8 @@ def test_unported_axes_raise_with_their_roadmap_item():
     g = _graphs()[1]
     cfg = IMMConfig(batch=8)
     # the walk is ported (A4) and so is a mesh placement of it (A8):
-    # each shard's block is its rows of the unplaced batch; re-sampling a
-    # row subset of a placed batch is the meshed streaming path (A8b)
+    # each shard's block is its rows of the unplaced batch; a row subset
+    # of a placed batch (the meshed streaming path, A8b) runs unplaced
     from repro_torch.core.store import BatchPlacement
     placement = BatchPlacement((torch.device("cpu"),) * 3)
     for name in ("LT/walk", "LT/walk+stable", "LT"):
@@ -293,14 +293,15 @@ def test_unported_axes_raise_with_their_roadmap_item():
         assert v.shape == (8, g.n)
         blocks, _, _ = factory(g, cfg, placement=placement)(prng.PRNGKey(0))
         assert torch.equal(torch.cat(blocks), v)
-    with pytest.raises(NotImplementedError, match="A8b"):
-        smp.sample_lt_stable(prng.PRNGKey(0), g.dst_offsets, g.in_src,
-                             g.in_lt_cum, g.in_lt_total, np.arange(2),
-                             batch=8, placement=placement)
+    sub = smp.sample_lt_stable(prng.PRNGKey(0), g.dst_offsets, g.in_src,
+                               g.in_lt_cum, g.in_lt_total, np.arange(2),
+                               batch=8, placement=placement)[0]
+    whole = smp.get_sampler("LT/walk+stable")(g, cfg)(prng.PRNGKey(0))[0]
+    assert torch.equal(sub, whole[:2])
     rows, _, _ = smp.get_sampler("IC/sparse")(g, cfg)(prng.PRNGKey(0),
                                                       emit_l=8)
     assert rows.shape == (8, 8) and rows.dtype == torch.int32
-    with pytest.raises(NotImplementedError, match="A8b"):
+    with pytest.raises(TypeError, match="positions"):
         smp.bind_sampler(smp.get_sampler("IC/dense"), g, cfg,
                          placement=placement)(prng.PRNGKey(0),
                                               positions=np.arange(2))

@@ -442,22 +442,31 @@ def test_mesh_tiles_and_collectives():
 # ----------------------------------------------------------- (vii) A8b ----
 
 def test_the_row_lifecycle_waits_for_a8b():
+    """Ported since (ROADMAP A8b): what raised here now runs.  The
+    lifecycle calls keep the store's rows and counter in step, a policy
+    is taken, and a meshed stable engine re-samples a row subset of a
+    placed batch: bitwise those rows of the unplaced batch."""
     from repro_torch.core.store import StorePressurePolicy
     ss = _store((2, 2), "bitmap", None)
-    ss.add_batch(_rows(np.random.default_rng(0), 8))
-    for call in (lambda: ss.kill_rows(np.ones(ss.capacity, bool)),
-                 lambda: ss.replace_rows([0], _rows(np.random.default_rng(1),
-                                                    1)),
-                 ss.compact, ss.drain_remaps, ss._compress_step,
-                 lambda: ShardedStore(N, mesh=cpu_mesh((1, 1)),
-                                      policy=StorePressurePolicy(
-                                          max_rows=64))):
-        with pytest.raises(NotImplementedError, match="A8b"):
-            call()
+    rows = _rows(np.random.default_rng(0), 8)
+    ss.add_batch(rows)
+    dead = np.zeros(ss.capacity, bool)
+    dead[[0, ss.cap_local]] = True
+    assert ss.kill_rows(dead) == 2
+    fresh = _rows(np.random.default_rng(1), 2)
+    ss.replace_rows(np.flatnonzero(dead), fresh)
+    assert ss.dead == 0 and ss.compact() is None and ss.drain_remaps() == []
+    want = torch.cat([rows[1:4], rows[5:], fresh]).sum(0, dtype=torch.int32)
+    assert torch.equal(ss.counter, want)
+    assert not ss._compress_step()
+    assert ShardedStore(N, mesh=cpu_mesh((1, 1)), policy=StorePressurePolicy(
+        max_rows=64)).row_cap == 64
     g = generators.rmat_graph(64, 256, seed=0)
-    eng = InfluenceEngine(g, IMMConfig(batch=8, sampler="IC/sparse+stable"),
-                          mesh=cpu_mesh((2, 1)), vertex_axis="vertex")
-    assert not eng.supports_row_resample
-    with pytest.raises(NotImplementedError, match="A8b"):
-        eng._sample(prng.PRNGKey(0), positions=np.arange(2))
+    cfg = IMMConfig(batch=8, sampler="IC/sparse+stable")
+    eng = InfluenceEngine(g, cfg, mesh=cpu_mesh((2, 1)),
+                          vertex_axis="vertex")
+    assert eng.supports_row_resample
+    sub = eng._sample(prng.PRNGKey(0), positions=np.arange(2))
+    whole = smp.get_sampler(cfg.sampler)(g, cfg)(prng.PRNGKey(0))
+    assert torch.equal(sub[0], whole[0][:2])
     assert dataclasses.is_dataclass(ss.batch_placement)

@@ -190,3 +190,169 @@ def test_a_mesh_across_two_cards(two_cards):
                 for x in row} == {str(d0), str(d1)}
         np.testing.assert_array_equal(got.seeds, want.seeds)
         np.testing.assert_array_equal(got.counter, want.counter)
+
+
+# ------------------------------------------- the meshed lifecycle (A8b) ----
+
+def _lifecycle(dev, codec, shape, part, n, policy=None, seed=5):
+    """One scripted lifecycle on a mesh of ``dev``: batches, kills (a
+    device mask), a padded repair, a compaction and more batches.
+    Returns the store's host state, its counter, live bits and remaps."""
+    from repro_torch.core.store import StorePressurePolicy
+    st = ShardedStore(n, mesh=grid(dev, shape), vertex_axis="vertex",
+                      partition=part, codec=codec,
+                      policy=None if policy is None
+                      else StorePressurePolicy(**policy))
+    st.track_remaps = True
+    rng = np.random.default_rng(seed)
+    for B in (40, 33, 64):
+        st.add_batch(_rows(int(rng.integers(1 << 30)), B, n, 0.05))
+    dead = torch.from_numpy(rng.random(st.capacity) < 0.25).to(dev)
+    st.kill_rows(dead)
+    slots = np.flatnonzero(~st._live_host & st._filled_host())[:11]
+    idx = np.concatenate([slots, np.full(16 - slots.size, -1)])
+    st.replace_rows(idx, _rows(7, 16, n, 0.3).to(dev))
+    st.compact()
+    st.add_batch(_rows(8, 50, n, 0.02))
+    return (st.state(), st.counter.cpu(), st._live_host.copy(),
+            [r.tolist() for r in st.drain_remaps()], st)
+
+
+@pytest.mark.parametrize("codec", ["bitmap", "packed", "compressed"])
+@pytest.mark.parametrize("shape,n,balanced", [((2, 2), 83, False),
+                                              ((1, 4), 1001, True),
+                                              ((4, 1), 333, False)])
+def test_tile_lifecycle_equals_the_host(cuda, codec, shape, n, balanced):
+    """Kills, a padded repair and a compaction on tiles of the card, the
+    counter partials through the kernels (coverage_matvec, packed_count,
+    token_count; arena_commit for bitmap and packed repairs): state,
+    counter, live bits and remaps equal the same script on the host, and
+    the counter is the live rows' sum."""
+    part = (balanced_vertex_partition(n, shape[1], dst=np.arange(n) ** 2 % n)
+            if balanced else None)
+    ops.reset_launches()
+    got = _lifecycle(cuda, codec, shape, part, n)
+    launches = ops.launch_counts()
+    want = _lifecycle("cpu", codec, shape, part, n)
+    for k in want[0]:
+        assert np.array_equal(np.asarray(got[0][k]), np.asarray(want[0][k])), k
+    assert torch.equal(got[1], want[1])
+    assert np.array_equal(got[2], want[2]) and got[3] == want[3]
+    assert torch.equal(got[1], torch.from_numpy(
+        got[0]["R"].sum(0).astype(np.int32)))
+    kill_kernel = {"bitmap": "coverage_matvec", "packed": "packed_count",
+                   "compressed": "token_count"}[codec]
+    assert launches.get(kill_kernel, 0) > 0
+    if codec != "compressed":
+        commit = "arena_commit" + ("_packed" if codec == "packed" else "")
+        # every tile's writes: 3 batches, the repair, one more batch
+        assert launches.get(commit, 0) >= shape[0] * shape[1]
+
+
+def _pressure(dev, shape, n, max_bytes):
+    """Packed tiles under a byte cap with the ladder: over the cap they
+    morph to tokens, then evict per shard; a kill and a repair after.
+    Returns the host state, counter and the store."""
+    from repro_torch.core.store import StorePressurePolicy
+    st = ShardedStore(n, mesh=grid(dev, shape), vertex_axis="vertex",
+                      codec="packed", policy=StorePressurePolicy(
+                          max_bytes=max_bytes, ladder=("compressed",)))
+    for i in range(14):
+        st.add_batch(_rows(100 + i, 16 * shape[0], n, 0.004))
+        assert max(st.counts) <= st.row_cap // st.D
+        assert st.capacity * st._row_bytes() <= max_bytes
+    dead = np.zeros(st.capacity, bool)
+    dead[[0, 3, st.cap_local + 1]] = True
+    st.kill_rows(dead)
+    st.replace_rows(np.flatnonzero(dead), _rows(9, 3, n, 0.004).to(dev))
+    assert st.capacity * st._row_bytes() <= max_bytes
+    return st.state(), st.counter.cpu(), st
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (4, 1)])
+def test_tile_ladder_and_eviction_equal_the_host(cuda, shape):
+    """A byte cap that sends packed tiles down the ladder to tokens and
+    then evicts per shard: the same store on the card and the host."""
+    n = 1024                        # 128 packed bytes a row, 32 as tokens
+    max_bytes = shape[0] * 40 * 128
+    got = _pressure(cuda, shape, n, max_bytes)
+    want = _pressure("cpu", shape, n, max_bytes)
+    assert got[2].representation == want[2].representation == "compressed"
+    assert got[2].count == got[2].row_cap < 14 * 16 * shape[0]
+    for k in want[0]:
+        assert np.array_equal(np.asarray(got[0][k]), np.asarray(want[0][k])), k
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[1], torch.from_numpy(
+        got[0]["R"].sum(0).astype(np.int32)))
+
+
+@pytest.mark.parametrize("sampler", ["IC/pallas+stable", "LT/walk+stable",
+                                     "IC/sparse+stable"])
+def test_a_meshed_stream_on_the_card_equals_the_host(cuda, sampler):
+    """A stream on a 2x2 mesh of the card under deltas, drained, equals
+    the same stream on a 2x2 mesh of the host and the single-device
+    stream on the host (the pallas BFS column-blocked on the tiles)."""
+    from repro_torch import stream as tst
+    g = generators.rmat_graph(600, 4800, seed=3, weighted_ic="wc")
+    cfg = IMMConfig(k=6, sampler=sampler, batch=64, seed=2, store="packed",
+                    partition="balanced")
+    runs = []
+    for kw in ({"mesh": grid(cuda, (2, 2)), "vertex_axis": "vertex"},
+               {"mesh": grid("cpu", (2, 2)), "vertex_axis": "vertex"},
+               {"device": "cpu"}):
+        s = tst.StreamEngine(g, cfg, **kw)
+        s.extend(512)
+        rng = np.random.default_rng(4)
+        stale = [s.apply_delta(tst.random_delta(s.graph, rng, inserts=8,
+                                                deletes=8, reweights=8))
+                 for _ in range(2)]
+        s.refresh()
+        runs.append((stale, s.store.counter.cpu(), s.select(6).seeds))
+    for stale, counter, seeds in runs[1:]:
+        assert stale == runs[0][0]
+        assert torch.equal(counter, runs[0][1])
+        np.testing.assert_array_equal(seeds, runs[0][2])
+
+
+@pytest.mark.parametrize("w_lo,w_hi", [(0, 97), (500, 1003), (1000, 1003)])
+def test_frontier_step_on_a_column_block(cuda, w_lo, w_hi):
+    """ic_frontier_step on a column block of logq (n rows by w output
+    columns, as a tile of a meshed BFS hands it) equals its plain version
+    bitwise, and the whole table's step on those columns."""
+    from repro_torch.kernels import ic_frontier as icf
+    gen = torch.Generator().manual_seed(3)
+    n, B = 1003, 70
+    L = torch.where(torch.rand(n, n, generator=gen) < 0.01,
+                    torch.log1p(-torch.rand(n, n, generator=gen)),
+                    torch.zeros(()))
+    F = torch.rand(B, n, generator=gen) < 0.3
+    V = torch.rand(B, n, generator=gen) < 0.2
+    R = torch.rand(B, n, generator=gen)
+    blk = L[:, w_lo:w_hi].contiguous()
+    cols = icf.column_form(blk.to(cuda))
+    got = ops.ic_frontier_step(F.to(cuda), V[:, w_lo:w_hi].to(cuda), None,
+                               R[:, w_lo:w_hi].to(cuda), cols=cols)
+    plain = icf.ic_frontier_step_plain(F, V[:, w_lo:w_hi], blk,
+                                       R[:, w_lo:w_hi])
+    whole = icf.ic_frontier_step_plain(F, V, L, R)[:, w_lo:w_hi]
+    assert torch.equal(got.cpu(), plain) and torch.equal(plain, whole)
+    assert got.stride(0) % 16 == 0
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2)])
+def test_dense_refuses_tf32_on_any_layout(cuda, shape):
+    """The dense backend is specified in float32: with TF32 matmuls on it
+    raises, unplaced and column-blocked over a 2D mesh's vertex tiles."""
+    g = generators.rmat_graph(300, 2400, seed=3)
+    cfg = IMMConfig(k=4, sampler="IC/dense", max_theta=256, seed=2,
+                    partition="balanced")
+    kw = (dict(device=cuda) if shape == (1, 1) else
+          dict(mesh=grid(cuda, shape), vertex_axis="vertex"))
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        eng = InfluenceEngine(g, cfg, **kw)
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            eng.extend(256)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old

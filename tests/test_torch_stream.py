@@ -503,10 +503,32 @@ def test_serve_im_cli_with_deltas_matches_jax():
 
 
 def test_serve_cli_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A8"):
-        serve.main(["--workload", "tier", "--mesh", "4", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A8"):
-        serve.main(["--workload", "im", "--mesh", "4", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A8"):
-        tst.StreamEngine(_graphs()[1], IMMConfig(), mesh=object(),
-                         device="cpu")
+    """A meshed stream is ported (ROADMAP A8b): ``--mesh`` runs and, on
+    the host's one device, prints the mesh-less run's lines after its own
+    sharded-store line; what the reference refuses on a mesh (a store
+    that is not dense at rest) the port refuses alike."""
+    from repro_torch.mesh import Mesh
+    argv = ["--workload", "im", "--graph", "com-Amazon", "--scale", "0.002",
+            "--queries", "8", "--deltas", "1", "--max-theta", "256",
+            "--device", "cpu"]
+    outs = []
+    for extra in ([], ["--mesh", "4"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = serve.main(argv + extra)
+        outs.append((out, buf.getvalue().splitlines()))
+    (a, la), (b, lb) = outs
+    assert a == b
+    assert lb[0].startswith("[serve-im] sharded store") and la[1:] == lb[2:]
+    mesh = Mesh(["cpu"], ("data",))
+    for P, kw in ((jst, {}), (tst, {"device": "cpu"})):
+        g = _graphs()[0 if P is jst else 1]
+        cfg = (JConfig if P is jst else IMMConfig)(store="indices")
+        with pytest.raises(ValueError, match="dense-at-rest"):
+            P.StreamEngine(g, cfg, mesh=(jax_mesh() if P is jst else mesh),
+                           **kw)
+
+
+def jax_mesh():
+    import jax
+    return jax.make_mesh((1,), ("data",))

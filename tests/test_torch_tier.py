@@ -593,8 +593,12 @@ def test_tier_refresh_requires_budget():
             tier.refresh_step()
         with pytest.raises(ValueError, match="refresh_budget"):
             tier.start_refresh_worker()
-    with pytest.raises(NotImplementedError, match="A8"):
-        tserve.IMServe(mesh_kwargs={"mesh": object()}, device="cpu")
+    # a meshed tier (ROADMAP A8b) builds its tenants on the mesh
+    from repro_torch.mesh import Mesh
+    mesh = Mesh([["cpu"] * 2] * 2, ("data", "vertex"))
+    tier = tserve.IMServe(mesh_kwargs={"mesh": mesh, "vertex_axis": "vertex"},
+                          device="cpu")
+    assert tier.device.type == "cpu" and tier.mesh_kwargs["mesh"] is mesh
     assert tserve.IMServe(mesh_kwargs={}, device="cpu").device.type == "cpu"
 
 
@@ -966,8 +970,14 @@ def test_serve_tier_cli_matches_jax():
     assert len(lines) == len(want) == 9
     assert [_mask(x) for x in lines] == [_mask(x) for x in want]
     assert lines[:2] == want[:2] and "drained=True" in lines[3]
-    with pytest.raises(NotImplementedError, match="A8"):
-        tlaunch.main(argv + ["--mesh", "4", "--device", "cpu"])
+    # --mesh (ROADMAP A8b): the reference's lines, the mesh named
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = tlaunch.main(argv + ["--mesh", "4", "--device", "cpu"])
+    meshed = buf.getvalue().splitlines()
+    assert out["drained"] and len(meshed) == 9
+    assert meshed[0] == lines[0].replace("mesh=1", "mesh=4")
+    assert [_mask(x) for x in meshed[1:]] == [_mask(x) for x in lines[1:]]
 
 
 # ------------------------------------------------------ launch counts ----
