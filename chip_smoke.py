@@ -122,18 +122,41 @@ Phases, one JSON line each:
             BFS step one ic_frontier_step launch, walking the column
             form the bound sampler built once), then the dense one;
             rows on which they differ are classified as near-ties
-  lm_parity the three dense LM smoke configs (f32) and a narrow bf16
-            config of Qwen1.5-0.5B's shape served on cuda and on cpu from
-            the same weights: prefill logits within tolerance, greedy
-            tokens equal (a differing token only where the cpu run's
-            top-2 logit gap is below the tolerance); a prompt and a
-            decode token out of the vocabulary give NaN rows in the same
-            places on both devices
+  lm_parity the five LM smoke configs (three dense, two MoE; f32) and
+            a narrow bf16 config of Qwen1.5-0.5B's shape served on cuda
+            and on cpu from the same weights: prefill logits within
+            tolerance, greedy tokens equal (a differing token only where
+            the cpu run's top-2 logit gap is below the tolerance); a
+            prompt and a decode token out of the vocabulary give NaN rows
+            in the same places on both devices; for the five smoke
+            configs lm_loss and every gradient leaf on cuda (attention's
+            gradient through FlashAttention, remat on: two launches a
+            layer) against the cpu's; the meshed MoE (ep and tpe) on 1x2
+            and 2x2 meshes of the card against the single-device MoE FFN
+            at a capacity where nothing drops
   lm_full   LMServer on the full-width Qwen1.5-0.5B config (24 layers,
             d 1,024, vocab 151,936, bf16, random weights from a seeded
             generator on the card): 4 requests of 512 prompt tokens, 32
             generated tokens; prefill launches flash_attention once per
             layer, every launch through the tensor-core kernel
+  lm_train  training on the card: full-width Qwen1.5-0.5B (bf16, seeded
+            weights, remat on, ce_chunk 512) takes three AdamW steps on
+            one batch of 4 x 4,096 (train_4k's sequence; its batch of 256
+            cut to 4): the loss at each step (finite, step 3 below step
+            1), step ms, peak memory, flash_attention launches a step
+            held to 24 forward + 24 recompute; one more step under the
+            profiler (its device time and the share under the attention
+            backward); one layer's attention at the training shape (4 x
+            16 x 4,096 x 64) through FlashAttention, its output held to
+            the plain version and its dq, dk, dv to the plain version's
+            autograd, on f32 copies, the plain backward's ms beside the
+            kernel's forward and SDPA's forward + backward (a yardstick);
+            then moonshot-v1-16b-a3b at full width cut to 2 layers (64
+            experts top-6, capacity 960) takes two AdamW steps on 2 x
+            4,096 (each step's dropped choices from `moe.route`'s obs
+            counters), the forward kernel checked at its head dim 128, and
+            LMServer serves 4 prompts of 512 tokens, 8 greedy tokens,
+            twice, equal
   fm_parity the FM smoke config and a full-field one (39 fields x K 10,
             vocab 64) run on cuda and on cpu from the same weights: the
             pair term and the serving logits (one fm_gather_interaction
@@ -2471,7 +2494,7 @@ def pallas_full(torch, graph, max_theta: int) -> dict:
     sample = engines["pallas"]._sample
     keys = prng.split(prng.PRNGKey(5), 5)
     _, plain_s = timed(torch, lambda: [sample(k) for k in keys[1:]])
-    wall, busy, top = trace_device(torch,
+    wall, busy, top, _ = trace_device(torch,
                                    [lambda k=k: sample(k) for k in keys])
     p["sampler_profile"] = dict(batches=4, plain_wall_s=plain_s,
                                 traced_wall_s=wall, device_busy_s=busy,
@@ -2783,7 +2806,7 @@ def lt_full(torch, graph, max_theta: int) -> dict:
               f"lt_full batch {i}: card rows differ from the host's")
     sample = engine._sample
     keys = batch_keys(99, 5)
-    wall, busy, top = trace_device(torch, [lambda k=k: sample(k)
+    wall, busy, top, _ = trace_device(torch, [lambda k=k: sample(k)
                                            for k in keys])
     emit("lt_full", graph="com-Amazon", model="LT", sampler=cfg.sampler,
          store="bitmap", n=graph.n, m=graph.m, k=50, eps=0.5,
@@ -3727,9 +3750,13 @@ PARITY_B, PARITY_PROMPT, PARITY_GEN = 2, 48, 16
 FULL_B, FULL_PROMPT, FULL_GEN = 4, 512, 32
 
 
+LM_ARCHS = ("qwen1.5-0.5b", "h2o-danube-3-4b", "minicpm-2b",
+            "moonshot-v1-16b-a3b", "grok-1-314b")
+
+
 def parity_configs():
-    """The three dense smoke configs and a narrow bf16 config of
-    Qwen1.5-0.5B's shape (head dim 64, QKV bias, its vocab)."""
+    """The five smoke configs and a narrow bf16 config of Qwen1.5-0.5B's
+    shape (head dim 64, QKV bias, its vocab)."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -3738,8 +3765,118 @@ def parity_configs():
     narrow = dataclasses.replace(qwen, name="qwen-narrow", n_layers=2,
                                  d_model=256, n_heads=4, n_kv_heads=4,
                                  d_ff=704)
-    return [get_arch(a).smoke_config for a in
-            ("qwen1.5-0.5b", "h2o-danube-3-4b", "minicpm-2b")] + [narrow]
+    return [get_arch(a).smoke_config for a in LM_ARCHS] + [narrow]
+
+
+#: gradients, cuda against cpu: |err| <= GRAD_TOL * (1 + |cpu|), the f32
+#: LM tolerance of the CPU tests against JAX (PERF.md section 2)
+GRAD_TOL = 1e-4
+GRAD_B, GRAD_S = 2, 48
+
+
+def lm_grad_parity(torch) -> dict:
+    """lm_loss and every gradient leaf of the five smoke configs (f32,
+    remat on) on cuda against the same on cpu, from the same weights and
+    tokens; on cuda attention runs through FlashAttention, whose forward
+    launches twice a layer (the forward and the checkpoint's
+    recompute)."""
+    from repro_torch import prng
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import (_tree_map, init_lm,
+                                                lm_value_and_grad, tree_leaves)
+
+    out = {}
+    for arch in LM_ARCHS:
+        cfg = get_arch(arch).smoke_config
+        params = init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+        toks = prng.randint(prng.PRNGKey(4), (GRAD_B, GRAD_S + 1), 0,
+                            cfg.vocab)
+        res = {}
+        for dev in (DEV, "cpu"):
+            p = _tree_map(lambda t: t.to(dev), params)
+            ops.reset_launches()
+            loss, grads = lm_value_and_grad(p, cfg, toks[:, :-1].to(dev),
+                                            toks[:, 1:].to(dev))
+            res[dev] = (float(loss), {"/".join(k): g.float().cpu()
+                                      for k, g in tree_leaves(grads)},
+                        ops.launch_counts().get("flash_attention", 0))
+        (lc, gc, nc), (lh, gh, nh) = res[DEV], res["cpu"]
+        check(nc == 2 * cfg.n_layers and nh == 0,
+              f"lm_grad {arch}: flash_attention launched {nc} (cuda) / {nh}"
+              f" (cpu) times, want {2 * cfg.n_layers} / 0")
+        check(abs(lc - lh) <= GRAD_TOL * (1 + abs(lh)),
+              f"lm_grad {arch}: loss {lc} (cuda) against {lh} (cpu)")
+        worst = {}
+        for name, want in gh.items():
+            got = gc[name]
+            check(bool(torch.isfinite(got).all()), f"lm_grad {arch}: {name}"
+                  f" not finite")
+            err = float(((got - want).abs() / (1 + want.abs())).max())
+            check(err <= GRAD_TOL, f"lm_grad {arch}: d{name} differs by "
+                  f"{err:.3g} (relative to 1 + |cpu|)")
+            worst[name] = err
+        name = max(worst, key=worst.get)
+        out[arch] = dict(loss_cuda=lc, loss_cpu=lh, leaves=len(worst),
+                         worst_leaf=name, worst_err=worst[name],
+                         qkv_err=max(worst[f"layers/w{c}"] for c in "qkv"),
+                         flash_attention_launches=nc)
+    return out
+
+
+def moe_mesh_parity(torch) -> dict:
+    """The meshed MoE FFN (`moe_sharded`, ep and tpe) on 1x2 and 2x2
+    meshes of the card against the single-device `_moe_ffn` on the same
+    layer and tokens, at a capacity factor where no choice drops (local
+    and global capacities then give the same sums): y and aux within
+    GRAD_TOL, and the gradient of x finite."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.mesh import Mesh
+    from repro_torch.models import moe, moe_sharded
+    from repro_torch.models.transformer import _layers, _moe_ffn, init_lm
+
+    out = {}
+    saved = moe_sharded.MESH
+    try:
+        for arch in ("moonshot-v1-16b-a3b", "grok-1-314b"):
+            cfg = dataclasses.replace(get_arch(arch).smoke_config,
+                                      capacity_factor=64.0)
+            p = _layers(init_lm(torch.Generator(device=DEV).manual_seed(0),
+                                cfg, device=DEV))[0]
+            x = torch.randn((4, 16, cfg.d_model), device=DEV,
+                            generator=torch.Generator(
+                                device=DEV).manual_seed(1))
+            x2d = x.reshape(-1, cfg.d_model)
+            r = moe.route(x2d, p["router"], cfg.n_experts, cfg.top_k,
+                          cfg.capacity_factor)
+            check(bool(r.keep.all()), f"moe_mesh {arch}: a choice dropped")
+            y0, a0 = _moe_ffn(p, x2d, cfg)
+            for shape in ((1, 2), (2, 2)):
+                moe_sharded.MESH = Mesh([[DEV] * shape[1]] * shape[0],
+                                        ("data", "model"))
+                for part in ("ep", "tpe"):
+                    c2 = dataclasses.replace(cfg, moe_impl="shard_map",
+                                             moe_shard_axes=("data",),
+                                             moe_partition=part)
+                    xx = x.clone().requires_grad_()
+                    y, a = moe_sharded.moe_ffn_sharded(p, xx, c2)
+                    (gx,) = torch.autograd.grad(y.sum() + a, xx)
+                    y, a = y.detach().reshape(-1, cfg.d_model), a.detach()
+                    err = float(((y - y0).abs() / (1 + y0.abs())).max())
+                    aerr = abs(float(a) - float(a0))
+                    tag = f"moe_mesh {arch} {shape[0]}x{shape[1]} {part}"
+                    check(err <= GRAD_TOL and aerr <= GRAD_TOL
+                          * (1 + abs(float(a0))), f"{tag}: y err {err:.3g}"
+                          f", aux err {aerr:.3g}")
+                    check(bool(torch.isfinite(gx).all()),
+                          f"{tag}: gradient not finite")
+                    out[f"{arch} {shape[0]}x{shape[1]} {part}"] = dict(
+                        y_err=err, aux_err=aerr)
+    finally:
+        moe_sharded.MESH = saved
+    return out
 
 
 def greedy_with_gaps(torch, server, prompts, n: int):
@@ -3852,12 +3989,16 @@ def lm_parity_phase(torch) -> dict:
                 diverged=diverged,
                 min_cpu_gap=float(h["gaps"].min()),
                 tokens=c["toks"][0, :8].tolist())
+        grads = lm_grad_parity(torch)
+        meshed = moe_mesh_parity(torch)
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             saved
     emit("lm_parity", batch=PARITY_B, prompt=PARITY_PROMPT, gen=PARITY_GEN,
          tol=LOGIT_TOL, allow_bf16_reduced_precision_reduction=False,
          allow_tf32=False, **out)
+    emit("lm_grad_parity", batch=GRAD_B, seq=GRAD_S, tol=GRAD_TOL, **grads)
+    emit("moe_mesh_parity", tol=GRAD_TOL, **meshed)
     return out
 
 
@@ -3929,7 +4070,7 @@ def lm_full_phase(torch) -> dict:
     kernel_ms = time_cuda(torch, lambda: fa.flash_attention_cuda(q, k, v))
     # where a prefill's time goes: device-busy time and its kernels under
     # torch.profiler, 3 prefills after a profiled warm-up
-    wall, busy, top = trace_device(
+    wall, busy, top, _ = trace_device(
         torch, [lambda: server.prefill(prompts)] * 4)
     prefill_profile = dict(traced_wall_ms=wall / 3 * 1e3,
                            device_busy_ms=busy / 3 * 1e3,
@@ -3952,6 +4093,262 @@ def lm_full_phase(torch) -> dict:
          top_logit_bf16_steps=steps,
          tokens=out1[0, :8].tolist(), launches=launches)
     return launches
+
+
+# ------------------------------------------------------------ LM training ----
+
+#: train_4k's sequence (`configs/_lm_common.lm_shapes`) with its global
+#: batch of 256 cut to what one card's step takes: 4 for Qwen1.5-0.5B, 2
+#: for moonshot at full width cut to 2 layers
+TRAIN_S, QWEN_B, QWEN_STEPS, MOON_B, MOON_STEPS, MOON_LAYERS = (
+    4096, 4, 3, 2, 2, 2)
+TRAIN_CE_CHUNK = 512
+MOON_PROMPT, MOON_GEN = 512, 8
+
+
+def train_steps(torch, cfg, params, tokens, steps: int, trace=False):
+    """``steps`` AdamW steps (`AdamWConfig` defaults, f32 moments) of
+    `lm_loss` on one batch: per step the loss, the ms on the host clock
+    between syncs, the flash_attention launches and the MoE choices
+    routed and dropped (`moe.route`'s obs counters; 0 while obs is off);
+    the params after; with ``trace``, two more steps under the profiler
+    (a warm-up and the traced one): the step's device time, its top
+    kernels and the device time under the attention backward (the
+    `FlashAttention` autograd node), else None."""
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import lm_value_and_grad
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+    opt = AdamWConfig()
+    state = adamw_init(params, opt)
+    inp, lab = tokens[:, :-1], tokens[:, 1:]
+
+    def step():
+        nonlocal params, state
+        loss, grads = lm_value_and_grad(params, cfg, inp, lab,
+                                        ce_chunk=TRAIN_CE_CHUNK)
+        params, state = adamw_update(params, grads, state, opt)
+        return loss
+
+    def routed():
+        return (obs.counter("moe.choices").value,
+                obs.counter("moe.dropped").value)
+
+    log = dict(losses=[], step_ms=[], launches=[], routed=[])
+    for _ in range(steps):
+        ops.reset_launches()
+        before = routed()
+        loss, sec = timed(torch, step)
+        counts = ops.launch_counts()
+        log["losses"].append(float(loss))
+        log["step_ms"].append(sec * 1e3)
+        log["launches"].append(counts.get("flash_attention", 0))
+        log["routed"].append([a - b for a, b in zip(routed(), before)])
+        check(counts.get("flash_attention:tc", 0) == log["launches"][-1],
+              f"lm_train {cfg.name}: a launch went past the tensor-core "
+              f"kernel ({counts})")
+    check(all(math.isfinite(x) for x in log["losses"]),
+          f"lm_train {cfg.name}: losses {log['losses']}")
+    log["trace"] = None
+    if trace:
+        wall, busy, top, inside = trace_device(
+            torch, [step, step], within=("FlashAttentionBackward",))
+        bwd = inside["FlashAttentionBackward"]
+        log["trace"] = dict(traced_wall_ms=wall * 1e3,
+                            device_busy_ms=busy * 1e3,
+                            idle_share=1.0 - busy / wall,
+                            attention_backward_device_ms=bwd * 1e3,
+                            attention_backward_share=bwd / busy,
+                            top=top[:8])
+    return params, log
+
+
+def attention_grad_check(torch, B, H, S, D) -> dict:
+    """One full-width layer's attention in bf16 at the training shape:
+    the output and dq, dk, dv through FlashAttention against the plain
+    version and its autograd on f32 copies (ATTN_TOL's bf16 bound on
+    ``|err| / (1 + |ref|)``); the kernel's forward ms, the plain
+    backward's ms, and SDPA's forward + backward ms as a yardstick
+    (never called by the port)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    q, k, v = attention_inputs(torch, gen, B, H, H, S, S, D, torch.bfloat16)
+    dout = torch.randn(q.shape, generator=gen, device=DEV).to(torch.bfloat16)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = fa.FlashAttention.apply(qg, kg, vg, True, 0)
+    got = torch.autograd.grad(out, (qg, kg, vg), dout)
+    q32, k32, v32 = (t.float().requires_grad_() for t in (q, k, v))
+    plain = fa.flash_attention_plain(q32, k32, v32)
+    errs = {"out": attention_err(torch, out, plain.detach(), "bfloat16",
+                                 f"forward at {B}x{H}x{S}x{D}")}
+    want = torch.autograd.grad(plain, (q32, k32, v32), dout.float())
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(g.dtype == torch.bfloat16, f"lm_train {name} dtype {g.dtype}")
+        errs[name] = attention_err(torch, g, w, "bfloat16",
+                                   f"backward {name}")
+    del want, plain, out, got, q32, k32, v32
+    fwd_ms = time_cuda(torch, lambda: fa.flash_attention_cuda(q, k, v),
+                       iters=5)
+    bwd_ms = time_cuda(torch, lambda: fa.flash_attention_backward_plain(
+        q, k, v, dout), warmup=1, iters=3)
+
+    def fused():
+        o = fa.FlashAttention.apply(qg, kg, vg, True, 0)
+        return torch.autograd.grad(o, (qg, kg, vg), dout)
+
+    both_ms = time_cuda(torch, fused, warmup=1, iters=3)
+    lib = sdpa(torch, qg, kg, vg, 0)
+    sdpa_fwd_ms = time_cuda(torch, lib, iters=5)
+    sdpa_ms = time_cuda(torch, lambda: torch.autograd.grad(
+        lib(), (qg, kg, vg), dout), warmup=1, iters=5)
+    flops, nbytes, bound_ms, by = attention_bound(B, H, H, S, S, D, 0)
+    return dict(shape=[B, H, S, D], max_abs_err={n: e[0] for n, e in
+                                                 errs.items()},
+                rel_err={n: e[1] for n, e in errs.items()},
+                tol=ATTN_TOL["bfloat16"], kernel_fwd_ms=fwd_ms,
+                plain_bwd_ms=bwd_ms, fwd_plus_bwd_ms=both_ms,
+                sdpa_fwd_ms=sdpa_fwd_ms, sdpa_fwd_bwd_ms=sdpa_ms,
+                fwd_bound_ms=bound_ms, fwd_bound_by=by,
+                bwd_bound_ms=2.5 * bound_ms)
+
+
+def lm_train_phase(torch) -> dict:
+    """Full-width Qwen1.5-0.5B training steps (and one more traced), one
+    layer's attention at the training shape against the plain path, then
+    moonshot at full width cut to two layers trained (its drops counted
+    by the steps' own routings) and served; returns the launch counts of
+    Qwen's timed steps (the phase's main path)."""
+    import dataclasses
+
+    from repro_torch import obs, prng
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import LMServer
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import init_lm
+
+    cfg = get_arch("qwen1.5-0.5b").config
+    check(cfg.remat, "lm_train: Qwen's config has remat off")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = timed(torch, lambda: init_lm(
+        torch.Generator(device=DEV).manual_seed(0), cfg, device=DEV))
+    tokens = prng.randint(prng.PRNGKey(7), (QWEN_B, TRAIN_S + 1), 0,
+                          cfg.vocab, device=DEV)
+    ops.reset_launches()
+    params, log = train_steps(torch, cfg, params, tokens, QWEN_STEPS,
+                              trace=True)
+    peak = torch.cuda.max_memory_allocated()
+    losses, launches = log["losses"], log["launches"]
+    want = 2 * cfg.n_layers
+    check(all(n == want for n in launches),
+          f"lm_train qwen: flash_attention launches a step {launches}, "
+          f"predicted {want} (a forward and a recompute a layer)")
+    check(losses[-1] < losses[0], f"lm_train qwen: loss {losses} did not "
+          f"fall")
+    del params, tokens
+    torch.cuda.empty_cache()
+    # one layer's attention at the training shape (4 x 16 x 4,096 x 64)
+    attn = attention_grad_check(torch, QWEN_B, cfg.n_heads, TRAIN_S,
+                                cfg.head_dim)
+    torch.cuda.empty_cache()
+    emit("lm_train", arch=cfg.name, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.dtype,
+         params=cfg.param_count(), batch=QWEN_B, seq=TRAIN_S,
+         ce_chunk=TRAIN_CE_CHUNK, remat=cfg.remat, init_s=init_s,
+         losses=losses, step_ms=log["step_ms"], max_memory_allocated=peak,
+         flash_attention_launches_per_step=launches,
+         predicted_launches_per_step=want,
+         layer_attention_fwd_ms=attn["kernel_fwd_ms"],
+         layer_attention_plain_bwd_ms=attn["plain_bwd_ms"],
+         step_profile=log["trace"], attention_grad=attn)
+
+    # moonshot-v1-16b-a3b at full width, depth cut to 2 layers
+    mcfg = dataclasses.replace(get_arch("moonshot-v1-16b-a3b").config,
+                               n_layers=MOON_LAYERS)
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    q, k, v = attention_inputs(torch, gen, MOON_B, mcfg.n_heads,
+                               mcfg.n_kv_heads, TRAIN_S, TRAIN_S,
+                               mcfg.head_dim, torch.bfloat16)
+    hd_err = attention_err(torch, fa.flash_attention_cuda(q, k, v),
+                           fa.flash_attention_plain(q, k, v), "bfloat16",
+                           f"head dim {mcfg.head_dim}")
+    del q, k, v
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mparams, minit_s = timed(torch, lambda: init_lm(
+        torch.Generator(device=DEV).manual_seed(0), mcfg, device=DEV))
+    mtok = prng.randint(prng.PRNGKey(9), (MOON_B, TRAIN_S + 1), 0,
+                        mcfg.vocab, device=DEV)
+    T = MOON_B * TRAIN_S
+    C = moe.capacity(mcfg.capacity_factor, mcfg.top_k, T, mcfg.n_experts)
+    # the steps count their own routings (a sync each, 4 a step: two
+    # layers, forward and recompute)
+    obs.reset()
+    obs.enable()
+    try:
+        mparams, mlog = train_steps(torch, mcfg, mparams, mtok, MOON_STEPS)
+        capacity = obs.gauge("moe.capacity")
+        seen_c = (capacity.value, capacity.max)
+    finally:
+        obs.reset()
+    mpeak = torch.cuda.max_memory_allocated()
+    mlaunches = mlog["launches"]
+    check(all(n == 2 * MOON_LAYERS for n in mlaunches),
+          f"lm_train moonshot: launches a step {mlaunches}")
+    check(seen_c == (C, C), f"lm_train moonshot: capacities {seen_c}, "
+          f"want {C}")
+    routings = 2 * MOON_LAYERS * T * mcfg.top_k
+    check(all(n == routings for n, _ in mlog["routed"]),
+          f"lm_train moonshot: choices routed a step {mlog['routed']}, "
+          f"want {routings} (two layers, forward and recompute)")
+    drops = [dict(choices=n, dropped=d, drop_share=d / n)
+             for n, d in mlog["routed"]]
+    del mtok
+    server = LMServer(mcfg, mparams, max_len=MOON_PROMPT + MOON_GEN,
+                      device=DEV)
+    prompts = prng.randint(prng.PRNGKey(10), (4, MOON_PROMPT), 0,
+                           mcfg.vocab, device=DEV)
+    with torch.no_grad():
+        (logits, _), prefill_s = timed(torch, lambda: server.prefill(prompts))
+        ops.reset_launches()
+        gen1, generate_s = timed(torch, lambda: server.generate(prompts,
+                                                                MOON_GEN))
+        serve_launches = ops.launch_counts().get("flash_attention", 0)
+        _, cache = server.seed_cache(prompts)
+        first = torch.argmax(logits, dim=-1)[:, None].to(prompts.dtype)
+        _, decode_s = timed(torch, lambda: server.decode(cache, first,
+                                                         MOON_GEN))
+        gen2 = server.generate(prompts, MOON_GEN)
+    check(bool(torch.isfinite(logits.float()).all()),
+          "lm_train moonshot: prefill logits")
+    check(tuple(gen1.shape) == (4, MOON_GEN) and bool(
+        ((gen1 >= 0) & (gen1 < mcfg.vocab)).all()),
+          "lm_train moonshot: generated ids")
+    check(torch.equal(gen1, gen2), "lm_train moonshot: a second generate "
+          "differs")
+    check(serve_launches == MOON_LAYERS,
+          f"lm_train moonshot: {serve_launches} launches in a generate")
+    emit("lm_train_moe", arch=mcfg.name, n_layers=mcfg.n_layers,
+         published_layers=get_arch("moonshot-v1-16b-a3b").config.n_layers,
+         d_model=mcfg.d_model, experts=mcfg.n_experts, top_k=mcfg.top_k,
+         vocab=mcfg.vocab, params=mcfg.param_count(),
+         active_params=mcfg.active_param_count(), batch=MOON_B,
+         seq=TRAIN_S, capacity=C, drops_per_step=drops, init_s=minit_s,
+         losses=mlog["losses"], step_ms=mlog["step_ms"],
+         max_memory_allocated=mpeak,
+         flash_attention_launches_per_step=mlaunches,
+         head_dim_check=dict(head_dim=mcfg.head_dim, max_abs_err=hd_err[0],
+                             rel_err=hd_err[1]),
+         serve_prompts=4, serve_prompt=MOON_PROMPT, serve_gen=MOON_GEN,
+         prefill_ms=prefill_s * 1e3,
+         decode_ms_per_token=decode_s / MOON_GEN * 1e3,
+         generate_s=generate_s, tokens=gen1[0].tolist())
+    return {"flash_attention": sum(launches),
+            "flash_attention:tc": sum(launches)}
 
 
 # ---------------------------------------------------------------- FM ----
@@ -4347,10 +4744,12 @@ def fm_full_phase(torch) -> dict:
     return launches
 
 
-def trace_device(torch, calls):
+def trace_device(torch, calls, within=()):
     """Run each of ``calls`` under ``torch.profiler`` after one profiled
     warm-up call (``calls[0]``, which absorbs the tracer's start-up):
-    ``(traced wall s, device-busy s, kernels by device time)``."""
+    ``(traced wall s, device-busy s, kernels by device time, {name: device
+    s of the kernels launched under the host op named name})`` for each
+    name of ``within`` (an autograd node's name, say)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -4378,8 +4777,17 @@ def trace_device(torch, calls):
                       and not e.key.startswith("ProfilerStep")),
                      key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in kernels) / 1e6
+    # an autograd node shows as "autograd::engine::evaluate_function:
+    # name" around "name": the outer one, the larger, holds both
+    inside = {name: max([getattr(e, "device_time_total",
+                                 getattr(e, "cuda_time_total", 0))
+                         for e in prof.key_averages()
+                         if e.device_type == DeviceType.CPU
+                         and e.key.endswith(name)], default=0) / 1e6
+              for name in within}
     return wall, busy, [{"name": e.key[:90], "calls": e.count,
-                         "device_ms": dev_us(e) / 1e3} for e in kernels[:12]]
+                         "device_ms": dev_us(e) / 1e3}
+                        for e in kernels[:12]], inside
 
 
 def profile_phase(torch, graph, batches: int = 4):
@@ -4401,7 +4809,7 @@ def profile_phase(torch, graph, batches: int = 4):
         sample(k)
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
-    wall, busy, top = trace_device(
+    wall, busy, top, _ = trace_device(
         torch, [lambda k=k: sample(k) for k in keys])
     emit("profile", batches=batches, plain_wall_s=plain_wall,
          traced_wall_s=wall, device_busy_s=busy, idle_share=1.0 - busy / wall,
@@ -4454,7 +4862,7 @@ def fm_profile_phase(torch, steps: int = 3):
     for name, fn in (("serve_bulk", serve), ("train_batch", train)):
         fn()
         torch.cuda.synchronize()
-        wall, busy, top = trace_device(torch, [fn] * (steps + 1))
+        wall, busy, top, _ = trace_device(torch, [fn] * (steps + 1))
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -4485,13 +4893,14 @@ def main(argv=None) -> int:
                             "compressed_full,mesh_full,indices_full,lt_full,"
                             "stream_full,mesh_stream_full,tier_full,"
                             "mesh_tier_full,pallas_full,lm_parity,"
-                            "lm_full,fm_parity,fm_full,fm_profile",
+                            "lm_full,lm_train,fm_parity,fm_full,fm_profile",
                     help="comma list of kernels, parity, imm_full, "
                          "packed_full, compressed_full, mesh_full, "
                          "indices_full, lt_full, stream_full, "
                          "mesh_stream_full, tier_full, mesh_tier_full, "
                          "pallas_full, lm_parity, "
-                         "lm_full, fm_parity, fm_full, fm_profile and the "
+                         "lm_full, lm_train, fm_parity, fm_full, "
+                         "fm_profile and the "
                          "optional profile")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -4605,6 +5014,9 @@ def run_phases(torch, phases: set, max_theta: int) -> int:
     if "lm_full" in phases:
         launches["lm_full"] = lm_full_phase(torch)
         ended("lm_full")
+    if "lm_train" in phases:
+        launches["lm_train"] = lm_train_phase(torch)
+        ended("lm_train")
     if "fm_parity" in phases:
         fm_parity_phase(torch)
         ended("fm_parity")

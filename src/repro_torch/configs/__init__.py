@@ -1,9 +1,10 @@
 """Experiment and architecture configurations (``repro.configs``).
 
 Importing this package registers the architectures the port runs: the
-three dense LMs it serves and the FM recsys model (``fm``), served and
-trained.  The MoE archs (moonshot-v1-16b-a3b, grok-1-314b) and the GNNs
-wait for their slices (ROADMAP A9)::
+five LMs, served and trained (three dense: qwen1.5-0.5b, h2o-danube-3-4b,
+minicpm-2b; two MoE: moonshot-v1-16b-a3b, grok-1-314b), and the FM
+recsys model (``fm``), served and trained.  The GNNs wait for their
+slice (ROADMAP A9c)::
 
     from repro_torch.configs import get_arch
     cfg = get_arch("qwen1.5-0.5b").config
@@ -15,8 +16,10 @@ from repro_torch.configs.base import (
 # importing the modules registers the archs
 from repro_torch.configs import (          # noqa: F401
     fm,
+    grok_1_314b,
     h2o_danube_3_4b,
     minicpm_2b,
+    moonshot_v1_16b_a3b,
     qwen1_5_0_5b,
 )
 

@@ -7,7 +7,7 @@ SWA.  Window = 4096 (the Mistral-style SWA the Danube line inherits).
 
 The SWA ring-buffer KV cache keeps decode cost and cache size O(window).
 """
-from repro_torch.configs._lm_common import lm_shapes
+from repro_torch.configs._lm_common import lm_shapes, lm_smoke_step
 from repro_torch.configs.base import ArchDef, register
 from repro_torch.models.transformer import LMConfig, init_lm
 
@@ -34,6 +34,7 @@ ARCH = register(ArchDef(
     smoke_config=SMOKE,
     shapes=lm_shapes(window=4096, arch_note="SWA window 4096"),
     init_fn=init_lm,
+    smoke_step=lm_smoke_step,
     technique_applicable=False,
     technique_note="dense LM: no sparse scatter hot path",
 ))

@@ -7,7 +7,7 @@
 MiniCPM's muP constants (paper §3): embedding scale 12, residual scale
 1.4/sqrt(n_layers), logit scale 1/(d_model/256).
 """
-from repro_torch.configs._lm_common import lm_shapes
+from repro_torch.configs._lm_common import lm_shapes, lm_smoke_step
 from repro_torch.configs.base import ArchDef, register
 from repro_torch.models.transformer import LMConfig, init_lm
 
@@ -38,6 +38,7 @@ ARCH = register(ArchDef(
     smoke_config=SMOKE,
     shapes=lm_shapes(window=0, arch_note="full attention, dense"),
     init_fn=init_lm,
+    smoke_step=lm_smoke_step,
     technique_applicable=False,
     technique_note="dense LM: no sparse scatter hot path",
 ))

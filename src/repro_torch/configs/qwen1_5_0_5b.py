@@ -4,7 +4,7 @@
 [hf:Qwen/Qwen1.5-0.5B; hf] — assigned config:
 24L d_model=1024 16H (GQA kv=16) d_ff=2816 vocab=151936, QKV bias.
 """
-from repro_torch.configs._lm_common import lm_shapes
+from repro_torch.configs._lm_common import lm_shapes, lm_smoke_step
 from repro_torch.configs.base import ArchDef, register
 from repro_torch.models.transformer import LMConfig, init_lm
 
@@ -31,6 +31,7 @@ ARCH = register(ArchDef(
     smoke_config=SMOKE,
     shapes=lm_shapes(window=0, arch_note="full attention, dense"),
     init_fn=init_lm,
+    smoke_step=lm_smoke_step,
     technique_applicable=False,
     technique_note="dense LM: no sparse scatter hot path",
 ))

@@ -123,17 +123,26 @@ def _leaf_tensor(a, device, dtype) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
+#: LM leaves held in float32 whatever the model's dtype (the MoE router,
+#: as the reference's ``init_lm`` holds it)
+_F32_LEAVES = ("router",)
+
+
 def lm_params_from_jax(tree: dict, device=None, dtype=None) -> dict:
     """The port's LM parameters from the reference's ``init_lm`` tree
     (``{"embed", "layers": {...}, "ln_f", "lm_head"}`` with numpy leaves,
-    layer weights stacked on a leading L axis), in each leaf's own dtype
-    or cast to ``dtype``, on ``cuda`` unless ``device`` says otherwise."""
+    layer weights stacked on a leading L axis; a MoE's layers add
+    ``router``, ``w_gate_up (L, E, d, 2 ff)`` and ``w_down``), in each
+    leaf's own dtype or cast to ``dtype`` (the router stays float32), on
+    ``cuda`` unless ``device`` says otherwise."""
     device = resolve_device(device)
     out = {}
     for name, leaf in tree.items():
         out[name] = (lm_params_from_jax(leaf, device, dtype)
                      if isinstance(leaf, dict)
-                     else _leaf_tensor(leaf, device, dtype))
+                     else _leaf_tensor(leaf, device,
+                                       None if name in _F32_LEAVES
+                                       else dtype))
     return out
 
 

@@ -10,6 +10,10 @@ on either side.  Such a flip is a **near-tie**: at the first BFS step
 rand)``, and ``|rand[b, u] - p64| <= 4 ulp_f32(p64)`` with ``p64`` summed
 in float64.  Any other difference is a fault.
 
+MoE routing has the same kind of flip: two top-k selections over float32
+router probabilities computed in different orders may pick different
+experts where two probabilities lie within a few ulps (`classify_topk`).
+
 Rows of a batch evolve independently (each row's coins depend on the
 step key and its own position), so every row that differs at the end is
 traced back to its own first differing step by bisecting on
@@ -120,4 +124,29 @@ def classify_runs(run_a, run_b, coins, logq, roots, *,
                 f"near-tie")
         pending = np.setdiff1d(pending, rows)
         lo = t
+    return report
+
+
+def classify_topk(x, router, idx_a, idx_b) -> dict:
+    """Classify the tokens on which two top-k routings ``idx_a``,
+    ``idx_b (T, k)`` of ``x (T, d) @ router (d, E)`` differ.  At a
+    token's first differing choice ``j`` the two picked experts ``e_a``,
+    ``e_b`` are a near-tie when their float64 softmax probabilities lie
+    within ``TIE_ULPS`` float32 ulps of each other.  Returns ``{"tokens",
+    "ties", "faults"}``."""
+    a, b = _host(idx_a).astype(np.int64), _host(idx_b).astype(np.int64)
+    rows = np.flatnonzero((a != b).any(axis=1))
+    logits = _host(x).astype(np.float64) @ _host(router).astype(np.float64)
+    z = np.exp(logits - logits.max(axis=1, keepdims=True))
+    probs = z / z.sum(axis=1, keepdims=True)
+    report = {"tokens": int(rows.size), "ties": 0, "faults": []}
+    for t in rows:
+        j = int(np.flatnonzero(a[t] != b[t])[0])
+        pa, pb = probs[t, a[t, j]], probs[t, b[t, j]]
+        if abs(pa - pb) <= TIE_ULPS * float(ulp_f32(max(pa, pb))):
+            report["ties"] += 1
+        else:
+            report["faults"].append(
+                f"token {t}: choice {j} is expert {a[t, j]} (p64 {pa!r}) "
+                f"vs {b[t, j]} (p64 {pb!r}), not a near-tie")
     return report

@@ -57,6 +57,15 @@ dtype on a CUDA tensor:
 
 Every CUDA launch counts once under ``flash_attention`` and once under
 ``flash_attention:<design>`` (`_common.launch_counts`).
+
+**The gradient** (`FlashAttention`, what `ops.flash_attention` calls on
+the card): the forward is the kernel above; the backward is
+`flash_attention_backward_plain`, plain PyTorch.  It is plain because
+the reference has no backward kernel either: no function of the JAX
+package differentiates a Pallas kernel with a kernel of its own (there
+is no ``custom_vjp`` under ``src/repro``), so JAX differentiates its
+attention through the plain ``ref``/blockwise paths.  A backward kernel
+is a follow-up (ROADMAP B).
 """
 from __future__ import annotations
 
@@ -136,6 +145,103 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
         p = torch.softmax(s, dim=-1)
         out[:, :, s0:s1] = torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
     return out
+
+
+def _key_span(s0: int, s1: int, Sq: int, Skv: int, causal: bool,
+              window: int) -> tuple[int, int]:
+    """The keys ``[lo, hi)`` that query rows ``[s0, s1)`` may admit; every
+    key outside is masked for all of them."""
+    off = Skv - Sq
+    hi = min(Skv, s1 + off) if causal else Skv
+    lo = max(0, s0 + off - window + 1) if window > 0 else 0
+    return lo, max(lo, hi)
+
+
+def flash_attention_backward_plain(q, k, v, dout, *, causal: bool = True,
+                                   window: int = 0):
+    """``(dq, dk, dv)`` of the kernel's function at ``(q, k, v)`` for the
+    output's cotangent ``dout``, in plain PyTorch: f32 throughout, each
+    cast to its operand's dtype at the end.
+
+    It walks query blocks as `flash_attention_plain` does (at most
+    ``_PLAIN_BLOCK_ELEMS`` f32 scores live), over just the keys a block
+    may admit (`_key_span`), and recomputes the scores ``S = q k^T /
+    sqrt(D)`` and each row's logsumexp, so ``P = exp(S - lse)``.  Then
+    ``dV = P^T dO``, ``dP = dO V^T``, ``dS = P * (dP - delta)``, ``dQ = dS
+    K / sqrt(D)`` and ``dK = dS^T Q / sqrt(D)``; dK and dV are summed over
+    each KV head's query group.  Masked pairs have ``P = 0`` and give
+    nothing.
+
+    ``delta`` is each row's ``rowsum(P * dP)``, from the recomputed f32
+    ``P``: in exact arithmetic it is ``rowsum(dO * O)``, but the kernel's
+    output is rounded to bf16, and that rounding in ``delta`` put the
+    bf16 gradients 4x further from the f32 ones (at 1 x 4 x 2,048 x 64,
+    a bf16 output from the plain forward: 0.0089 of the 1e-2 bound,
+    ``1 + |ref|`` relative, against 0.0022 this way).  So the output is
+    not needed, and not saved."""
+    check_operands(q, k, v, causal)
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    f32 = torch.float32
+    kk = k.to(f32).repeat_interleave(group, dim=1)
+    vv = v.to(f32).repeat_interleave(group, dim=1)
+    dq = torch.zeros(q.shape, dtype=f32, device=q.device)
+    dkk = torch.zeros(kk.shape, dtype=f32, device=q.device)
+    dvv = torch.zeros(vv.shape, dtype=f32, device=q.device)
+    step = max(1, _PLAIN_BLOCK_ELEMS // max(B * Hq * Skv, 1))
+    for s0 in range(0, Sq, step):
+        s1 = min(Sq, s0 + step)
+        lo, hi = _key_span(s0, s1, Sq, Skv, causal, window)
+        if lo == hi:
+            continue
+        qpos = torch.arange(s0, s1, device=q.device) + (Skv - Sq)
+        kpos = torch.arange(lo, hi, device=q.device)
+        mask = torch.ones((s1 - s0, hi - lo), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window > 0:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        qb = q[:, :, s0:s1].to(f32)
+        kb, vb = kk[:, :, lo:hi], vv[:, :, lo:hi]
+        dob = dout[:, :, s0:s1].to(f32)
+        s = torch.einsum("bhqd,bhkd->bhqk", qb, kb) * scale
+        s.masked_fill_(~mask, float("-inf"))
+        p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+        del s
+        dvv[:, :, lo:hi] += torch.einsum("bhqk,bhqd->bhkd", p, dob)
+        dp = torch.einsum("bhqd,bhkd->bhqk", dob, vb)
+        delta = (p * dp).sum(dim=-1, keepdim=True)
+        ds = p.mul_(dp.sub_(delta))
+        del dp
+        dq[:, :, s0:s1] = torch.einsum("bhqk,bhkd->bhqd", ds, kb) * scale
+        dkk[:, :, lo:hi] += torch.einsum("bhqk,bhqd->bhkd", ds, qb) * scale
+    dk = dkk.view(B, Hkv, group, Skv, D).sum(dim=2)
+    dv = dvv.view(B, Hkv, group, Skv, D).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """`flash_attention_cuda` with a gradient: the forward launches the
+    kernel (``tc`` for bf16, ``simt`` for f32) and saves q, k and v; the
+    backward is `flash_attention_backward_plain` on them.  A recompute
+    under ``torch.utils.checkpoint`` runs the forward, and so launches the
+    kernel, again."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward_plain(
+            q, k, v, dout, causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

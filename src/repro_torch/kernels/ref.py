@@ -15,6 +15,7 @@ from repro_torch.kernels.coverage_matvec import (
     coverage_matvec_plain as coverage_matvec_ref,
 )
 from repro_torch.kernels.flash_attention import (
+    flash_attention_backward_plain,
     flash_attention_plain as attention_ref,
 )
 from repro_torch.kernels.fm_interaction import (
@@ -33,6 +34,7 @@ from repro_torch.kernels.packed_count import (
 )
 
 __all__ = ["arena_commit_packed_ref", "arena_commit_ref", "attention_ref",
+           "flash_attention_backward_plain",
            "coverage_matvec_ref", "fm_gather_interaction_ref",
            "fm_interaction_ref", "fused_select_ref",
            "ic_frontier_ref", "ic_sparse_hits_ref",

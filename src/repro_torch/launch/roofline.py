@@ -16,7 +16,7 @@ tensor cores (an FMA counts two operations) that bounds the port's f32
 and integer kernels.  ``chip_smoke.py`` reads its bounds from that row.
 
 The reference's HLO collective parser (``parse_collectives``) reads XLA
-text and has no counterpart here (ROADMAP A9).
+text and has no counterpart here (ROADMAP A9d).
 """
 from __future__ import annotations
 

@@ -8,8 +8,10 @@ of the prompt through `decode_step` that seeds the decode cache, then one
     PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \
         --arch qwen1.5-0.5b --device cpu
 
-The CLI serves the arch's smoke configuration, as the reference's does,
-and runs on ``cuda`` unless ``--device cpu`` is given.
+The CLI serves the arch's smoke configuration, as the reference's does
+(any of the five LMs: the dense ones and the MoE ``--arch
+moonshot-v1-16b-a3b`` or ``grok-1-314b``), and runs on ``cuda`` unless
+``--device cpu`` is given.
 
 ``IMServer``: influence queries against one shared `InfluenceEngine`
 or `repro_torch.stream.StreamEngine`.  ``submit`` queues a sigma(S)

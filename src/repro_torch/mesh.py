@@ -1,7 +1,8 @@
 """A device mesh held by one process: the port's counterpart of
 ``jax.sharding.Mesh`` and of the collectives a ``shard_map`` body uses
-(``psum``, ``all_gather``, and the psum-or of membership bits), and the
-column gather a column-blocked BFS exchanges its frontier with.
+(``psum``, ``all_gather``, ``all_to_all`` and the psum-or of membership
+bits), and the column gather a column-blocked BFS exchanges its frontier
+with.
 
 The reference runs a single controller: one process holds the mesh, the
 store hands its tiles to ``shard_map`` and the collectives run inside one
@@ -13,6 +14,14 @@ them in tile order, so float32 counters (integer-valued, exact below
 collective copies tiles peer to peer (``.to(device, non_blocking=True)``,
 which PyTorch orders after the work queued on the source's stream); no
 tile waits on the host.
+
+The collectives over named axes (`psum_over`, `all_gather_over`,
+`all_to_all_over`) take and return one tensor a tile, as an object
+ndarray of the mesh's shape (`tile_map` builds one): each runs within the
+groups of tiles that share every coordinate but the named axes
+(`axis_groups`), as a ``lax.psum(x, axes)`` inside ``shard_map`` does.
+Every collective is made of ``.to``, ``+``, ``cat`` and ``stack``, so
+autograd runs through it: a gradient comes back to each tile's device.
 
 A device may repeat in the grid — the counterpart of XLA's
 ``--xla_force_host_platform_device_count``: a 2x2 mesh of ``cpu`` runs
@@ -135,4 +144,101 @@ def all_gather_cols(parts, device, out) -> torch.Tensor:
         w = p.shape[1]
         out[:, lo:lo + w].copy_(p.to(device, non_blocking=True))
         lo += w
+    return out
+
+
+# ------------------------------------------- collectives over named axes --
+
+def _axes(axes) -> tuple:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def tile_map(mesh: Mesh, fn) -> np.ndarray:
+    """``fn(coords, device)`` for every tile, as an object ndarray of the
+    mesh's shape (``coords`` a tuple of grid indices)."""
+    out = np.empty(mesh.devices.shape, dtype=object)
+    for c in np.ndindex(*mesh.devices.shape):
+        out[c] = fn(c, mesh.devices[c])
+    return out
+
+
+def axis_index(mesh: Mesh, coords: tuple, axes) -> int:
+    """The row-major index of tile ``coords`` over ``axes`` (in the
+    given order): ``lax.axis_index`` of those axes."""
+    idx = 0
+    for a in _axes(axes):
+        idx = idx * mesh.shape[a] + coords[mesh.axis_names.index(a)]
+    return idx
+
+
+def axis_groups(mesh: Mesh, axes) -> list:
+    """The tiles grouped over ``axes``: one group for each combination
+    of the other axes' coordinates, each a list of tile coordinates in
+    row-major order over ``axes`` (`axis_index`)."""
+    axes = _axes(axes)
+    for a in axes:
+        if a not in mesh.shape:
+            raise ValueError(f"axis {a!r} is not in mesh axes "
+                             f"{mesh.axis_names}")
+    groups: dict = {}
+    for c in np.ndindex(*mesh.devices.shape):
+        rest = tuple(c[i] for i, a in enumerate(mesh.axis_names)
+                     if a not in axes)
+        groups.setdefault(rest, []).append(c)
+    return [sorted(g, key=lambda c: axis_index(mesh, c, axes))
+            for g in groups.values()]
+
+
+def psum_over(mesh: Mesh, parts: np.ndarray, axes) -> np.ndarray:
+    """Each tile's sum of ``parts`` over its group along ``axes``, added
+    in tile order, on the tile's device."""
+    out = np.empty(parts.shape, dtype=object)
+    for group in axis_groups(mesh, axes):
+        total = psum([parts[c] for c in group], mesh.devices[group[0]])
+        for c in group:
+            out[c] = total.to(mesh.devices[c], non_blocking=True)
+    return out
+
+
+def all_gather_over(mesh: Mesh, parts: np.ndarray, axes,
+                    dim: int) -> np.ndarray:
+    """Each tile's ``parts`` of its group along ``axes`` concatenated in
+    tile order along ``dim`` (``lax.all_gather(..., tiled=True)``), on
+    the tile's device."""
+    out = np.empty(parts.shape, dtype=object)
+    for group in axis_groups(mesh, axes):
+        for c in group:
+            dev = mesh.devices[c]
+            out[c] = torch.cat([parts[g].to(dev, non_blocking=True)
+                                for g in group], dim=dim)
+    return out
+
+
+def all_to_all(parts, split_axis: int, concat_axis: int,
+               devices) -> list:
+    """``lax.all_to_all(..., tiled=True)`` over the tiles ``parts`` (one
+    group, in tile order): each part splits into ``len(parts)`` equal
+    chunks along ``split_axis``; tile ``j`` gets chunk ``j`` of every
+    part, concatenated in tile order along ``concat_axis``, on
+    ``devices[j]``."""
+    n = len(parts)
+    size = parts[0].shape[split_axis]
+    if size % n:
+        raise ValueError(f"all_to_all: axis {split_axis} of size {size} "
+                         f"does not split into {n} tiles")
+    chunks = [p.chunk(n, dim=split_axis) for p in parts]
+    return [torch.cat([chunks[i][j].to(devices[j], non_blocking=True)
+                       for i in range(n)], dim=concat_axis)
+            for j in range(n)]
+
+
+def all_to_all_over(mesh: Mesh, parts: np.ndarray, axis: str,
+                    split_axis: int, concat_axis: int) -> np.ndarray:
+    """`all_to_all` within each group of tiles along ``axis``."""
+    out = np.empty(parts.shape, dtype=object)
+    for group in axis_groups(mesh, axis):
+        moved = all_to_all([parts[c] for c in group], split_axis,
+                           concat_axis, [mesh.devices[c] for c in group])
+        for c, t in zip(group, moved):
+            out[c] = t
     return out

@@ -1,4 +1,5 @@
-"""Models of the port (``repro.models``): the dense decoder-only LM that
-the LM server runs (``transformer``) and the FM recsys model
-(``recsys.fm``), served and trained.  MoE and the GNNs wait for their
-slices (ROADMAP A9)."""
+"""Models of the port (``repro.models``): the decoder-only LM
+(``transformer``, dense or MoE: ``moe``, and ``moe_sharded`` on a
+`repro_torch.mesh.Mesh`), trained and served, and the FM recsys model
+(``recsys.fm``), served and trained.  The GNNs wait for their slice
+(ROADMAP A9c)."""

@@ -1,16 +1,26 @@
 """Decoder-only transformer LM (``repro.models.transformer``): RoPE + GQA
-+ optional sliding window + optional QKV bias, dense FFN, for serving
-(prefill and KV-cache decode) on one device.
++ optional sliding window + optional QKV bias + a dense or MoE FFN, on
+one device: the training loss and its gradient, prefill (whole and
+chunked) and KV-cache decode.
 
 Parameters are a dict of tensors mirroring the reference's tree, with the
 per-layer weights stacked on a leading L axis (``params["layers"]["wq"]``
 is ``(L, d, H * hd)``), so `repro_torch.convert.lm_params_from_jax` maps
 one onto the other leaf for leaf.  PyTorch runs eagerly: the reference's
-``lax.scan`` over layers is a Python loop, and ``remat`` and the sharding
-fields of `LMConfig` are accepted and have no effect (serving runs
-forward only, on one device).  MoE (``n_experts > 0``) raises naming
-ROADMAP A9; ``lm_loss`` and ``prefill_chunked`` wait for the training and
-MoE slices.
+``lax.scan`` over layers is a Python loop.  ``remat`` wraps each layer of
+`lm_hidden` in ``torch.utils.checkpoint`` when a gradient is being taken,
+as ``jax.checkpoint`` does; `lm_loss`'s CE chunks are checkpointed too, so
+the ``(B, S, V)`` logits never exist at once.  On the card attention runs
+through the ``flash_attention`` kernel and its gradient through the plain
+backward (`repro_torch.kernels.flash_attention.FlashAttention`); a
+checkpointed layer launches the kernel again when it is recomputed.
+
+The MoE FFN (``n_experts > 0``) is `_moe_ffn`, the reference's gather
+dispatch (`repro_torch.models.moe`); with ``moe_impl="shard_map"`` the
+training path takes `repro_torch.models.moe_sharded` on its ``MESH``
+instead, while prefill and decode keep `_moe_ffn`, as in the reference.
+The activation-sharding fields of `LMConfig` have no effect on one
+device.
 
 Unlike the reference, `decode_step` writes the new key and value into the
 cache tensors in place (the returned cache holds the same tensors).
@@ -22,9 +32,12 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import attention, rope_tables, rotate
+from repro_torch.models import moe, moe_sharded
+from repro_torch.models.attention import (attention, blockwise_attention,
+                                          rope_tables, rotate)
 from repro_torch.models.common import (dense_init, rms_norm, take_index,
                                        take_rows)
 
@@ -42,15 +55,18 @@ class LMConfig:
     qkv_bias: bool = False
     window: int = 0              # sliding window; 0 = full causal
     rope_theta: float = 10000.0
-    # MoE (n_experts == 0 -> dense FFN); MoE waits for ROADMAP A9
+    # MoE (n_experts == 0 -> dense FFN)
     n_experts: int = 0
     top_k: int = 2
     capacity_factor: float = 1.25
     aux_loss_weight: float = 0.01
-    # the reference's mesh fields: accepted, no effect on one device
+    # the meshed MoE (moe_impl "shard_map": models/moe_sharded.py on its
+    # MESH): the data axes the tokens' batch is split over, and "ep"
+    # (experts over "model") or "tpe" (each expert's ff over "model")
     moe_shard_axes: tuple = ()
     moe_partition: str = "tpe"
     moe_impl: str = "dense"
+    # the reference's activation-sharding fields: no effect on one device
     act_batch_axes: tuple = ()
     act_seq_axis: str = ""
     # muP-ish scaling (minicpm)
@@ -58,7 +74,7 @@ class LMConfig:
     residual_scale: float = 1.0
     logit_scale: float = 1.0
     dtype: str = "float32"
-    remat: bool = True           # no effect: serving runs forward only
+    remat: bool = True           # checkpoint each layer under a gradient
     # serving
     max_cache_len: int = 0       # 0 -> set per call
 
@@ -77,12 +93,17 @@ class LMConfig:
         per_layer = attn + ffn + 2 * d
         return self.n_layers * per_layer + 2 * self.vocab * d + d
 
-
-def _dense_only(cfg: LMConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: n_experts = {cfg.n_experts}; the MoE FFN "
-            f"(models/moe.py, moe_sharded.py) is not ported yet (ROADMAP A9)")
+    def active_param_count(self) -> int:
+        """6·N_active·D accounting for MoE top-k (DESIGN roofline)."""
+        if not self.n_experts:
+            return self.param_count()
+        d = self.d_model
+        hd = self.head_dim
+        attn = d * hd * (self.n_heads * 2 + self.n_kv_heads * 2)
+        ffn = self.top_k * (d * 2 * self.d_ff + self.d_ff * d) \
+            + d * self.n_experts
+        per_layer = attn + ffn + 2 * d
+        return self.n_layers * per_layer + 2 * self.vocab * d + d
 
 
 # ----------------------------------------------------------------- init ----
@@ -90,10 +111,12 @@ def _dense_only(cfg: LMConfig) -> None:
 def init_lm(gen: torch.Generator, cfg: LMConfig, device=None) -> dict:
     """Random parameters of the reference's shapes and scales: embedding
     ``N(0, 0.02)``, projections ``N(0, 1/fan_in)``, norms one, biases
-    zero; drawn in f32 on ``gen``'s device, cast to ``cfg.dtype`` and
-    moved to ``device`` (``cuda`` unless told otherwise; without a GPU
-    that raises unless ``device="cpu"``)."""
-    _dense_only(cfg)
+    zero; with experts a float32 router ``(L, d, E)`` (whatever
+    ``cfg.dtype``) and experts ``w_gate_up (L, E, d, 2 ff)``, ``w_down
+    (L, E, ff, d)`` drawn ``N(0, 1) / sqrt(fan_in)``.  Drawn in f32 on
+    ``gen``'s device, cast to ``cfg.dtype`` and moved to ``device``
+    (``cuda`` unless told otherwise; without a GPU that raises unless
+    ``device="cpu"``)."""
     target = resolve_device(device)
     dev = gen.device
     dtype = getattr(torch, cfg.dtype)
@@ -113,9 +136,17 @@ def init_lm(gen: torch.Generator, cfg: LMConfig, device=None) -> dict:
         "wk": dense_init(gen, d, Hkv * hd, dtype, lead=(L,)),
         "wv": dense_init(gen, d, Hkv * hd, dtype, lead=(L,)),
         "wo": dense_init(gen, H * hd, d, dtype, lead=(L,)),
-        "w_gate_up": dense_init(gen, d, 2 * cfg.d_ff, dtype, lead=(L,)),
-        "w_down": dense_init(gen, cfg.d_ff, d, dtype, lead=(L,)),
     }
+    if cfg.n_experts:
+        E = cfg.n_experts
+        layers.update(
+            router=dense_init(gen, d, E, torch.float32, lead=(L,)),
+            w_gate_up=moe.expert_init(gen, (L, E), d, 2 * cfg.d_ff, dtype),
+            w_down=moe.expert_init(gen, (L, E), cfg.d_ff, d, dtype))
+    else:
+        layers.update(
+            w_gate_up=dense_init(gen, d, 2 * cfg.d_ff, dtype, lead=(L,)),
+            w_down=dense_init(gen, cfg.d_ff, d, dtype, lead=(L,)))
     if cfg.qkv_bias:
         layers.update(bq=zeros(L, H * hd), bk=zeros(L, Hkv * hd),
                       bv=zeros(L, Hkv * hd))
@@ -125,13 +156,23 @@ def init_lm(gen: torch.Generator, cfg: LMConfig, device=None) -> dict:
         "ln_f": ones(d),
         "lm_head": dense_init(gen, d, cfg.vocab, dtype),
     }
-    return _to(params, target)
+    return _tree_map(lambda t: t.to(target), params)
 
 
-def _to(tree, device):
+def _tree_map(fn, tree):
+    """``fn`` over the tensor leaves of nested dicts, in insertion order."""
     if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree: dict, path=()) -> list:
+    """``[(path, tensor)]`` of nested dicts, in `_tree_map`'s order."""
+    out = []
+    for k, v in tree.items():
+        out += (tree_leaves(v, path + (k,)) if isinstance(v, dict)
+                else [(path + (k,), v)])
+    return out
 
 
 def _layers(params: dict) -> list:
@@ -146,7 +187,20 @@ def _scaled(x: torch.Tensor, s: float) -> torch.Tensor:
     return x if s == 1.0 else x * s
 
 
-# -------------------------------------------------------------- forward ----
+# -------------------------------------------------------------- MoE ffn ----
+
+def _moe_ffn(p: dict, x2d: torch.Tensor, cfg: LMConfig):
+    """The reference's gather dispatch of ``x2d (T, d)``: ``(y (T, d) in
+    x2d's dtype, aux ())``.  Top-k routing with ``C = max(int(cf * k * T
+    / E), 1)`` slots an expert, sort-based slot maps, the tokens copied
+    into their slots, two batched expert matmuls in the model's dtype,
+    the gate-weighted outputs summed back per token in float32, and the
+    load-balance loss (`repro_torch.models.moe`)."""
+    r = moe.route(x2d, p["router"], cfg.n_experts, cfg.top_k,
+                  cfg.capacity_factor)
+    ye = moe.experts(moe.dispatch(x2d, r), p["w_gate_up"], p["w_down"])
+    return moe.combine(ye, r).to(x2d.dtype), moe.aux_loss(r)
+
 
 def _dense_ffn(p: dict, x: torch.Tensor):
     """SwiGLU FFN on any leading dims; returns ``(y, aux = 0)``."""
@@ -154,6 +208,21 @@ def _dense_ffn(p: dict, x: torch.Tensor):
     g, u = gu.chunk(2, dim=-1)
     return (F.silu(g) * u) @ p["w_down"], 0.0
 
+
+def _ffn(p: dict, h: torch.Tensor, cfg: LMConfig, *, sharded: bool):
+    """The FFN sublayer of ``h (B, S, d)``: ``(y (B, S, d), aux)``.
+    ``sharded`` lets ``moe_impl="shard_map"`` take the meshed MoE (the
+    training path; prefill and decode always run `_moe_ffn`)."""
+    if not cfg.n_experts:
+        return _dense_ffn(p, h)
+    if sharded and cfg.moe_impl == "shard_map":
+        return moe_sharded.moe_ffn_sharded(p, h, cfg)
+    B, S, d = h.shape
+    y, a = _moe_ffn(p, h.reshape(B * S, d), cfg)
+    return y.view(B, S, d), a
+
+
+# -------------------------------------------------------------- forward ----
 
 def _qkv(p: dict, h: torch.Tensor, cfg: LMConfig, rope):
     """Projections of ``h (B, S, d)`` to ``(B, H, S, hd)`` heads, q and k
@@ -179,12 +248,19 @@ def _attn_block(p: dict, x: torch.Tensor, cfg: LMConfig, rope):
     return out @ p["wo"], (k, v)
 
 
-def _block(p: dict, x: torch.Tensor, cfg: LMConfig, rope):
-    """One layer of ``x (B, S, d)``: ``(x, (k, v))``."""
+def _block(p: dict, x: torch.Tensor, cfg: LMConfig, rope, *,
+           sharded: bool = False):
+    """One layer of ``x (B, S, d)``: ``(x, aux, (k, v))``."""
     attn_out, kv = _attn_block(p, x, cfg, rope)
     x = x + _scaled(attn_out, cfg.residual_scale)
-    y, _ = _dense_ffn(p, rms_norm(x, p["ln2"]))
-    return x + _scaled(y, cfg.residual_scale), kv
+    y, aux = _ffn(p, rms_norm(x, p["ln2"]), cfg, sharded=sharded)
+    return x + _scaled(y, cfg.residual_scale), aux, kv
+
+
+def _train_block(p: dict, x: torch.Tensor, cfg: LMConfig, rope):
+    """`_block` without its cache: what a checkpointed layer recomputes."""
+    x, aux, _ = _block(p, x, cfg, rope, sharded=True)
+    return x, aux
 
 
 def _embed(params: dict, cfg: LMConfig, tokens: torch.Tensor):
@@ -201,40 +277,143 @@ def _head(params: dict, cfg: LMConfig, x: torch.Tensor):
                    cfg.logit_scale)
 
 
-def _layer_stack(params: dict, cfg: LMConfig, tokens: torch.Tensor):
-    """Every layer over ``tokens (B, S)``: ``(x (B, S, d), [(k, v)])``."""
-    _dense_only(cfg)
-    x = _embed(params, cfg, tokens)
-    positions = torch.arange(tokens.shape[1], device=x.device)
-    rope = rope_tables(positions[None, None, :], cfg.head_dim,
+def _rope(cfg: LMConfig, positions: torch.Tensor):
+    return rope_tables(positions[None, None, :], cfg.head_dim,
                        cfg.rope_theta)
-    kvs = []
-    for p in _layers(params):
-        x, kv = _block(p, x, cfg, rope)
-        kvs.append(kv)
-    return x, kvs
 
 
 def lm_hidden(params: dict, cfg: LMConfig, tokens: torch.Tensor):
-    """tokens (B, S) -> (final normed hidden (B, S, d), aux_loss 0.0)."""
-    x, _ = _layer_stack(params, cfg, tokens)
-    return rms_norm(x, params["ln_f"]), 0.0
+    """tokens (B, S) -> (final normed hidden (B, S, d), aux_loss ()), the
+    aux loss the layers' mean (0.0 for a dense model).  With
+    ``cfg.remat`` and a gradient being taken, each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward."""
+    x = _embed(params, cfg, tokens)
+    rope = _rope(cfg, torch.arange(tokens.shape[1], device=x.device))
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = 0.0
+    for p in _layers(params):
+        if remat:
+            x, a = checkpoint(_train_block, p, x, cfg, rope,
+                              use_reentrant=False)
+        else:
+            x, a = _train_block(p, x, cfg, rope)
+        aux = aux + a
+    return rms_norm(x, params["ln_f"]), aux / cfg.n_layers
 
 
 def lm_forward(params: dict, cfg: LMConfig, tokens: torch.Tensor):
-    """tokens (B, S) -> (logits (B, S, V), aux_loss 0.0)."""
-    x, _ = _layer_stack(params, cfg, tokens)
-    return _head(params, cfg, x), 0.0
+    """tokens (B, S) -> (logits (B, S, V), aux_loss ())."""
+    x, aux = lm_hidden(params, cfg, tokens)
+    return _scaled(x @ params["lm_head"], cfg.logit_scale), aux
+
+
+def _chunk_nll(x: torch.Tensor, labels: torch.Tensor, head: torch.Tensor,
+               logit_scale: float):
+    """The summed next-token NLL of one CE chunk ``x (B, c, d)`` (labels
+    below 0 masked): float32 logits, logsumexp minus the gold logit."""
+    logits = _scaled((x @ head).to(torch.float32), logit_scale)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    return ((logz - gold) * (labels >= 0)).sum()
+
+
+def lm_loss(params: dict, cfg: LMConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, *, ce_chunk: int = 512):
+    """Next-token cross entropy (labels = tokens shifted by the caller,
+    -1 masked) plus ``aux_loss_weight * aux``.
+
+    The ``(B, S, V)`` logits never exist at once: the CE walks the
+    sequence in ``ce_chunk`` slices, each under checkpoint when a
+    gradient is being taken, so one ``(B, chunk, V)`` float32 slice is
+    live at a time, forward and backward.  The last slice is shorter when
+    ``S`` is not a multiple of the chunk (the reference pads it and masks
+    the padding: the same sums)."""
+    x, aux = lm_hidden(params, cfg, tokens)
+    S = x.shape[1]
+    chunk = min(ce_chunk, S)
+    grad = torch.is_grad_enabled()
+    head = params["lm_head"]
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        xb, lb = x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        if grad:
+            nll = checkpoint(_chunk_nll, xb, lb, head, cfg.logit_scale,
+                             use_reentrant=False)
+        else:
+            nll = _chunk_nll(xb, lb, head, cfg.logit_scale)
+        nll_sum = nll_sum + nll
+    n_tok = (labels >= 0).sum().clamp(min=1)
+    return nll_sum / n_tok.to(torch.float32) + cfg.aux_loss_weight * aux
+
+
+def lm_value_and_grad(params: dict, cfg: LMConfig, tokens: torch.Tensor,
+                      labels: torch.Tensor, *, ce_chunk: int = 512):
+    """``(loss, grads)`` of `lm_loss`, grads a tree like ``params``: the
+    counterpart of ``jax.value_and_grad(lm_loss)``.  ``params`` is left
+    as it is (its leaves are differentiated through detached aliases)."""
+    leaves = _tree_map(lambda t: t.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        loss = lm_loss(leaves, cfg, tokens, labels, ce_chunk=ce_chunk)
+    flat = [t for _, t in tree_leaves(leaves)]
+    grads = iter(torch.autograd.grad(loss, flat))
+    return loss.detach(), _tree_map(lambda _: next(grads), leaves)
 
 
 def prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor):
     """Serving prefill: last-position logits ``(B, V)`` and the per-layer
     KV, ``{"k", "v": (L, B, Hkv, S, hd), "len": S}``."""
-    x, kvs = _layer_stack(params, cfg, tokens)
+    x = _embed(params, cfg, tokens)
+    rope = _rope(cfg, torch.arange(tokens.shape[1], device=x.device))
+    ks, vs = [], []
+    for p in _layers(params):
+        x, _, (k, v) = _block(p, x, cfg, rope)
+        ks.append(k)
+        vs.append(v)
     logits = _head(params, cfg, x[:, -1:])
-    return logits[:, 0], {"k": torch.stack([k for k, _ in kvs]),
-                          "v": torch.stack([v for _, v in kvs]),
+    return logits[:, 0], {"k": torch.stack(ks), "v": torch.stack(vs),
                           "len": tokens.shape[1]}
+
+
+def prefill_chunked(params: dict, cfg: LMConfig, tokens: torch.Tensor, *,
+                    chunk: int = 4096):
+    """Chunked (Sarathi-style) prefill: the sequence runs in ``chunk``-token
+    slices, so a MoE's dispatch buffers stay bounded by the chunk.  Each
+    layer writes the slice's keys and values into a bfloat16 cache of the
+    whole length and attends to the cache with `blockwise_attention`
+    (``kv_len`` masks the unfilled tail, ``q_offset`` the slice start
+    gives in-slice causality), as the reference does; no kernel runs.
+
+    Returns (last-position logits (B, V), cache {k, v, len}) like
+    `prefill`."""
+    B, S = tokens.shape
+    if S % chunk:
+        raise ValueError(f"prefill_chunked: S = {S} is not a multiple of "
+                         f"the chunk {chunk}")
+    H, hd = cfg.n_heads, cfg.head_dim
+    dev = params["embed"].device
+    shape = (cfg.n_layers, B, cfg.n_kv_heads, S, hd)
+    ck = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    cv = torch.zeros_like(ck)
+    layers = _layers(params)
+    x = None
+    for c0 in range(0, S, chunk):
+        x = _embed(params, cfg, tokens[:, c0:c0 + chunk])
+        rope = _rope(cfg, torch.arange(c0, c0 + chunk, device=dev))
+        kv_len = torch.full((B,), c0 + chunk, dtype=torch.int32, device=dev)
+        for li, p in enumerate(layers):
+            q, k, v = _qkv(p, rms_norm(x, p["ln1"]), cfg, rope)
+            ck[li, :, :, c0:c0 + chunk] = k
+            cv[li, :, :, c0:c0 + chunk] = v
+            out = blockwise_attention(
+                q, ck[li].to(q.dtype), cv[li].to(q.dtype), causal=True,
+                window=cfg.window, kv_len=kv_len, q_offset=c0)
+            out = out.transpose(1, 2).reshape(B, chunk, H * hd)
+            x = x + _scaled(out @ p["wo"], cfg.residual_scale)
+            y, _ = _ffn(p, rms_norm(x, p["ln2"]), cfg, sharded=False)
+            x = x + _scaled(y, cfg.residual_scale)
+    logits = _head(params, cfg, x[:, -1])
+    return logits, {"k": ck, "v": cv, "len": S}
 
 
 # --------------------------------------------------------------- decode ----
@@ -273,7 +452,6 @@ def decode_logits(params: dict, cfg: LMConfig, cache: dict,
     in f32 (both bf16 operands upcast: their products are exact in f32).
     The new key and value are written into ``cache``'s tensors in place.
     """
-    _dense_only(cfg)
     B = tokens.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     pos = int(cache["len"])
@@ -300,6 +478,6 @@ def decode_logits(params: dict, cfg: LMConfig, cache: dict,
         out = probs.to(cv.dtype).to(torch.float32) @ cv[i].to(torch.float32)
         out = out.reshape(B, 1, H * hd).to(x.dtype) @ p["wo"]
         x = x + _scaled(out, cfg.residual_scale)
-        y, _ = _dense_ffn(p, rms_norm(x, p["ln2"]))
+        y, _ = _ffn(p, rms_norm(x, p["ln2"]), cfg, sharded=False)
         x = x + _scaled(y, cfg.residual_scale)
     return _head(params, cfg, x), {"k": ck, "v": cv, "len": pos + 1}

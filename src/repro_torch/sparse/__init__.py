@@ -1,6 +1,6 @@
 """Sparse and ragged primitives (``repro.sparse``): segment reductions
 and the IMM counters' scatters.  The embedding bags wait for the sharded
-FM lookup (ROADMAP A9)."""
+FM lookup (ROADMAP A9c)."""
 from repro_torch.sparse.scatter import (
     bincount_weighted,
     one_hot_matmul_count,

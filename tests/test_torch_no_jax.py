@@ -48,7 +48,10 @@ def test_no_module_imports_jax_or_repro():
                  "mesh", "graphs.partition", "configs.imm_snap",
                  "stream", "stream.engine", "stream.invalidate",
                  "stream.delta", "serve", "serve.tier", "serve.tenant",
-                 "serve.replica", "core.engine", "core.store"):
+                 "serve.replica", "core.engine", "core.store",
+                 "models.moe", "models.moe_sharded",
+                 "configs.moonshot_v1_16b_a3b", "configs.grok_1_314b",
+                 "configs._lm_common"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["leaked"] == []
 
