@@ -139,24 +139,38 @@ Phases, one JSON line each:
             generator on the card): 4 requests of 512 prompt tokens, 32
             generated tokens; prefill launches flash_attention once per
             layer, every launch through the tensor-core kernel
-  lm_train  training on the card: full-width Qwen1.5-0.5B (bf16, seeded
-            weights, remat on, ce_chunk 512) takes three AdamW steps on
-            one batch of 4 x 4,096 (train_4k's sequence; its batch of 256
-            cut to 4): the loss at each step (finite, step 3 below step
-            1), step ms, peak memory, flash_attention launches a step
-            held to 24 forward + 24 recompute; one more step under the
+  lm_train  training on the card, every step through
+            launch.train.make_step inside a runtime.TrainLoop on
+            TokenPipeline batches: full-width Qwen1.5-0.5B (bf16, seeded
+            weights, remat on, ce_chunk 512) at 4 x 4,096 (train_4k's
+            sequence; its batch of 256 cut to 4) in two loops of 6 steps
+            with a checkpoint every 3, run B's step 4 failing until its
+            retries are used up, then restored from step 3's checkpoint
+            and replayed: B's final params, moments and step bitwise A's;
+            flash_attention launches held to 24 forward + 24 recompute a
+            step call, the loss falling, step ms, bytes on disk, save and
+            load seconds, the time to recover, peak memory, the disk's
+            free space; index_add_ against the sorted embedding gradient
+            on the Zipf batch (equal runs of 5); one more step under the
             profiler (its device time and the share under the attention
-            backward); one layer's attention at the training shape (4 x
-            16 x 4,096 x 64) through FlashAttention, its output held to
-            the plain version and its dq, dk, dv to the plain version's
-            autograd, on f32 copies, the plain backward's ms beside the
-            kernel's forward and SDPA's forward + backward (a yardstick);
-            then moonshot-v1-16b-a3b at full width cut to 2 layers (64
-            experts top-6, capacity 960) takes two AdamW steps on 2 x
-            4,096 (each step's dropped choices from `moe.route`'s obs
-            counters), the forward kernel checked at its head dim 128, and
-            LMServer serves 4 prompts of 512 tokens, 8 greedy tokens,
-            twice, equal
+            backward); run A's last checkpoint resharded onto a 2x2 mesh
+            of the card (embed's vocab axis split) and gathered back
+            bitwise; int8 compression with error feedback of one
+            full-width gradient tree, timed, bitwise the CPU on the
+            embedding's and layer 0's gradients; examples/train_lm.py's
+            qwen-100m (train_lm, 200 steps of 8 x 256, a checkpoint every
+            50: the last 10 losses' mean below the first 10's); one
+            layer's attention at the training shape (4 x 16 x 4,096 x
+            64) through FlashAttention, its output held to the plain
+            version and its dq, dk, dv to the plain version's autograd,
+            on f32 copies, the plain backward's ms beside the kernel's
+            forward and SDPA's forward + backward (a yardstick); then
+            moonshot-v1-16b-a3b at full width cut to 2 layers (64
+            experts top-6, capacity 960) takes two steps in a loop that
+            writes no checkpoint, on 2 x 4,096 (each step's dropped
+            choices from `moe.route`'s obs counters), the forward kernel
+            checked at its head dim 128, and LMServer serves 4 prompts of
+            512 tokens, 8 greedy tokens, twice, equal
   fm_parity the FM smoke config and a full-field one (39 fields x K 10,
             vocab 64) run on cuda and on cpu from the same weights: the
             pair term and the serving logits (one fm_gather_interaction
@@ -4099,69 +4113,336 @@ def lm_full_phase(torch) -> dict:
 
 #: train_4k's sequence (`configs/_lm_common.lm_shapes`) with its global
 #: batch of 256 cut to what one card's step takes: 4 for Qwen1.5-0.5B, 2
-#: for moonshot at full width cut to 2 layers
-TRAIN_S, QWEN_B, QWEN_STEPS, MOON_B, MOON_STEPS, MOON_LAYERS = (
-    4096, 4, 3, 2, 2, 2)
-TRAIN_CE_CHUNK = 512
+#: for moonshot at full width cut to 2 layers.  Qwen's two loops take 6
+#: steps with a checkpoint every 3; run B's step 4 fails until its two
+#: retries are used up, and the loop restores step 3's checkpoint
+TRAIN_S, QWEN_B, QWEN_STEPS, QWEN_SAVE_EVERY, QWEN_FAULT_STEP = (
+    4096, 4, 6, 3, 4)
+MOON_B, MOON_STEPS, MOON_LAYERS = 2, 2, 2
 MOON_PROMPT, MOON_GEN = 512, 8
+#: examples/train_lm.py's ~100M member of the qwen family
+#: (`register_100m`) and its run: 200 steps of 8 x 256, a checkpoint
+#: every 50
+Q100M = dict(name="qwen-100m", n_layers=8, d_model=512, n_heads=8,
+             n_kv_heads=8, d_ff=1408, vocab=32_000, qkv_bias=True)
+Q100M_STEPS, Q100M_B, Q100M_S, Q100M_SAVE = 200, 8, 256, 50
 
 
-def train_steps(torch, cfg, params, tokens, steps: int, trace=False):
-    """``steps`` AdamW steps (`AdamWConfig` defaults, f32 moments) of
-    `lm_loss` on one batch: per step the loss, the ms on the host clock
-    between syncs, the flash_attention launches and the MoE choices
-    routed and dropped (`moe.route`'s obs counters; 0 while obs is off);
-    the params after; with ``trace``, two more steps under the profiler
-    (a warm-up and the traced one): the step's device time, its top
-    kernels and the device time under the attention backward (the
-    `FlashAttention` autograd node), else None."""
+def instrument(torch, loop, record: dict) -> None:
+    """Wrap a `TrainLoop`'s step, batch source and checkpoint manager so
+    that ``record`` gets, for each call of the step, its flash_attention
+    launches (all and tensor-core) and the MoE choices routed and dropped
+    (`moe.route`'s obs counters; 0 while obs is off); the host clock at
+    each batch call; each checkpoint's step, seconds (from a device sync)
+    and bytes on disk, and each restore's seconds."""
     from repro_torch import obs
     from repro_torch.kernels import ops
-    from repro_torch.models.transformer import lm_value_and_grad
-    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
-    opt = AdamWConfig()
-    state = adamw_init(params, opt)
-    inp, lab = tokens[:, :-1], tokens[:, 1:]
-
-    def step():
-        nonlocal params, state
-        loss, grads = lm_value_and_grad(params, cfg, inp, lab,
-                                        ce_chunk=TRAIN_CE_CHUNK)
-        params, state = adamw_update(params, grads, state, opt)
-        return loss
+    record.update(calls=[], batches=[], saves=[], loads=[])
+    step_fn, batch_fn, m = loop.step_fn, loop.batch_fn, loop.manager
 
     def routed():
         return (obs.counter("moe.choices").value,
                 obs.counter("moe.dropped").value)
 
-    log = dict(losses=[], step_ms=[], launches=[], routed=[])
-    for _ in range(steps):
-        ops.reset_launches()
-        before = routed()
-        loss, sec = timed(torch, step)
-        counts = ops.launch_counts()
-        log["losses"].append(float(loss))
-        log["step_ms"].append(sec * 1e3)
-        log["launches"].append(counts.get("flash_attention", 0))
-        log["routed"].append([a - b for a, b in zip(routed(), before)])
-        check(counts.get("flash_attention:tc", 0) == log["launches"][-1],
-              f"lm_train {cfg.name}: a launch went past the tensor-core "
-              f"kernel ({counts})")
-    check(all(math.isfinite(x) for x in log["losses"]),
-          f"lm_train {cfg.name}: losses {log['losses']}")
-    log["trace"] = None
-    if trace:
-        wall, busy, top, inside = trace_device(
-            torch, [step, step], within=("FlashAttentionBackward",))
-        bwd = inside["FlashAttentionBackward"]
-        log["trace"] = dict(traced_wall_ms=wall * 1e3,
-                            device_busy_ms=busy * 1e3,
-                            idle_share=1.0 - busy / wall,
-                            attention_backward_device_ms=bwd * 1e3,
-                            attention_backward_share=bwd / busy,
-                            top=top[:8])
-    return params, log
+    def step(state, batch):
+        before, moe0 = ops.launch_counts(), routed()
+        out = step_fn(state, batch)
+        after = ops.launch_counts()
+        record["calls"].append(dict(
+            launches=after.get("flash_attention", 0)
+            - before.get("flash_attention", 0),
+            tc=after.get("flash_attention:tc", 0)
+            - before.get("flash_attention:tc", 0),
+            routed=[a - b for a, b in zip(routed(), moe0)]))
+        return out
+
+    def batch(s):
+        record["batches"].append((s, time.perf_counter()))
+        return batch_fn(s)
+
+    loop.step_fn, loop.batch_fn = step, batch
+
+    def saver(fn):
+        def save(s, tree):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            path = fn(s, tree)
+            if path is not None:
+                record["saves"].append(dict(
+                    step=s, s=time.perf_counter() - t,
+                    bytes=os.path.getsize(path)))
+            return path
+        return save
+
+    restore = m.restore_or_init
+
+    def restore_or_init(init_fn):
+        t = time.perf_counter()
+        out = restore(init_fn)
+        record["loads"].append(dict(step=out[0],
+                                    s=time.perf_counter() - t))
+        return out
+
+    m.maybe_save, m.save = saver(m.maybe_save), saver(m.save)
+    m.restore_or_init = restore_or_init
+
+
+class NoCheckpoints:
+    """A `TrainLoop` manager that writes nothing: moonshot's state at full
+    width (~18 GB with its moments) is not written inside the time
+    limit."""
+
+    def maybe_save(self, step, tree):
+        return None
+
+    def save(self, step, tree):
+        return None
+
+    def restore_or_init(self, init_fn):
+        return 0, init_fn()
+
+
+def loop_steps(loop, record) -> dict:
+    """The loop's history as the phase reports it: per step the loss,
+    gradient norm, ms (`TrainLoop`'s device-synced step time), retries
+    and restore; per step call (replays too) the launches."""
+    return dict(losses=[float(r.metrics["loss"]) for r in loop.history],
+                grad_norms=[float(r.metrics["grad_norm"])
+                            for r in loop.history],
+                step_ms=[r.step_time * 1e3 for r in loop.history],
+                retried=[r.retried for r in loop.history],
+                restored=[r.restored for r in loop.history],
+                launches_per_call=[c["launches"] for c in record["calls"]],
+                saves=record["saves"],
+                loads=[x for x in record["loads"] if x["step"]])
+
+
+def same_bits(torch, a, b, what: str) -> int:
+    """Check every leaf of ``a`` equal to ``b``'s bit for bit (same dtype
+    and device); the number of leaves."""
+    from repro_torch.models.transformer import tree_leaves
+
+    leaves = tree_leaves(a)
+    check(len(leaves) == len(tree_leaves(b)), f"{what}: leaf counts")
+    for path, leaf in leaves:
+        other = b
+        for k in path:
+            other = other[k]
+        check(leaf.dtype == other.dtype and leaf.device == other.device,
+              f"{what}: {path} {leaf.dtype}/{leaf.device} against "
+              f"{other.dtype}/{other.device}")
+        check(bool(torch.equal(leaf, other)), f"{what}: {path} differs")
+    return len(leaves)
+
+
+def qwen_loops(torch, cfg, root: str) -> tuple:
+    """Run A (6 steps, a checkpoint every 3) and run B (the same, its
+    step 4 failing until the retries are used up, then restored from step
+    3's checkpoint and replayed) of `launch.train.lm_loop` on ``cfg``:
+    B's final params, moments and step bitwise A's.  -> (A's final state,
+    A's loop, the report)."""
+    from repro_torch.launch.train import lm_loop
+
+    def make(name, inject=None):
+        return lm_loop(cfg, steps=QWEN_STEPS, batch=QWEN_B, seq_len=TRAIN_S,
+                       checkpoint_dir=os.path.join(root, name),
+                       save_every=QWEN_SAVE_EVERY, device=DEV,
+                       inject_fault=inject)
+
+    rec_a, rec_b = {}, {}
+    loop_a = make("a")
+    instrument(torch, loop_a, rec_a)
+    state_a = loop_a.run()
+    faults = []
+
+    def inject(step, retries):
+        if step == QWEN_FAULT_STEP and len(faults) < 3:
+            faults.append(time.perf_counter())
+            return True
+        return False
+
+    loop_b = make("b", inject)
+    instrument(torch, loop_b, rec_b)
+    state_b = loop_b.run()
+    torch.cuda.synchronize()
+    check(loop_a.recoveries == 0 and loop_b.recoveries == 1,
+          f"lm_train qwen: recoveries {loop_a.recoveries}, "
+          f"{loop_b.recoveries}")
+    check([r.restored for r in loop_b.history]
+          == [s == QWEN_FAULT_STEP for s in range(QWEN_STEPS)],
+          "lm_train qwen: run B's history does not mark the restore")
+    leaves = same_bits(torch, state_b, state_a, "lm_train replay")
+    back = min(t for s, t in rec_b["batches"]
+               if s == QWEN_FAULT_STEP and t > faults[-1])
+    a, b = loop_steps(loop_a, rec_a), loop_steps(loop_b, rec_b)
+    check(b["losses"] == a["losses"], f"lm_train qwen: run B's losses "
+          f"{b['losses']}, run A's {a['losses']}")
+    check([x["step"] for x in b["loads"]] == [QWEN_SAVE_EVERY],
+          f"lm_train qwen: run B restored {b['loads']}")
+    files = sorted(os.listdir(os.path.join(root, "a")))
+    del state_b, loop_b
+    return state_a, loop_a, dict(
+        run_a=a, run_b=b, replay_bitwise_leaves=leaves,
+        recover_s=back - faults[-1], restore_load_s=b["loads"][0]["s"],
+        files_a=files)
+
+
+def index_add_repeats(torch, rows, ids, vocab: int,
+                      repeats: int = 5) -> dict:
+    """Whether ``index_add_`` (index_select's own backward) and
+    `stable_segment_sum` give the same bits on every one of ``repeats``
+    runs over the rows of a Zipf batch."""
+    from repro_torch.sparse.segment import stable_segment_sum
+
+    def runs(fn):
+        first = fn()
+        return sum(bool(torch.equal(fn(), first))
+                   for _ in range(repeats - 1)) + 1
+
+    def atomics():
+        return torch.zeros((vocab,) + tuple(rows.shape[1:]),
+                           dtype=rows.dtype, device=rows.device).index_add_(
+            0, ids, rows)
+
+    return dict(repeats=repeats,
+                index_add_equal_runs=runs(atomics),
+                stable_equal_runs=runs(lambda: stable_segment_sum(
+                    rows, ids, vocab)),
+                index_add_ms=time_cuda(torch, atomics, iters=5),
+                stable_ms=time_cuda(torch, lambda: stable_segment_sum(
+                    rows, ids, vocab), iters=5))
+
+
+def elastic_check(torch, root: str, params_a) -> dict:
+    """Run A's last checkpoint's params resharded onto a 2x2 mesh of the
+    card (``embed``'s vocab axis split over ``data``, the rest
+    replicated): every tile on its device with its block, gathered back
+    bitwise A's final params."""
+    import numpy as np
+
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.mesh import Mesh
+    from repro_torch.runtime import ElasticPlan, gather_tree, reshard_tree
+
+    t = time.perf_counter()
+    step, tree = load_checkpoint(os.path.join(root, "a"))
+    load_s = time.perf_counter() - t
+    check(step == QWEN_STEPS, f"lm_train elastic: newest checkpoint {step}")
+    mesh = Mesh([[DEV] * 2] * 2, ("data", "model"))
+    plan = ElasticPlan(mesh, lambda path: (("data",) if path == ("embed",)
+                                           else ()))
+    out, reshard_s = timed(torch, lambda: reshard_tree(tree["params"], plan))
+    del tree
+    e = out["embed"]
+    rows = e.shape[0] // 2
+    for (i, j), tile in np.ndenumerate(e.tiles):
+        check(tile.device == mesh.devices[i, j] and tuple(tile.shape)
+              == (rows,) + e.shape[1:], f"lm_train elastic: tile {(i, j)}")
+        check(bool(torch.equal(tile, params_a["embed"][rows * i:
+                                                       rows * (i + 1)])),
+              f"lm_train elastic: tile {(i, j)}'s block")
+    tiles = 0
+    for _, leaf in _leaf_items(out):
+        for c, tile in np.ndenumerate(leaf.tiles):
+            check(tile.device == mesh.devices[c],
+                  f"lm_train elastic: a tile off its device")
+            tiles += 1
+    back, gather_s = timed(torch, lambda: gather_tree(out))
+    leaves = same_bits(torch, back, params_a, "lm_train elastic")
+    return dict(mesh="2x2", spec_embed=["data"], load_s=load_s,
+                reshard_s=reshard_s, gather_s=gather_s, tiles=tiles,
+                leaves=leaves, embed_tile_rows=rows, bitwise=True)
+
+
+def compression_check(torch, cfg, params, batch) -> dict:
+    """`compress_with_feedback` over one full-width gradient tree (one
+    `lm_value_and_grad`) on the card, timed; its q, scale and residual
+    on the embedding's and layer 0's gradients bitwise the same call on
+    their CPU copies."""
+    from repro_torch.models.transformer import lm_value_and_grad
+    from repro_torch.runtime import (compress_with_feedback,
+                                     init_error_feedback)
+
+    _, grads = lm_value_and_grad(params, cfg, *batch)
+    ef = init_error_feedback(grads)
+    n = sum(g.numel() for _, g in _leaf_items(grads))
+    ms = time_cuda(torch, lambda: compress_with_feedback(grads, ef),
+                   warmup=1, iters=3)
+    # read the gradient and the residual, write q and the new residual
+    nbytes = sum(g.numel() * (g.element_size() + 4 + 1 + 4)
+                 for _, g in _leaf_items(grads))
+    sub = {"embed": grads["embed"],
+           "layer0": {k: v[0] for k, v in grads["layers"].items()}}
+    host = {"embed": sub["embed"].cpu(),
+            "layer0": {k: v.cpu() for k, v in sub["layer0"].items()}}
+    got, gef = compress_with_feedback(sub, init_error_feedback(sub))
+    want, wef = compress_with_feedback(host, init_error_feedback(host))
+    checked = 0
+    for (path, pair), (_, wpair) in zip(_leaf_items(got),
+                                        _leaf_items(want)):
+        check(bool(torch.equal(pair[0].cpu(), wpair[0])) and bool(
+            torch.equal(pair[1].cpu().view(torch.int32),
+                        wpair[1].view(torch.int32))),
+              f"lm_train compression: {path} q or scale differ from cpu")
+        checked += pair[0].numel()
+    for (path, r), (_, wr) in zip(_leaf_items(gef["residual"]),
+                                  _leaf_items(wef["residual"])):
+        check(bool(torch.equal(r.cpu().view(torch.int32),
+                               wr.view(torch.int32))),
+              f"lm_train compression: {path} residual differs from cpu")
+    del grads, ef
+    return dict(elements=n, ms=ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes", elements_checked_on_cpu=checked,
+                bitwise=True)
+
+
+def _leaf_items(tree, path=()):
+    """``(path, leaf)`` of nested dicts in sorted key order (a ``(q,
+    scale)`` pair, a `ShardedLeaf`, is a leaf)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_items(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def qwen_100m(torch, root: str) -> dict:
+    """examples/train_lm.py's run on the card: ``qwen-100m`` registered
+    as the example registers it, `train_lm` for 200 steps of 8 x 256
+    with a checkpoint every 50; the mean of the last 10 losses below
+    the first 10's."""
+    import numpy as np
+
+    from repro_torch.configs import base
+    from repro_torch.configs._lm_common import lm_shapes, lm_smoke_step
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models.transformer import LMConfig, init_lm
+
+    cfg = LMConfig(**Q100M)
+    base.register(base.ArchDef(
+        arch_id="qwen-100m", family="lm", source="examples/train_lm.py",
+        config=cfg, smoke_config=cfg, shapes=lm_shapes(), init_fn=init_lm,
+        smoke_step=lm_smoke_step))
+    d = os.path.join(root, "qwen-100m")
+    t = time.perf_counter()
+    _, losses, loop = train_lm("qwen-100m", smoke=True, steps=Q100M_STEPS,
+                               batch=Q100M_B, seq_len=Q100M_S,
+                               checkpoint_dir=d, save_every=Q100M_SAVE,
+                               log=lambda *a: None, device=DEV)
+    total_s = time.perf_counter() - t
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    check(all(math.isfinite(x) for x in losses) and last < first,
+          f"lm_train qwen-100m: first-10 mean {first}, last-10 {last}")
+    ms = sorted(r.step_time * 1e3 for r in loop.history)
+    files = sorted(os.listdir(d))
+    return dict(params=cfg.param_count(), dtype=cfg.dtype, steps=len(losses),
+                batch=Q100M_B, seq=Q100M_S, first10_mean=first,
+                last10_mean=last, losses_every_10=losses[::10],
+                step_ms_median=ms[len(ms) // 2], step_ms_max=ms[-1],
+                total_s=total_s, files=files,
+                checkpoint_bytes=os.path.getsize(
+                    os.path.join(d, files[-1])))
 
 
 def attention_grad_check(torch, B, H, S, D) -> dict:
@@ -4215,41 +4496,82 @@ def attention_grad_check(torch, B, H, S, D) -> dict:
 
 
 def lm_train_phase(torch) -> dict:
-    """Full-width Qwen1.5-0.5B training steps (and one more traced), one
-    layer's attention at the training shape against the plain path, then
-    moonshot at full width cut to two layers trained (its drops counted
-    by the steps' own routings) and served; returns the launch counts of
-    Qwen's timed steps (the phase's main path)."""
-    import dataclasses
+    """Full-width Qwen1.5-0.5B trained through `launch.train.make_step`
+    in two `TrainLoop`s (run B restored from a checkpoint and replayed,
+    bitwise run A), one more step traced, run A's checkpoint resharded on
+    a 2x2 mesh, a gradient tree compressed, one layer's attention at the
+    training shape against the plain path, ``qwen-100m``'s example run,
+    then moonshot at full width cut to two layers trained in a loop (its
+    drops counted by the steps' own routings) and served; returns the
+    launch counts of Qwen's two loops (the phase's main path)."""
+    import shutil
+    import tempfile
 
     from repro_torch import obs, prng
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import LMServer
+    from repro_torch.launch.train import lm_loop
     from repro_torch.models import moe
-    from repro_torch.models.transformer import init_lm
 
     cfg = get_arch("qwen1.5-0.5b").config
     check(cfg.remat, "lm_train: Qwen's config has remat off")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    params, init_s = timed(torch, lambda: init_lm(
-        torch.Generator(device=DEV).manual_seed(0), cfg, device=DEV))
-    tokens = prng.randint(prng.PRNGKey(7), (QWEN_B, TRAIN_S + 1), 0,
-                          cfg.vocab, device=DEV)
-    ops.reset_launches()
-    params, log = train_steps(torch, cfg, params, tokens, QWEN_STEPS,
-                              trace=True)
-    peak = torch.cuda.max_memory_allocated()
-    losses, launches = log["losses"], log["launches"]
-    want = 2 * cfg.n_layers
-    check(all(n == want for n in launches),
-          f"lm_train qwen: flash_attention launches a step {launches}, "
-          f"predicted {want} (a forward and a recompute a layer)")
-    check(losses[-1] < losses[0], f"lm_train qwen: loss {losses} did not "
-          f"fall")
-    del params, tokens
+    root = tempfile.mkdtemp(prefix="lm_train_")
+    try:
+        disk = shutil.disk_usage(root)
+        # A's two checkpoints live while B holds two and writes a third
+        state_bytes = cfg.param_count() * (2 + 4 + 4)
+        need = 5 * state_bytes
+        check(disk.free >= need,
+              f"lm_train: the checkpoints need {need:,} bytes; the disk "
+              f"under {root} has {disk.free:,} free of {disk.total:,}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        state_a, loop_a, runs = qwen_loops(torch, cfg, root)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = 2 * cfg.n_layers
+        calls = runs["run_a"]["launches_per_call"] + \
+            runs["run_b"]["launches_per_call"]
+        check(all(n == want for n in calls),
+              f"lm_train qwen: flash_attention launches a step {calls}, "
+              f"predicted {want} (a forward and a recompute a layer)")
+        check(counts.get("flash_attention:tc", 0)
+              == counts.get("flash_attention", 0) == want * len(calls),
+              f"lm_train qwen: a launch went past the tensor-core kernel "
+              f"({counts})")
+        losses = runs["run_a"]["losses"]
+        check(all(math.isfinite(x) for x in losses) and losses[-1]
+              < losses[0], f"lm_train qwen: loss {losses} did not fall")
+        # one more step, traced (a warm-up and the traced one), on run A's
+        # last batch; its result is dropped
+        batch = loop_a.batch_fn(QWEN_STEPS - 1)
+        wall, busy, top, inside = trace_device(
+            torch, [lambda: loop_a.step_fn(state_a, batch)] * 2,
+            within=("FlashAttentionBackward",))
+        bwd = inside["FlashAttentionBackward"]
+        profile = dict(traced_wall_ms=wall * 1e3, device_busy_ms=busy * 1e3,
+                       idle_share=1.0 - busy / wall,
+                       attention_backward_device_ms=bwd * 1e3,
+                       attention_backward_share=bwd / busy, top=top[:8])
+        torch.cuda.empty_cache()
+        ids = batch[0].reshape(-1)
+        rows = torch.randn((ids.numel(), cfg.d_model), device=DEV,
+                           generator=torch.Generator(device=DEV).manual_seed(
+                               4)).to(torch.bfloat16)
+        atomics = index_add_repeats(torch, rows, ids, cfg.vocab)
+        top_share = float(torch.bincount(ids).max()) / ids.numel()
+        del rows
+        elastic = elastic_check(torch, root, state_a["params"])
+        torch.cuda.empty_cache()
+        compression = compression_check(torch, cfg, state_a["params"], batch)
+        del state_a, loop_a, batch, ids
+        torch.cuda.empty_cache()
+        q100m = qwen_100m(torch, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     # one layer's attention at the training shape (4 x 16 x 4,096 x 64)
     attn = attention_grad_check(torch, QWEN_B, cfg.n_heads, TRAIN_S,
@@ -4258,13 +4580,17 @@ def lm_train_phase(torch) -> dict:
     emit("lm_train", arch=cfg.name, n_layers=cfg.n_layers,
          d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.dtype,
          params=cfg.param_count(), batch=QWEN_B, seq=TRAIN_S,
-         ce_chunk=TRAIN_CE_CHUNK, remat=cfg.remat, init_s=init_s,
-         losses=losses, step_ms=log["step_ms"], max_memory_allocated=peak,
-         flash_attention_launches_per_step=launches,
-         predicted_launches_per_step=want,
+         remat=cfg.remat, steps=QWEN_STEPS, save_every=QWEN_SAVE_EVERY,
+         fault_step=QWEN_FAULT_STEP, disk_free=disk.free,
+         disk_total=disk.total, max_memory_allocated=peak,
+         flash_attention_launches=counts.get("flash_attention", 0),
+         predicted_launches_per_step=want, **runs,
+         zipf_top_token_share=top_share, embed_grad_repeats=atomics,
+         step_profile=profile, elastic=elastic, compression=compression,
+         qwen_100m=q100m,
          layer_attention_fwd_ms=attn["kernel_fwd_ms"],
          layer_attention_plain_bwd_ms=attn["plain_bwd_ms"],
-         step_profile=log["trace"], attention_grad=attn)
+         attention_grad=attn)
 
     # moonshot-v1-16b-a3b at full width, depth cut to 2 layers
     mcfg = dataclasses.replace(get_arch("moonshot-v1-16b-a3b").config,
@@ -4279,10 +4605,11 @@ def lm_train_phase(torch) -> dict:
     del q, k, v
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    mparams, minit_s = timed(torch, lambda: init_lm(
-        torch.Generator(device=DEV).manual_seed(0), mcfg, device=DEV))
-    mtok = prng.randint(prng.PRNGKey(9), (MOON_B, TRAIN_S + 1), 0,
-                        mcfg.vocab, device=DEV)
+    mloop = lm_loop(mcfg, steps=MOON_STEPS, batch=MOON_B, seq_len=TRAIN_S,
+                    checkpoint_dir="", save_every=MOON_STEPS, device=DEV)
+    mloop.manager = NoCheckpoints()
+    mrec = {}
+    instrument(torch, mloop, mrec)
     T = MOON_B * TRAIN_S
     C = moe.capacity(mcfg.capacity_factor, mcfg.top_k, T, mcfg.n_experts)
     # the steps count their own routings (a sync each, 4 a step: two
@@ -4290,24 +4617,31 @@ def lm_train_phase(torch) -> dict:
     obs.reset()
     obs.enable()
     try:
-        mparams, mlog = train_steps(torch, mcfg, mparams, mtok, MOON_STEPS)
+        mstate = mloop.run()
         capacity = obs.gauge("moe.capacity")
         seen_c = (capacity.value, capacity.max)
     finally:
         obs.reset()
     mpeak = torch.cuda.max_memory_allocated()
-    mlaunches = mlog["launches"]
-    check(all(n == 2 * MOON_LAYERS for n in mlaunches),
+    mlaunches = [c["launches"] for c in mrec["calls"]]
+    check(len(mlaunches) == MOON_STEPS
+          and all(n == 2 * MOON_LAYERS for n in mlaunches),
           f"lm_train moonshot: launches a step {mlaunches}")
     check(seen_c == (C, C), f"lm_train moonshot: capacities {seen_c}, "
           f"want {C}")
     routings = 2 * MOON_LAYERS * T * mcfg.top_k
-    check(all(n == routings for n, _ in mlog["routed"]),
-          f"lm_train moonshot: choices routed a step {mlog['routed']}, "
-          f"want {routings} (two layers, forward and recompute)")
-    drops = [dict(choices=n, dropped=d, drop_share=d / n)
-             for n, d in mlog["routed"]]
-    del mtok
+    routed = [c["routed"] for c in mrec["calls"]]
+    check(all(n == routings for n, _ in routed),
+          f"lm_train moonshot: choices routed a step {routed}, want "
+          f"{routings} (two layers, forward and recompute)")
+    drops = [dict(choices=n, dropped=d, drop_share=d / n) for n, d in routed]
+    mlosses = [float(r.metrics["loss"]) for r in mloop.history]
+    check(all(math.isfinite(x) for x in mlosses),
+          f"lm_train moonshot: losses {mlosses}")
+    mparams = mstate["params"]
+    mstep_ms = [r.step_time * 1e3 for r in mloop.history]
+    del mstate, mloop
+    torch.cuda.empty_cache()
     server = LMServer(mcfg, mparams, max_len=MOON_PROMPT + MOON_GEN,
                       device=DEV)
     prompts = prng.randint(prng.PRNGKey(10), (4, MOON_PROMPT), 0,
@@ -4337,8 +4671,9 @@ def lm_train_phase(torch) -> dict:
          d_model=mcfg.d_model, experts=mcfg.n_experts, top_k=mcfg.top_k,
          vocab=mcfg.vocab, params=mcfg.param_count(),
          active_params=mcfg.active_param_count(), batch=MOON_B,
-         seq=TRAIN_S, capacity=C, drops_per_step=drops, init_s=minit_s,
-         losses=mlog["losses"], step_ms=mlog["step_ms"],
+         seq=TRAIN_S, capacity=C, drops_per_step=drops,
+         losses=mlosses,
+         step_ms=mstep_ms,
          max_memory_allocated=mpeak,
          flash_attention_launches_per_step=mlaunches,
          head_dim_check=dict(head_dim=mcfg.head_dim, max_abs_err=hd_err[0],
@@ -4347,8 +4682,8 @@ def lm_train_phase(torch) -> dict:
          prefill_ms=prefill_s * 1e3,
          decode_ms_per_token=decode_s / MOON_GEN * 1e3,
          generate_s=generate_s, tokens=gen1[0].tolist())
-    return {"flash_attention": sum(launches),
-            "flash_attention:tc": sum(launches)}
+    return {"flash_attention": counts.get("flash_attention", 0),
+            "flash_attention:tc": counts.get("flash_attention:tc", 0)}
 
 
 # ---------------------------------------------------------------- FM ----

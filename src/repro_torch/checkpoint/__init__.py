@@ -6,9 +6,10 @@ from repro_torch.checkpoint.store import (
     load_named,
     save_checkpoint,
     save_named,
+    to_tensor,
 )
 
 __all__ = [
     "save_checkpoint", "load_checkpoint", "save_named", "load_named",
-    "CheckpointManager",
+    "CheckpointManager", "to_tensor",
 ]

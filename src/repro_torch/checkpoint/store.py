@@ -4,6 +4,9 @@
   * every leaf of a tree is saved as one npz entry keyed by its path, and
     the tree's structure as a JSON spec under ``__spec__``, so a file
     written by either package loads in the other;
+  * the npz files are written and read at the disk's speed
+    (`repro_torch.checkpoint.npz`: the CRCs on a thread pool, each
+    member straight from and into its array);
   * writes go to a ``.tmp.npz`` name in the target directory, then
     ``os.replace`` moves them to their final name: a half-written
     checkpoint is never visible under it;
@@ -26,9 +29,12 @@ import os
 import re
 import shutil
 import tempfile
+import warnings
 
 import numpy as np
 import torch
+
+from repro_torch.checkpoint.npz import read_npz, write_npz
 
 _SEP = "/"
 
@@ -41,6 +47,31 @@ def _host(leaf) -> np.ndarray:
             return t.view(torch.int16).numpy().view(np.dtype("V2"))
         return t.numpy()
     return np.asarray(leaf)
+
+
+def to_tensor(leaf, *, dtype=None, device=None) -> torch.Tensor:
+    """A leaf of a loaded tree as a tensor in ``dtype`` on ``device``
+    (the leaf's own where not given): raw 2-byte words (``|V2``, how
+    bfloat16 is saved) come back as bfloat16, a 0-dim array as a 0-dim
+    tensor.  A tensor on the host never shares the loaded array's
+    (read-only) buffer."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.to(device=device, dtype=dtype)
+    a = np.asarray(leaf)
+    bf16 = a.dtype == np.dtype("V2")
+    if bf16:
+        a = a.view(np.int16)
+    dev = torch.device("cpu" if device is None else device)
+    if not a.flags.c_contiguous or (dev.type == "cpu"
+                                    and not a.flags.writeable):
+        a = a.copy()
+    with warnings.catch_warnings():
+        # a read-only array bound for the card is only read, by the copy
+        warnings.filterwarnings("ignore", message=".*not writable.*")
+        t = torch.from_numpy(a)
+    if bf16:
+        t = t.view(torch.bfloat16)
+    return t.to(device=dev, dtype=dtype)
 
 
 def _flatten(tree, prefix=""):
@@ -109,12 +140,10 @@ def _write_npz(directory: str, fname: str, tree) -> str:
     os.makedirs(directory, exist_ok=True)
     spec, leaves = _flatten(tree)
     dest = os.path.join(directory, fname)
-    # np.savez appends ".npz" to a name without it: keep the suffix on the
-    # temporary name so the rename moves the real payload
     fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp.npz")
     os.close(fd)
     try:
-        np.savez(tmp, __spec__=json.dumps(spec), **leaves)
+        write_npz(tmp, {"__spec__": np.asarray(json.dumps(spec)), **leaves})
         os.replace(tmp, dest)
     finally:
         if os.path.exists(tmp):
@@ -123,9 +152,8 @@ def _write_npz(directory: str, fname: str, tree) -> str:
 
 
 def _read_npz(path: str):
-    with np.load(path, allow_pickle=False) as z:
-        spec = json.loads(str(z["__spec__"]))
-        leaves = {k: z[k] for k in z.files if k != "__spec__"}
+    leaves = read_npz(path)
+    spec = json.loads(str(leaves.pop("__spec__")))
     return _unflatten(spec, leaves)
 
 

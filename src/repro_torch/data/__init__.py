@@ -1,6 +1,14 @@
-"""Synthetic data streams (``repro.data``): the CTR click stream of the FM
-model.  Token, graph-feature and prefetch streams wait for their slices
-(ROADMAP A9b, A9c)."""
+"""Synthetic data streams (``repro.data``): the token stream of the LMs
+(`TokenPipeline`), the CTR click stream of the FM model and a host-side
+`Prefetcher`.  The graph-feature stream waits for its slice (ROADMAP
+A9c)."""
+from repro_torch.data.tokens import synthetic_token_batches, TokenPipeline
 from repro_torch.data.clicks import synthetic_click_batches
+from repro_torch.data.prefetch import Prefetcher
 
-__all__ = ["synthetic_click_batches"]
+__all__ = [
+    "synthetic_token_batches",
+    "TokenPipeline",
+    "synthetic_click_batches",
+    "Prefetcher",
+]

@@ -6,6 +6,8 @@ import math
 
 import torch
 
+from repro_torch.sparse.segment import stable_segment_sum
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
@@ -41,12 +43,35 @@ def take_index(idx: torch.Tensor, n: int):
     return torch.remainder(inside, n), inside != idx
 
 
+class GatherRows(torch.autograd.Function):
+    """``table.index_select(0, idx)`` whose gradient sums the rows of a
+    repeated index with `stable_segment_sum`: the same bits on every run,
+    where ``index_select``'s own backward (``index_add_``) sums them with
+    atomics on the card.  The forward is ``index_select``'s."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, = ctx.saved_tensors
+        return stable_segment_sum(grad, idx, ctx.rows), None
+
+
 def take_rows(table: torch.Tensor, safe: torch.Tensor,
-              invalid: torch.Tensor) -> torch.Tensor:
+              invalid: torch.Tensor, *, stable_grad: bool = False
+              ) -> torch.Tensor:
     """``table``'s rows at `take_index`'s ``safe``, NaN where ``invalid``:
     ``(*safe.shape, *table.shape[1:])``.  The gradient of a NaN row reaches
-    no row of ``table``, as ``jax.grad`` through the fill mode drops it."""
-    rows = table.index_select(0, safe.reshape(-1)).view(
+    no row of ``table``, as ``jax.grad`` through the fill mode drops it.
+    With ``stable_grad`` the gradient is `GatherRows`'s, the same bits on
+    every run (a training replay needs them)."""
+    flat = safe.reshape(-1)
+    rows = (GatherRows.apply(table, flat) if stable_grad
+            else table.index_select(0, flat)).view(
         *safe.shape, *table.shape[1:])
     mask = invalid.view(*invalid.shape, *(1,) * (table.dim() - 1))
     return rows.masked_fill(mask, float("nan"))

@@ -266,10 +266,12 @@ def _train_block(p: dict, x: torch.Tensor, cfg: LMConfig, rope):
 def _embed(params: dict, cfg: LMConfig, tokens: torch.Tensor):
     """The scaled embeddings of ``tokens``; a token outside ``[-vocab,
     vocab)`` embeds as NaN, as the reference's ``jnp.take`` does, and
-    ``[-vocab, 0)`` wraps (`take_index`)."""
+    ``[-vocab, 0)`` wraps (`take_index`).  The table's gradient sums a
+    repeated token's rows in a fixed order (`GatherRows`), so a training
+    step has the same bits on every run."""
     table = params["embed"]
-    return _scaled(take_rows(table, *take_index(tokens, table.shape[0])),
-                   cfg.emb_scale)
+    return _scaled(take_rows(table, *take_index(tokens, table.shape[0]),
+                             stable_grad=True), cfg.emb_scale)
 
 
 def _head(params: dict, cfg: LMConfig, x: torch.Tensor):

@@ -5,7 +5,8 @@ Rows of ``data`` are reduced into ``num_segments`` buckets keyed by
 ``num_segments`` among them) are dropped, as ``jax.ops.segment_*``
 drops them: they land in one spare bucket past the end, which is cut
 off, so no reduction waits on the host.  Plain PyTorch: ``index_add_``
-and ``scatter_reduce_``.
+and ``scatter_reduce_``; `stable_segment_sum` sorts instead, so that its
+sums have the same bits on every run on the card too.
 """
 from __future__ import annotations
 
@@ -32,6 +33,26 @@ def segment_sum(data, segment_ids, num_segments: int):
 def sorted_segment_sum(data, segment_ids, num_segments: int):
     """`segment_sum` for ids already sorted (the reference's hint)."""
     return segment_sum(data, segment_ids, num_segments)
+
+
+def stable_segment_sum(data, segment_ids, num_segments: int):
+    """`segment_sum` with the same bits on every run, on the card too.
+    On CUDA ``index_add_`` adds a bucket's rows with atomics, in the order
+    its threads happen to run; here the rows are stably sorted by id and
+    each bucket's rows are summed in float32 in their original order, one
+    thread a column (``torch.segment_reduce``), then cast to ``data``'s
+    dtype once.  On the host and in float32 that is ``index_add_``'s
+    order and bits.  Every id must lie in ``[0, num_segments)``; the
+    bucket count is read on the host (one sync)."""
+    ids = torch.as_tensor(segment_ids, device=data.device).reshape(-1).long()
+    order = torch.argsort(ids, stable=True)
+    uniq, counts = torch.unique_consecutive(ids[order], return_counts=True)
+    sums = torch.segment_reduce(data.index_select(0, order).to(torch.float32),
+                                "sum", lengths=counts, axis=0)
+    out = torch.zeros((num_segments,) + tuple(data.shape[1:]),
+                      dtype=data.dtype, device=data.device)
+    out[uniq] = sums.to(data.dtype)
+    return out
 
 
 def _lowest(dtype):

@@ -51,7 +51,10 @@ def test_no_module_imports_jax_or_repro():
                  "serve.replica", "core.engine", "core.store",
                  "models.moe", "models.moe_sharded",
                  "configs.moonshot_v1_16b_a3b", "configs.grok_1_314b",
-                 "configs._lm_common"):
+                 "configs._lm_common", "runtime", "runtime.loop",
+                 "runtime.straggler", "runtime.elastic",
+                 "runtime.compression", "data", "data.tokens",
+                 "data.prefetch", "launch.train"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["leaked"] == []
 
