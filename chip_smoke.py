@@ -193,6 +193,35 @@ Phases, one JSON line each:
             the same serve_bulk batch and train_batch step under
             torch.profiler: device-busy share and the kernels that take
             the device time (the IM sampler's: the optional profile)
+  gnn_parity
+            the four GNNs' smoke configs (graphsage-reddit, egnn,
+            graphcast, equiformer-v2): each arch's smoke_step on cuda and
+            on cpu from the same weights and threefry key, every output,
+            the loss and every gradient leaf within 1e-4 * (1 + |cpu|);
+            two hops of neighbor_sampler (1,024 seeds, 15-10) on an R-MAT
+            graph, cuda ids bitwise cpu's; Equiformer's chunked edges
+            equal to its flat ones on the card; GraphCast's dst-
+            partitioned processor and sharded_aggregate on a 2x2 mesh of
+            the card equal to the single-device forms (forward, loss,
+            gradients); embedding_bag in all three modes and the row-
+            sharded lookup, cuda against cpu
+  gnn_full  the GNNs at their published widths, each step as the
+            reference's make_gnn_train_step (loss, clip 1, AdamW):
+            graphsage-reddit's minibatch_lg on a Reddit-scale graph built
+            on the card (R-MAT scale 18 mod 232,965 nodes, self loops and
+            duplicates dropped, 114,615,892 edges kept, an in-CSC) with
+            the planted-partition features (232,965 x 602 f32 and a zero
+            sentinel row): 1,024 seeds, both hops (15, 10) sampled on the
+            card every step, 6 steps, step 1's loss and gradients held to
+            the cpu's; graphcast (16 layers, d 512, remat, n_vars 1,433)
+            and equiformer-v2 (12 layers, C 128, l_max 6, m_max 2) at
+            full_graph_sm (2,708 nodes, 10,556 edges); egnn (4 layers, d
+            64, d_feat 227) on molecule's 128 graphs of 30 nodes and 64
+            edges as one disjoint union, its E(n) equivariance checked on
+            the card; then examples/gnn_node_classification.py's setup
+            (R-MAT 2,000 x 16,000, 150 AdamW steps): the last 10 steps'
+            minibatch accuracy above the first 10's by more than 0.1;
+            step ms, sample ms, graph build s, peak memory, losses
 
 The kernels phase holds arena_commit (both kinds, with the batch's row
 sums written into a stale sizes slice) bitwise on all-ones and all-zero
@@ -5218,6 +5247,575 @@ def fm_profile_phase(torch, steps: int = 3):
     emit("fm_profile", **out)
 
 
+# ------------------------------------------------------------------ GNNs ----
+
+GNN_ARCHS = ("graphsage-reddit", "egnn", "graphcast", "equiformer-v2")
+#: cuda against cpu, every output and gradient leaf: |err| <= GNN_TOL *
+#: (1 + |cpu|), the f32 tolerance of the CPU tests against JAX
+GNN_TOL = 1e-4
+#: graphsage-reddit's minibatch_lg graph (configs/_gnn_common.py) and the
+#: R-MAT scale that covers its ids
+REDDIT_N, REDDIT_M, REDDIT_SCALE = 232_965, 114_615_892, 18
+RMAT_ABC = (0.57, 0.19, 0.19)
+#: steps a full-width cell takes
+SAGE_STEPS, GRAPHCAST_STEPS, EQUIFORMER_STEPS, EGNN_STEPS = 6, 3, 2, 3
+
+
+def gnn_err(torch, got, want, tag: str) -> float:
+    """max |got - want| / (1 + |want|), both finite and of one shape."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    check(got.shape == want.shape, f"{tag}: shape {tuple(got.shape)} "
+          f"against {tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()) and bool(
+        torch.isfinite(want).all()), f"{tag}: not finite")
+    if got.numel() == 0:
+        return 0.0
+    return float(((got - want).abs() / (1 + want.abs())).max())
+
+
+def gnn_tree_err(torch, got, want, tag: str) -> dict:
+    """`gnn_err` over every leaf of two parameter-shaped trees, each held
+    to GNN_TOL."""
+    from repro_torch.models.common import tree_leaves
+
+    g, w = tree_leaves(got), tree_leaves(want)
+    check(len(g) == len(w), f"{tag}: {len(g)} leaves against {len(w)}")
+    errs = [gnn_err(torch, a, b, tag) for a, b in zip(g, w)]
+    worst = max(errs)
+    check(worst <= GNN_TOL, f"{tag}: a leaf differs by {worst:.3g}")
+    return {"leaves": len(errs), "worst_err": worst}
+
+
+def gnn_parity_phase(torch) -> dict:
+    """The four GNNs' smoke steps, the sampler, Equiformer's chunked
+    path, the meshed GraphCast processor and aggregation, and the
+    embedding bags on the card against the host (see the docstring)."""
+    import dataclasses
+
+    from repro_torch import prng
+    from repro_torch.configs import get_arch
+    from repro_torch.graphs import rmat_graph, sample_blocks
+    from repro_torch.graphs.partition import partition_edges_by_dst
+    from repro_torch.kernels import ops
+    from repro_torch.mesh import Mesh
+    from repro_torch.models.common import tree_map, value_and_grad
+    from repro_torch.models.gnn import equiformer, graphcast, mpnn
+    from repro_torch.sparse import (embedding_bag, row_shards,
+                                    sharded_embedding_lookup)
+
+    ops.reset_launches()
+    out = {}
+    for arch in GNN_ARCHS:
+        a = get_arch(arch)
+        cpu_params = a.init_fn(torch.Generator().manual_seed(0),
+                               a.smoke_config, device="cpu")
+        res = {dev: a.smoke_step(tree_map(lambda t: t.to(dev), cpu_params),
+                                 a.smoke_config, prng.PRNGKey(1))
+               for dev in (DEV, "cpu")}
+        errs = {k: gnn_err(torch, res[DEV][k], res["cpu"][k],
+                           f"gnn_parity {arch} {k}")
+                for k in res["cpu"] if k != "grads"}
+        worst = max(errs, key=errs.get)
+        check(errs[worst] <= GNN_TOL, f"gnn_parity {arch}: {worst} differs"
+              f" by {errs[worst]:.3g}")
+        out[arch] = dict(loss_cuda=float(res[DEV]["loss"]),
+                         loss_cpu=float(res["cpu"]["loss"]),
+                         worst_output=worst, worst_output_err=errs[worst],
+                         grads=gnn_tree_err(torch, res[DEV]["grads"],
+                                            res["cpu"]["grads"],
+                                            f"gnn_parity {arch} grads"))
+
+    # two hops of the sampler: the same ids on the card and the host
+    g = rmat_graph(4096, 65_536, seed=0)
+    seeds = prng.randint(prng.PRNGKey(2), (1024,), 0, g.n)
+    hops = {dev: sample_blocks(prng.PRNGKey(3), g.dst_offsets.to(dev),
+                               g.in_src.to(dev), seeds.to(dev), (15, 10))
+            for dev in (DEV, "cpu")}
+    for (fc, nc), (fh, nh) in zip(hops[DEV], hops["cpu"]):
+        check(torch.equal(fc.cpu(), fh) and torch.equal(nc.cpu(), nh),
+              "gnn_parity: neighbor_sampler's ids differ on the card")
+    out["sampler"] = dict(n=g.n, m=g.m, seeds=1024, fanouts=[15, 10],
+                          ids=int(hops["cpu"][1][1].numel()),
+                          sentinels=int((hops["cpu"][1][1] == g.n).sum()))
+
+    # Equiformer: chunked edges equal flat ones on the card
+    ea = get_arch("equiformer-v2")
+    cfg = ea.smoke_config
+    p = ea.init_fn(torch.Generator(device=DEV).manual_seed(0), cfg,
+                   device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    nf = torch.randn((16, cfg.d_feat), generator=gen, device=DEV)
+    pos = torch.randn((16, 3), generator=gen, device=DEV)
+    es = torch.randint(0, 16, (48,), generator=gen, device=DEV)
+    ed = torch.randint(0, 16, (48,), generator=gen, device=DEV)
+    flat = equiformer.forward_edges(p, cfg, nf, pos, es, ed, 16)
+    chunked = equiformer.forward_edges(p, cfg, nf, pos, es.view(6, 8),
+                                       ed.view(6, 8), 16)
+    errs = [gnn_err(torch, c, f, "gnn_parity equiformer chunked")
+            for c, f in zip(chunked, flat)]
+    check(max(errs) <= GNN_TOL, f"gnn_parity: chunked Equiformer differs "
+          f"by {max(errs):.3g}")
+    out["equiformer_chunked_err"] = max(errs)
+
+    # GraphCast's dst-partitioned processor on a 2x2 mesh of the card
+    ga = get_arch("graphcast")
+    cfg = dataclasses.replace(ga.smoke_config, node_axes=("data",),
+                              remat=True, remat_group=2)
+    p = ga.init_fn(torch.Generator(device=DEV).manual_seed(0), cfg,
+                   device=DEV)
+    n, e = 24, 80
+    nf = torch.randn((n, cfg.n_vars), generator=gen, device=DEV)
+    ef = torch.randn((e, cfg.d_edge_in), generator=gen, device=DEV)
+    es = torch.randint(0, n, (e,), generator=gen, device=DEV)
+    ed = torch.randint(0, n, (e,), generator=gen, device=DEV)
+    mesh = Mesh([[DEV] * 2] * 2, ("data", "model"))
+    ef_p, es_p, ed_p = graphcast.partition_edges(es, ed, ef, n, 2, 2)
+    want = graphcast.forward_edges(p, cfg, nf, ef, es, ed, n)
+    got = graphcast.forward_edges_dst_partitioned(p, cfg, nf, ef_p, es_p,
+                                                  ed_p, n, mesh=mesh)
+    fwd_err = gnn_err(torch, got, want, "gnn_parity graphcast 2x2")
+    check(fwd_err <= GNN_TOL, f"gnn_parity: the 2x2 GraphCast differs by "
+          f"{fwd_err:.3g}")
+    l1, g1 = value_and_grad(graphcast.loss_edges, p, cfg, nf, ef, es, ed,
+                            nf, n)
+    l2, g2 = value_and_grad(graphcast.loss_edges_dst_partitioned, p, cfg,
+                            nf, ef_p, es_p, ed_p, nf, n, mesh=mesh)
+    loss_err = gnn_err(torch, l2, l1, "gnn_parity graphcast 2x2 loss")
+    check(loss_err <= GNN_TOL, f"gnn_parity: the 2x2 loss differs by "
+          f"{loss_err:.3g}")
+    out["graphcast_2x2"] = dict(forward_err=fwd_err, loss_err=loss_err,
+                                grads=gnn_tree_err(
+                                    torch, g2, g1,
+                                    "gnn_parity graphcast 2x2 grads"))
+
+    # sharded_aggregate on the 2x2 mesh, every op
+    h = torch.randn((n, 32), generator=gen, device=DEV)
+    ss, ds, nb = partition_edges_by_dst(es.cpu().numpy(), ed.cpu().numpy(),
+                                        n, 4)
+    agg = {}
+    for op in ("sum", "mean", "max"):
+        got = mpnn.sharded_aggregate(
+            mesh, h, torch.tanh, torch.from_numpy(ss), torch.from_numpy(ds),
+            nb, axis_name=("data", "model"), op=op)
+        want = mpnn.aggregate(torch.tanh(h[es]), ed, n, op)
+        agg[op] = gnn_err(torch, got[:n], want, f"sharded_aggregate {op}")
+        check(agg[op] <= GNN_TOL, f"gnn_parity: sharded_aggregate {op} "
+              f"differs by {agg[op]:.3g}")
+    out["sharded_aggregate_err"] = agg
+
+    # embedding bags, cuda against cpu; the row-sharded lookup bitwise
+    table = torch.randn((1000, 16), generator=gen, device=DEV)
+    idx = torch.randint(0, 1001, (64, 8), generator=gen, device=DEV)
+    flat_idx = idx.reshape(-1)
+    offsets = torch.sort(torch.randint(0, flat_idx.numel(), (40,),
+                                       generator=gen, device=DEV)).values
+    bags = {}
+    for mode in ("sum", "mean", "max"):
+        for form, args in (("fixed", (idx,)), ("offsets", (flat_idx,
+                                                            offsets))):
+            got = embedding_bag(table, *args, mode=mode)
+            want = embedding_bag(table.cpu(), *(x.cpu() for x in args),
+                                 mode=mode)
+            err = gnn_err(torch, got, want, f"embedding_bag {mode} {form}")
+            check(err <= GNN_TOL, f"gnn_parity: embedding_bag {mode} {form}"
+                  f" differs by {err:.3g}")
+            bags[f"{mode}_{form}"] = err
+    tiles = row_shards(mesh, table, ("data", "model"))
+    looked = sharded_embedding_lookup(tiles, idx, mesh=mesh,
+                                      axis_name=("data", "model"),
+                                      shard_rows=250)
+    rows = table[idx.clamp(max=999)] * (idx < 1000)[..., None]
+    for c in ((0, 0), (1, 1)):
+        check(torch.equal(looked[c], rows),
+              "gnn_parity: the row-sharded lookup is not the gather")
+    out["embedding_bag_err"] = bags
+    out["gnn_launches"] = gnn_launches(ops)
+    emit("gnn_parity", **out)
+    return out
+
+
+def gnn_launches(ops) -> dict:
+    """The kernel launches counted since the phase reset them: none, as
+    no TPU kernel lies on the GNNs' path (PERF.md section 6)."""
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    check(not counts, f"a GNN phase launched kernels: {counts}")
+    return counts
+
+
+def reddit_graph(torch, seed: int = 0) -> dict:
+    """graphsage-reddit's minibatch_lg graph, built on the card: R-MAT at
+    scale 18 with the generator's a, b, c, ids taken modulo 232,965, self
+    loops and duplicates dropped (``torch.unique`` on ``dst * n + src``,
+    so the edges come out grouped by dst), drawn in rounds until at least
+    114,615,892 distinct edges exist, then that many kept at random;
+    returns the in-CSC (``dst_offsets``, ``in_src``, int32) and what the
+    build drew and took."""
+    n, target = REDDIT_N, REDDIT_M
+    a, b, c = RMAT_ABC
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+
+    def draw(count: int):
+        src = torch.zeros(count, dtype=torch.int64, device=DEV)
+        dst = torch.zeros_like(src)
+        for _ in range(REDDIT_SCALE):
+            u = torch.rand(count, generator=gen, device=DEV)
+            # quadrants 0..3 with p = a, b, c, d: 2 and 3 set the row bit,
+            # 1 and 3 the column bit
+            src.mul_(2).add_(u >= a + b)
+            dst.mul_(2).add_(((u >= a) & (u < a + b)) | (u >= a + b + c))
+            del u
+        src.remainder_(n)
+        dst.remainder_(n)
+        keep = src != dst
+        return (dst * n + src)[keep]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    draws = int(1.65 * target)
+    keys = torch.unique(draw(draws))
+    while keys.numel() < target:
+        more = 1 << 24
+        draws += more
+        keys = torch.unique(torch.cat([keys, draw(more)]))
+    distinct = int(keys.numel())
+    if distinct > target:
+        pick = torch.randperm(distinct, generator=gen, device=DEV)[:target]
+        keys = keys[torch.sort(pick).values]
+    dst = keys // n
+    in_src = (keys - dst * n).to(torch.int32)
+    counts = torch.bincount(dst, minlength=n)
+    offsets = torch.zeros(n + 1, dtype=torch.int32, device=DEV)
+    offsets[1:] = torch.cumsum(counts, 0)
+    del keys, dst
+    torch.cuda.synchronize()
+    return {"dst_offsets": offsets, "in_src": in_src,
+            "build_s": time.perf_counter() - t0, "draws": draws,
+            "distinct": distinct, "edges": int(in_src.numel()),
+            "isolated": int((counts == 0).sum()),
+            "max_in_degree": int(counts.max())}
+
+
+def gnn_model_flops(arch_id: str, cfg, n_nodes: int, n_edges: int) -> float:
+    """A training step's flops by the reference's analytic count
+    (``src/repro/launch/steps.py`` ``_gnn_model_flops``: the dominant
+    products' multiply-adds x 2 of the forward, x 3 for the backward; no
+    recompute), the numerator of each cell's ``f32_bound_ms``."""
+    if arch_id == "graphcast":
+        d = cfg.d_hidden
+        f = cfg.n_layers * (n_edges * (3 * d * d + d * d) * 2
+                            + n_nodes * (2 * d * d + d * d) * 2)
+    elif arch_id == "equiformer-v2":
+        S, C, n_l = (cfg.l_max + 1) ** 2, cfg.d_hidden, cfg.l_max + 1
+        so2 = sum(2 * ((cfg.l_max + 1 - m) * C) ** 2 * (1 if m == 0 else 4)
+                  for m in range(cfg.m_max + 1))
+        rot = 2 * sum((2 * l + 1) ** 2 * C for l in range(n_l)) * 2
+        f = cfg.n_layers * n_edges * (so2 + rot + 2 * S * C * C * 3)
+    elif arch_id == "egnn":
+        d = cfg.d_hidden
+        f = cfg.n_layers * n_edges * (2 * (2 * d + 1) * d + 2 * d * d) * 2
+    elif arch_id == "graphsage-reddit":
+        d = cfg.d_hidden
+        f = (cfg.n_layers * n_nodes * (2 * cfg.d_feat * d) * 2
+             + n_edges * cfg.d_feat * 2)
+    else:
+        raise KeyError(arch_id)
+    return 3.0 * f
+
+
+def gnn_bound(arch_id: str, cfg, n_nodes: int, n_edges: int) -> dict:
+    """`gnn_model_flops` and its time at the f32 peak outside the tensor
+    cores (no TF32: the smoke turns it off)."""
+    flops = gnn_model_flops(arch_id, cfg, n_nodes, n_edges)
+    return {"model_flops": flops,
+            "f32_bound_ms": flops / ALU_OPS_PER_S * 1e3}
+
+
+def gnn_step(loss_fn, state: dict, cfg, *batch, **extra):
+    """One step of the reference's make_gnn_train_step (loss, clip 1,
+    AdamW at its defaults) on ``state`` ``{"params", "opt"}``, updated in
+    place; returns the loss, the unclipped gradients and their norm."""
+    from repro_torch.models.common import value_and_grad
+    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                                   clip_by_global_norm)
+
+    opt_cfg = AdamWConfig()
+    if "opt" not in state:
+        state["opt"] = adamw_init(state["params"], opt_cfg)
+    loss, grads = value_and_grad(loss_fn, state["params"], cfg, *batch,
+                                 **extra)
+    clipped, gnorm = clip_by_global_norm(grads, 1.0)
+    state["params"], state["opt"] = adamw_update(
+        state["params"], clipped, state["opt"], opt_cfg)
+    return loss, grads, gnorm
+
+
+def gnn_train(torch, loss_fn, params, cfg, batch: tuple, steps: int,
+              tag: str, **extra) -> dict:
+    """``steps`` `gnn_step`s on fixed inputs: step ms (host clock to a
+    sync), losses, gradient norms, peak memory, the trained params."""
+    state = {"params": params}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses, norms = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss, _, gnorm = gnn_step(loss_fn, state, cfg, *batch, **extra)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        norms.append(float(gnorm))
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"gnn_full {tag}: a loss or gradient norm is not finite")
+    return {"params": state["params"], "step_ms": ms, "loss": losses,
+            "grad_norm": norms,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def sage_full(torch) -> dict:
+    """graphsage-reddit's minibatch_lg cell on the card: the Reddit-scale
+    graph, the planted-partition features with a zero sentinel row, both
+    hops sampled every step, SAGE_STEPS steps; step 1's loss and every
+    gradient leaf held to the same step on the host."""
+    from repro_torch import prng
+    from repro_torch.configs import get_arch
+    from repro_torch.configs._gnn_common import minibatch_subgraph_dims
+    from repro_torch.data import synthetic_node_features
+    from repro_torch.graphs.sampler import neighbor_sampler
+    from repro_torch.models.common import tree_map, value_and_grad
+    from repro_torch.models.gnn.graphsage import init_sage, loss_blocks
+
+    arch = get_arch("graphsage-reddit")
+    dims = arch.shape("minibatch_lg").dims
+    check((dims["n_nodes"], dims["n_edges"]) == (REDDIT_N, REDDIT_M),
+          "gnn_full: minibatch_lg's graph size")
+    cfg = arch.config
+    check((cfg.d_feat, cfg.n_classes) == (dims["d_feat"], dims["n_classes"]),
+          "gnn_full: graphsage-reddit's widths are minibatch_lg's")
+    B, (f1, f2) = dims["batch_nodes"], dims["fanout"]
+    graph = reddit_graph(torch)
+    t0 = time.perf_counter()
+    feats, labels = synthetic_node_features(REDDIT_N, cfg.d_feat,
+                                            cfg.n_classes, seed=0)
+    table = torch.cat([torch.from_numpy(feats),
+                       torch.zeros((1, cfg.d_feat))]).to(DEV)
+    labels = torch.from_numpy(labels).to(DEV)
+    del feats
+    torch.cuda.synchronize()
+    feats_s = time.perf_counter() - t0
+    offs, in_src = graph.pop("dst_offsets"), graph.pop("in_src")
+    state = {"params": init_sage(torch.Generator(device=DEV).manual_seed(0),
+                                 cfg, device=DEV)}
+    key = prng.PRNGKey(0)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, sample_ms, losses, sentinels, first = [], [], [], [], None
+    for step in range(SAGE_STEPS):
+        key, ks, k1, k2 = prng.split(key, 4)
+        t0 = time.perf_counter()
+        seeds = prng.randint(ks, (B,), 0, REDDIT_N, device=DEV)
+        ev[0].record()
+        n1 = neighbor_sampler(k1, offs, in_src, seeds, f1)
+        n2 = neighbor_sampler(k2, offs, in_src, n1.reshape(-1), f2)
+        ev[1].record()
+        batch = (table[seeds.long()], table[n1.long()], table[n2.long()],
+                 labels[seeds.long()])
+        params = state["params"]
+        loss, grads, _ = gnn_step(loss_blocks, state, cfg, *batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        sample_ms.append(ev[0].elapsed_time(ev[1]))
+        losses.append(float(loss))
+        sentinels.append(int((n2 == REDDIT_N).sum()))
+        if step == 0:
+            first = (params, batch, loss, grads)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses),
+          "gnn_full graphsage: a loss is not finite")
+    # step 1 on the host, from the same parameters and gathered rows
+    p0, batch, loss, grads = first
+    host = tree_map(lambda t: t.cpu(), p0)
+    lh, gh = value_and_grad(loss_blocks, host, cfg,
+                            *(x.cpu() for x in batch))
+    loss_err = gnn_err(torch, loss, lh, "gnn_full graphsage loss")
+    check(loss_err <= GNN_TOL, f"gnn_full graphsage: step 1's loss differs"
+          f" from the host's by {loss_err:.3g}")
+    return dict(graph, feats_s=feats_s, batch_nodes=B, fanout=[f1, f2],
+                **gnn_bound("graphsage-reddit", cfg,
+                            *minibatch_subgraph_dims(B, (f1, f2))),
+                steps=SAGE_STEPS, step_ms=step_ms, sample_ms=sample_ms,
+                loss=losses, sentinel_ids=sentinels,
+                max_memory_allocated=peak, step1_loss_err=loss_err,
+                step1_grads=gnn_tree_err(torch, grads, gh,
+                                         "gnn_full graphsage step 1"))
+
+
+def egnn_molecule(torch, gen, shape, d_feat: int):
+    """molecule's batch: ``batch`` graphs of ``n_nodes`` nodes and
+    ``n_edges`` random edges each, as one disjoint union."""
+    d = shape.dims
+    G, n, e = d["batch"], d["n_nodes"], d["n_edges"]
+    base = (torch.arange(G, device=DEV) * n).repeat_interleave(e)
+    es = torch.randint(0, n, (G * e,), generator=gen, device=DEV) + base
+    ed = torch.randint(0, n, (G * e,), generator=gen, device=DEV) + base
+    nf = torch.randn((G * n, d_feat), generator=gen, device=DEV)
+    pos = torch.randn((G * n, 3), generator=gen, device=DEV)
+    return nf, pos, es, ed
+
+
+def sage_example(torch, dev) -> dict:
+    """examples/gnn_node_classification.py's setup through the port on
+    ``dev``: GraphSAGE (d_hidden 64, fan-out 10-5) on an R-MAT graph of
+    2,000 nodes and 16,000 edges with planted-partition features (5
+    classes, d_feat 32, noise 1.5), 150 AdamW steps (lr 3e-3, no weight
+    decay) of 64 seeds, both hops sampled every step; the minibatch
+    accuracy after each step."""
+    from repro_torch import prng
+    from repro_torch.data import synthetic_node_features
+    from repro_torch.graphs import rmat_graph
+    from repro_torch.graphs.sampler import neighbor_sampler
+    from repro_torch.models.common import value_and_grad
+    from repro_torch.models.gnn.graphsage import (SageConfig, forward_blocks,
+                                                  init_sage, loss_blocks)
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+    n_classes, d_feat, steps, batch = 5, 32, 150, 64
+    t0 = time.perf_counter()
+    g = rmat_graph(2_000, 16_000, seed=0).to(dev)
+    feats, labels = synthetic_node_features(g.n, d_feat, n_classes, seed=0,
+                                            noise=1.5)
+    table = torch.cat([torch.from_numpy(feats),
+                       torch.zeros((1, d_feat))]).to(dev)
+    labels = torch.from_numpy(labels).to(dev).long()
+    cfg = SageConfig(n_layers=2, d_hidden=64, d_feat=d_feat,
+                     n_classes=n_classes, sample_sizes=(10, 5))
+    f1, f2 = cfg.sample_sizes
+    params = init_sage(torch.Generator(device=dev).manual_seed(0), cfg,
+                       device=dev)
+    opt_cfg = AdamWConfig(lr=3e-3, weight_decay=0.0)
+    opt = adamw_init(params, opt_cfg)
+    key = prng.PRNGKey(1)
+    losses, accs = [], []
+    for _ in range(steps):
+        key, k1, k2 = prng.split(key, 3)
+        s1, s2 = prng.split(k2)
+        seeds = prng.randint(k1, (batch,), 0, g.n, device=dev).long()
+        n1 = neighbor_sampler(s1, g.dst_offsets, g.in_src, seeds, f1)
+        n2 = neighbor_sampler(s2, g.dst_offsets, g.in_src, n1.reshape(-1),
+                              f2)
+        x = (table[seeds], table[n1.long()], table[n2.long()])
+        loss, grads = value_and_grad(loss_blocks, params, cfg, *x,
+                                     labels[seeds])
+        params, opt = adamw_update(params, grads, opt, opt_cfg)
+        with torch.no_grad():
+            logits = forward_blocks(params, cfg, *x)
+        losses.append(loss)
+        accs.append((logits.argmax(-1) == labels[seeds]).float().mean())
+    losses = torch.stack(losses).tolist()
+    accs = torch.stack(accs).tolist()
+    return {"steps": steps, "s": time.perf_counter() - t0,
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "acc_first10": sum(accs[:10]) / 10,
+            "acc_last10": sum(accs[-10:]) / 10}
+
+
+def gnn_full_phase(torch) -> dict:
+    """The GNNs at their published widths on the card (see the
+    docstring): graphsage-reddit at minibatch_lg, graphcast and
+    equiformer-v2 at full_graph_sm, egnn at molecule, and the example's
+    configuration."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.gnn import egnn, equiformer, graphcast
+
+    ops.reset_launches()
+    out = {"graphsage": sage_full(torch)}
+    emit("gnn_full", cell="graphsage-reddit minibatch_lg",
+         **out["graphsage"])
+    gen = torch.Generator(device=DEV).manual_seed(2)
+
+    ga = get_arch("graphcast")
+    dims = ga.shape("full_graph_sm").dims
+    n, e, F = dims["n_nodes"], dims["n_edges"], dims["d_feat"]
+    # the cell's config as the reference's _gnn_cell_config sets it
+    cfg = dataclasses.replace(ga.config, n_vars=F)
+    check(cfg.remat and cfg.dtype == "float32" and cfg.n_layers == 16,
+          "gnn_full: graphcast's full_graph_sm config")
+    batch = (torch.randn((n, F), generator=gen, device=DEV),
+             torch.randn((e, cfg.d_edge_in), generator=gen, device=DEV),
+             torch.randint(0, n, (e,), generator=gen, device=DEV),
+             torch.randint(0, n, (e,), generator=gen, device=DEV),
+             torch.randn((n, F), generator=gen, device=DEV))
+    params = ga.init_fn(gen, cfg, device=DEV)
+    res = gnn_train(torch, graphcast.loss_edges, params, cfg, batch,
+                    GRAPHCAST_STEPS, "graphcast", n_nodes=n)
+    res.pop("params")
+    out["graphcast"] = res
+    emit("gnn_full", cell="graphcast full_graph_sm", n_nodes=n, n_edges=e,
+         n_vars=F, **gnn_bound("graphcast", cfg, n, e), **res)
+
+    qa = get_arch("equiformer-v2")
+    cfg = dataclasses.replace(qa.config, d_feat=F)
+    check(cfg.remat and (cfg.l_max, cfg.m_max, cfg.d_hidden) == (6, 2, 128),
+          "gnn_full: equiformer-v2's full_graph_sm config")
+    batch = (torch.randn((n, F), generator=gen, device=DEV),
+             torch.randn((n, 3), generator=gen, device=DEV),
+             torch.randint(0, n, (e,), generator=gen, device=DEV),
+             torch.randint(0, n, (e,), generator=gen, device=DEV),
+             torch.randn((n, cfg.n_out), generator=gen, device=DEV))
+    params = qa.init_fn(gen, cfg, device=DEV)
+    res = gnn_train(torch, equiformer.loss_edges, params, cfg, batch,
+                    EQUIFORMER_STEPS, "equiformer", n_nodes=n)
+    res.pop("params")
+    out["equiformer"] = res
+    emit("gnn_full", cell="equiformer-v2 full_graph_sm", n_nodes=n,
+         n_edges=e, d_feat=F, **gnn_bound("equiformer-v2", cfg, n, e),
+         **res)
+
+    ea = get_arch("egnn")
+    shape = ea.shape("molecule")
+    d_feat = 227        # _gnn_cell_config's fallback: molecule fixes none
+    cfg = dataclasses.replace(ea.config, d_feat=d_feat)
+    nf, pos, es, ed = egnn_molecule(torch, gen, shape, d_feat)
+    N = nf.shape[0]
+    target = pos + 0.1 * torch.randn(pos.shape, generator=gen, device=DEV)
+    params = ea.init_fn(gen, cfg, device=DEV)
+    res = gnn_train(torch, egnn.loss_edges, params, cfg,
+                    (nf, pos, es, ed, target), EGNN_STEPS, "egnn",
+                    n_nodes=N)
+    params = res.pop("params")
+    # E(n) equivariance of the trained model on the card
+    th = 0.6
+    R = torch.tensor([[math.cos(th), -math.sin(th), 0.0],
+                      [math.sin(th), math.cos(th), 0.0],
+                      [0.0, 0.0, 1.0]], device=DEV)
+    t = torch.tensor([1.0, -2.0, 0.5], device=DEV)
+    with torch.no_grad():
+        h1, x1, e1 = egnn.forward_edges(params, cfg, nf, pos, es, ed, N)
+        h2, x2, e2 = egnn.forward_edges(params, cfg, nf, pos @ R.T + t, es,
+                                        ed, N)
+    equi = {"x_err": gnn_err(torch, x2, x1 @ R.T + t, "egnn x'"),
+            "h_err": gnn_err(torch, h2, h1, "egnn h"),
+            "energy_err": gnn_err(torch, e2, e1, "egnn energy")}
+    check(max(equi.values()) <= GNN_TOL, f"gnn_full egnn: not E(n) "
+          f"equivariant on the card: {equi}")
+    out["egnn"] = dict(res, equivariance=equi)
+    emit("gnn_full", cell="egnn molecule", n_nodes=N, n_edges=es.numel(),
+         d_feat=d_feat, **gnn_bound("egnn", cfg, N, es.numel()),
+         **out["egnn"])
+
+    ex = sage_example(torch, DEV)
+    check(ex["acc_last10"] > ex["acc_first10"] + 0.1,
+          f"gnn_full example: accuracy {ex['acc_first10']:.3f} -> "
+          f"{ex['acc_last10']:.3f} did not rise by more than 0.1")
+    out["example"] = ex
+    emit("gnn_full", cell="examples/gnn_node_classification.py", **ex,
+         gnn_launches=gnn_launches(ops))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--max-theta", type=int, default=THETA,
@@ -5228,14 +5826,15 @@ def main(argv=None) -> int:
                             "compressed_full,mesh_full,indices_full,lt_full,"
                             "stream_full,mesh_stream_full,tier_full,"
                             "mesh_tier_full,pallas_full,lm_parity,"
-                            "lm_full,lm_train,fm_parity,fm_full,fm_profile",
+                            "lm_full,lm_train,fm_parity,fm_full,fm_profile,"
+                            "gnn_parity,gnn_full",
                     help="comma list of kernels, parity, imm_full, "
                          "packed_full, compressed_full, mesh_full, "
                          "indices_full, lt_full, stream_full, "
                          "mesh_stream_full, tier_full, mesh_tier_full, "
                          "pallas_full, lm_parity, "
                          "lm_full, lm_train, fm_parity, fm_full, "
-                         "fm_profile and the "
+                         "fm_profile, gnn_parity, gnn_full and the "
                          "optional profile")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -5364,6 +5963,12 @@ def run_phases(torch, phases: set, max_theta: int) -> int:
     if "fm_profile" in phases:
         fm_profile_phase(torch)
         ended("fm_profile")
+    if "gnn_parity" in phases:
+        gnn_parity_phase(torch)
+        ended("gnn_parity")
+    if "gnn_full" in phases:
+        gnn_full_phase(torch)
+        ended("gnn_full")
     two_card_phase(torch)
     ended("two_cards")
     # each kernel's launches on the full run that is its path

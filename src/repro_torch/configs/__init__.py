@@ -2,9 +2,9 @@
 
 Importing this package registers the architectures the port runs: the
 five LMs, served and trained (three dense: qwen1.5-0.5b, h2o-danube-3-4b,
-minicpm-2b; two MoE: moonshot-v1-16b-a3b, grok-1-314b), and the FM
-recsys model (``fm``), served and trained.  The GNNs wait for their
-slice (ROADMAP A9c)::
+minicpm-2b; two MoE: moonshot-v1-16b-a3b, grok-1-314b), the four GNNs,
+trained (graphsage-reddit, graphcast, egnn, equiformer-v2), and the FM
+recsys model (``fm``), served and trained::
 
     from repro_torch.configs import get_arch
     cfg = get_arch("qwen1.5-0.5b").config
@@ -15,7 +15,11 @@ from repro_torch.configs.base import (
 
 # importing the modules registers the archs
 from repro_torch.configs import (          # noqa: F401
+    egnn,
+    equiformer_v2,
     fm,
+    graphcast,
+    graphsage_reddit,
     grok_1_314b,
     h2o_danube_3_4b,
     minicpm_2b,

@@ -16,8 +16,10 @@ files directly)::
 
 ``lm_params_from_jax`` takes the reference's ``init_lm`` parameter tree
 (numpy leaves) to the port's LM parameters, leaf for leaf;
-``fm_params_from_jax`` does the same for ``init_fm``'s ``{"v", "w", "b"}``.
-Both put the parameters on ``cuda`` unless given ``device="cpu"``
+``fm_params_from_jax`` does the same for ``init_fm``'s ``{"v", "w", "b"}``
+and ``gnn_params_from_jax`` for the four GNNs' trees (lists of layers
+kept as lists, stacked layers as stacked tensors).
+All three put the parameters on ``cuda`` unless given ``device="cpu"``
 (`repro_torch.device.resolve_device`), where the port's servers run.
 
 Nothing here imports JAX: the caller turns device arrays into numpy
@@ -153,3 +155,19 @@ def fm_params_from_jax(tree: dict, device=None, dtype=None) -> dict:
     device = resolve_device(device)
     return {name: _leaf_tensor(tree[name], device, dtype)
             for name in ("v", "w", "b")}
+
+
+def gnn_params_from_jax(tree, device=None, dtype=None):
+    """The port's GNN parameters from a reference ``init_sage``,
+    ``init_egnn``, ``init_graphcast`` or ``init_equiformer`` tree (numpy
+    leaves), leaf for leaf: dicts stay dicts, lists of layers stay
+    lists, and layers stacked on a leading L axis stay stacked; each leaf
+    in its own dtype or cast to ``dtype``, on ``cuda`` unless ``device``
+    says otherwise."""
+    device = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: gnn_params_from_jax(v, device, dtype)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [gnn_params_from_jax(v, device, dtype) for v in tree]
+    return _leaf_tensor(tree, device, dtype)

@@ -26,10 +26,13 @@ class AdamWConfig:
 
 
 def tree_map(fn, tree, *rest):
-    """``fn`` over the tensor leaves of nested dicts of like structure."""
+    """``fn`` over the tensor leaves of nested dicts and lists of like
+    structure (a GNN's per-layer list, as in the reference's pytrees)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, *parts) for parts in zip(tree, *rest)]
     return fn(tree, *rest)
 
 
@@ -78,4 +81,6 @@ def _part(tree, i):
     """The ``i``-th member of every tuple leaf of ``tree``."""
     if isinstance(tree, dict):
         return {k: _part(v, i) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_part(v, i) for v in tree]
     return tree[i]

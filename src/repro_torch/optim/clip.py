@@ -10,6 +10,9 @@ def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
     else:
         yield tree
 

@@ -141,6 +141,21 @@ def uniform(key, shape, *, device=None, start: int = 0,
                                           start=start, count=count))
 
 
+#: ``normal``'s open interval: the float32 after -1, and 1
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_NORMAL_SPAN = float(np.float32(1.0) - np.float32(_NORMAL_LO))
+
+
+def normal(key, shape, *, device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` (float32): ``sqrt(2) *
+    erfinv(u)`` with ``u`` uniform on ``(nextafter(-1, 0), 1)``, as jax
+    draws it.  The bits are jax's; ``torch.erfinv`` is not XLA's, so a
+    value may differ from jax's in its last bits."""
+    u = bits_to_unit_float(random_bits(key, shape, device=device))
+    u = torch.clamp(u * _NORMAL_SPAN + _NORMAL_LO, min=_NORMAL_LO)
+    return torch.erfinv(u) * float(np.float32(np.sqrt(2.0)))
+
+
 def randint(key, shape, minval: int, maxval: int, *,
             device=None) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval)`` for int32:

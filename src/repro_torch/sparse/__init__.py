@@ -1,6 +1,11 @@
-"""Sparse and ragged primitives (``repro.sparse``): segment reductions
-and the IMM counters' scatters.  The embedding bags wait for the sharded
-FM lookup (ROADMAP A9c)."""
+"""Sparse and ragged primitives (``repro.sparse``): segment reductions,
+the IMM counters' scatters and the embedding bags (one device, and a
+table row-sharded over a `repro_torch.mesh.Mesh`)."""
+from repro_torch.sparse.embedding_bag import (
+    embedding_bag,
+    row_shards,
+    sharded_embedding_lookup,
+)
 from repro_torch.sparse.scatter import (
     bincount_weighted,
     one_hot_matmul_count,
@@ -18,5 +23,6 @@ from repro_torch.sparse.segment import (
 __all__ = [
     "segment_sum", "segment_max", "segment_mean", "segment_softmax",
     "sorted_segment_sum", "scatter_add", "scatter_or", "bincount_weighted",
-    "one_hot_matmul_count",
+    "one_hot_matmul_count", "embedding_bag", "sharded_embedding_lookup",
+    "row_shards",
 ]

@@ -54,7 +54,14 @@ def test_no_module_imports_jax_or_repro():
                  "configs._lm_common", "runtime", "runtime.loop",
                  "runtime.straggler", "runtime.elastic",
                  "runtime.compression", "data", "data.tokens",
-                 "data.prefetch", "launch.train"):
+                 "data.prefetch", "launch.train", "models.gnn",
+                 "models.gnn.mpnn", "models.gnn.graphsage",
+                 "models.gnn.egnn", "models.gnn.graphcast",
+                 "models.gnn.irreps", "models.gnn.equiformer",
+                 "sparse.embedding_bag", "graphs.sampler",
+                 "data.graph_feats", "configs._gnn_common", "configs.egnn",
+                 "configs.equiformer_v2", "configs.graphcast",
+                 "configs.graphsage_reddit"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["leaked"] == []
 
@@ -93,6 +100,19 @@ def test_entry_points_default_to_cuda():
         convert.fm_params_from_jax({"v": np.ones((4, 2), np.float32),
                                     "w": np.ones(4, np.float32),
                                     "b": np.float32(0)})
+    # the GNNs (A9c): every init and the converter refuse without a card
+    for arch in ("graphsage-reddit", "egnn", "graphcast", "equiformer-v2"):
+        a = get_arch(arch)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            a.init_fn(torch.Generator(), a.smoke_config)
+        assert a.init_fn(torch.Generator(), a.smoke_config,
+                         device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.gnn_params_from_jax({"layers": [{"w": np.ones(3,
+                                                               np.float32)}]})
+    tree = convert.gnn_params_from_jax(
+        {"layers": [{"w": np.ones(3, np.float32)}]}, device="cpu")
+    assert tree["layers"][0]["w"].device.type == "cpu"
     from repro_torch.core.store import ShardedStore, make_store
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_store("indices", 16)
