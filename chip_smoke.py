@@ -101,7 +101,7 @@ Phases, one JSON line each:
             fused-rebuild; campaign-1 streaming, packed; campaign-2
             static, relaxed, "auto" with C4, two replicas; campaign-3
             streaming, bitmap with rebuild; campaign-4 a slot on
-            campaign-0's engine at weight 0.5), theta 4,096 an engine; the
+            campaign-0's engine at weight 0.5), theta 1,024 an engine; the
             bench's trace (2 virtual seconds, 96 q/s a tenant, Zipf 1.0,
             a delta every 0.5 s) replayed with the refresh worker running,
             a drain, a top-k selection per tenant and a flood of
@@ -222,6 +222,25 @@ Phases, one JSON line each:
             (R-MAT 2,000 x 16,000, 150 AdamW steps): the last 10 steps'
             minibatch accuracy above the first 10's by more than 0.1;
             step ms, sample ms, graph build s, peak memory, losses
+  cells     the launchers (repro_torch.launch): all 39 cells (36 arch x
+            shape cells and the three IMM production cells) dry-run on
+            the 16x16 and 2x16x16 meshes of the meta device, nothing
+            allocated on the card (one line: each cell's bytes per
+            device, fits in 80 GiB, model flops); then each cell built by
+            launch/steps.py on a 1x1 mesh of the card at its published
+            width, or cut as CELL_CUTS says (the global batch, then the
+            layers, then a graph's nodes and edges by one factor; each
+            cut listed as reduced: {field: [published, run]}; a GNN
+            keeps its published config: dtype, remat group, channel
+            axis and the edge-chunked layout), one step
+            (two for train: the second loss must differ) through
+            dryrun.execute_cell: step ms (CUDA events), peak memory,
+            executed flops (FlopCounterMode) beside the model flops, the
+            collective census, the outputs checked; fm serve_bulk,
+            imm_select_youtube_ic (bitwise) and graphcast full_graph_sm
+            (within 1e-4 * (1 + |1x1|)) again on a 2x2 mesh of the card,
+            held to their 1x1 run; coverage_matvec, flash_attention and
+            ic_sparse_hits must launch
 
 The kernels phase holds arena_commit (both kinds, with the batch's row
 sums written into a stale sizes slice) bitwise on all-ones and all-zero
@@ -272,7 +291,7 @@ run that is its path: the bitmap kernels and the coins on imm_full, the
 packed commit and packed_count on packed_full, token_count on
 compressed_full, ic_frontier_step on pallas_full, flash_attention on
 lm_full, both FM kernels on fm_full; beside them its launches on every
-full run, the meshed phases' included), the card's name and
+full run, the meshed phases' and the cells' included), the card's name and
 power limit, and ``{"ok": true, "device": {...}}`` last.
 Any failure exits non-zero without the ok line; so does a machine with
 no CUDA device, or a directory without the repo's src/repro_torch.
@@ -1845,6 +1864,10 @@ def classify_arenas(torch, eng_a, eng_b):
 DENSE_CELLS = (("IC", None, False), ("IC", "pallas", False),
                ("WC", "pallas", False), ("GT", "pallas", False),
                ("IC", "pallas", True))
+#: the dense cells' theta cap, and the mesh cells' (4,096 and 2,048 until
+#: the launchers' cells phase: the host's runs of these cells were 100 s
+#: of the smoke, and WC and GT reach the cap)
+DENSE_PARITY_THETA, MESH_PARITY_THETA = 2048, 1024
 
 
 def dense_parity(torch, g) -> dict:
@@ -1859,7 +1882,8 @@ def dense_parity(torch, g) -> dict:
     for model, backend, stable in DENSE_CELLS:
         for dev in (DEV, "cpu"):
             cfg = IMMConfig(k=10, model=model, backend=backend,
-                            stable=stable, max_theta=4096, seed=0,
+                            stable=stable, max_theta=DENSE_PARITY_THETA,
+                            seed=0,
                             store="bitmap")
             ops.reset_launches()
             t0 = time.perf_counter()
@@ -2097,7 +2121,8 @@ def mesh_parity(torch, g) -> dict:
 
     out = {}
     for sampler, kernels in MESH_PARITY_SAMPLERS:
-        cfg = IMMConfig(k=10, sampler=sampler, max_theta=2048, seed=0)
+        cfg = IMMConfig(k=10, sampler=sampler, max_theta=MESH_PARITY_THETA,
+                        seed=0)
         ref = InfluenceEngine(g, cfg, device="cpu").run()
         for shape, part in MESH_PARITY_LAYOUTS:
             mcfg = dataclasses.replace(cfg, partition=part)
@@ -3337,11 +3362,11 @@ def mesh_stream_full(torch, graph, max_theta: int, ref: dict) -> dict:
 #: campaigns of n 262,144 and m 8n under WC weights, graph seeds 10-13,
 #: a trace of 2.0 virtual seconds at 96 q/s a tenant (Zipf skew 1.0)
 #: with a delta every 0.5 s (4 inserts, deletes and reweights at
-#: in-degree <= 8); theta 4,096 an engine (the bench's 1,024 is too
-#: little work for the card; 8,192 until the meshed cells pushed the
-#: whole smoke past 900 s: registration, the streams' stable coins in
-#: plain PyTorch, scales with theta)
-TIER_N, TIER_THETA = 262_144, 4_096
+#: in-degree <= 8); theta 1,024 an engine, the bench's own (8,192 until
+#: the meshed cells pushed the whole smoke past 900 s, 4,096 until the
+#: launchers' cells phase pushed it past 1,080 s: registration, the
+#: streams' stable coins in plain PyTorch, scales with theta)
+TIER_N, TIER_THETA = 262_144, 1_024
 TIER_TRACE = dict(duration=2.0, qps=96.0, skew=1.0, delta_ops=4, seed=0)
 TIER_SERVE = dict(quantum=8, refresh_budget=512)
 TIER_MAX_PENDING, TIER_REPLICAS, TIER_K, TIER_PUMP = 4_096, 2, 10, 16
@@ -3362,11 +3387,14 @@ TIER_STORES = (
 TIER_KERNELS = ("arena_commit", "arena_commit_packed", "coverage_matvec",
                 "fused_select", "packed_count", "ic_sparse_hits")
 #: mesh_tier_full: tier_full's tenants with every engine on a 2x2 mesh of
-#: the card at the bench's own theta, 1,024 (cut from tier_full's 4,096
-#: for the time limit: registration and the fresh streams are the streams'
-#: stable coins, plain PyTorch, ROADMAP B10); the sharded selections
+#: the card at the bench's own theta, 1,024, as tier_full's
+#: (registration and the fresh streams are the streams' stable coins,
+#: plain PyTorch, ROADMAP B10); the sharded selections
 #: reduce partials, so no fused_select
 MESH_TIER_SHAPE, MESH_TIER_THETA = (2, 2), 1_024
+#: the parity tier's theta (1,024 until the launchers' cells phase: its
+#: four replays, two on the host, took ~100 s of the smoke)
+TIER_PARITY_THETA = 512
 MESH_TIER_KERNELS = ("arena_commit", "arena_commit_packed",
                      "coverage_matvec", "packed_count", "ic_sparse_hits")
 
@@ -3428,9 +3456,10 @@ def served_record(r) -> tuple:
 
 
 def tier_replay(torch, dev, mesh_kwargs=None) -> dict:
-    """The five-tenant mix at n 2,048 and theta 1,024 on ``dev`` (every
-    engine on ``mesh_kwargs``'s mesh when given), its trace replayed
-    synchronously (a refresh step after every pump, no worker)."""
+    """The five-tenant mix at n 2,048 and `TIER_PARITY_THETA` on ``dev``
+    (every engine on ``mesh_kwargs``'s mesh when given), its trace
+    replayed synchronously (a refresh step after every pump, no
+    worker)."""
     from repro_torch.kernels import ops
     from repro_torch.serve import KIND_DELTA, IMServe
 
@@ -3438,7 +3467,8 @@ def tier_replay(torch, dev, mesh_kwargs=None) -> dict:
     t0 = time.perf_counter()
     tier = IMServe(device=dev, quantum=8, refresh_budget=64,
                    mesh_kwargs=mesh_kwargs)
-    for spec in tier_specs(2048, 1024, TIER_REPLICAS, TIER_MAX_PENDING,
+    for spec in tier_specs(2048, TIER_PARITY_THETA, TIER_REPLICAS,
+                           TIER_MAX_PENDING,
                            meshed=mesh_kwargs is not None):
         tier.register(spec)
     events = tier_trace(tier, duration=1.0, qps=96.0, skew=1.0,
@@ -3471,9 +3501,10 @@ def tier_replay(torch, dev, mesh_kwargs=None) -> dict:
 
 
 def tier_parity(torch) -> dict:
-    """The five-tenant mix at n 2,048 and theta 1,024 (sparse sampler),
-    the same trace replayed synchronously on the card and on the host,
-    then with every engine on a 2x2 mesh of the card and of the host:
+    """The five-tenant mix at n 2,048 and `TIER_PARITY_THETA` (sparse
+    sampler), the same trace replayed synchronously on the card and on
+    the host, then with every engine on a 2x2 mesh of the card and of the
+    host:
     every ServedQuery but its latency, the stats, the cache's epochs and
     the selections equal the unmeshed replay."""
     out = {dev: tier_replay(torch, dev) for dev in (DEV, "cpu")}
@@ -3532,11 +3563,10 @@ def tier_full(torch, mesh_shape=None) -> dict:
     primaries and fresh engines (launches counted apart).  Returns the
     tier's own launches.  With ``mesh_shape`` (mesh_tier_full) every
     engine, replicas and fresh streams too, is on a mesh of the card of
-    that shape, at theta 1,024 an engine (the bench's own, cut from
-    tier_full's 4,096 for the smoke's time limit: registration and the
-    fresh streams are the streams' stable coins, plain PyTorch, ROADMAP
-    B10), and it must drain with no deadlock (the meshed tenants share
-    one dispatch lock)."""
+    that shape, at theta 1,024 an engine (the bench's own, as
+    tier_full's: registration and the fresh streams are the streams'
+    stable coins, plain PyTorch, ROADMAP B10), and it must drain with no
+    deadlock (the meshed tenants share one dispatch lock)."""
     import gc
     import hashlib
 
@@ -3731,14 +3761,13 @@ def tier_full(torch, mesh_shape=None) -> dict:
                     for k in ("count", "p50", "p99", "max")}
                 for n in tier.tenants
                 if f"serve.latency_ms{{tenant={n}}}" in hist}
-    changed = (["theta 1,024 an engine (the bench's own; cut from "
-                "tier_full's 4,096 for the time limit)",
+    changed = (["theta 1,024 an engine (the bench's own, as "
+                "tier_full's)",
                 "every engine on a 2x2 mesh of the card",
                 "stores and selections vary across campaigns (bitmap "
                 "tiles fused-rebuild, packed tiles, auto, bitmap tiles "
                 "rebuild)"] if meshed else
-               ["theta 4,096 an engine, not 1,024",
-                "stores and selections vary across campaigns "
+               ["stores and selections vary across campaigns "
                 "(bitmap fused-rebuild, packed, auto, bitmap rebuild)"])
     emit(tag, source="benchmarks/serve_tier.py --users 262144 "
          "--scale 1 --tenants 5", n=TIER_N,
@@ -5495,75 +5524,49 @@ def reddit_graph(torch, seed: int = 0) -> dict:
             "max_in_degree": int(counts.max())}
 
 
-def gnn_model_flops(arch_id: str, cfg, n_nodes: int, n_edges: int) -> float:
-    """A training step's flops by the reference's analytic count
-    (``src/repro/launch/steps.py`` ``_gnn_model_flops``: the dominant
-    products' multiply-adds x 2 of the forward, x 3 for the backward; no
-    recompute), the numerator of each cell's ``f32_bound_ms``."""
-    if arch_id == "graphcast":
-        d = cfg.d_hidden
-        f = cfg.n_layers * (n_edges * (3 * d * d + d * d) * 2
-                            + n_nodes * (2 * d * d + d * d) * 2)
-    elif arch_id == "equiformer-v2":
-        S, C, n_l = (cfg.l_max + 1) ** 2, cfg.d_hidden, cfg.l_max + 1
-        so2 = sum(2 * ((cfg.l_max + 1 - m) * C) ** 2 * (1 if m == 0 else 4)
-                  for m in range(cfg.m_max + 1))
-        rot = 2 * sum((2 * l + 1) ** 2 * C for l in range(n_l)) * 2
-        f = cfg.n_layers * n_edges * (so2 + rot + 2 * S * C * C * 3)
-    elif arch_id == "egnn":
-        d = cfg.d_hidden
-        f = cfg.n_layers * n_edges * (2 * (2 * d + 1) * d + 2 * d * d) * 2
-    elif arch_id == "graphsage-reddit":
-        d = cfg.d_hidden
-        f = (cfg.n_layers * n_nodes * (2 * cfg.d_feat * d) * 2
-             + n_edges * cfg.d_feat * 2)
-    else:
-        raise KeyError(arch_id)
-    return 3.0 * f
-
-
 def gnn_bound(arch_id: str, cfg, n_nodes: int, n_edges: int) -> dict:
-    """`gnn_model_flops` and its time at the f32 peak outside the tensor
-    cores (no TF32: the smoke turns it off)."""
-    flops = gnn_model_flops(arch_id, cfg, n_nodes, n_edges)
+    """A training step's flops by the reference's analytic count
+    (`repro_torch.launch.steps._gnn_model_flops`: the dominant products'
+    multiply-adds x 2 of the forward, x 3 for the backward; no recompute)
+    and its time at the f32 peak outside the tensor cores (no TF32: the
+    smoke turns it off)."""
+    from repro_torch.launch.steps import _gnn_model_flops
+
+    flops = _gnn_model_flops(arch_id, cfg, n_nodes, n_edges)
     return {"model_flops": flops,
             "f32_bound_ms": flops / ALU_OPS_PER_S * 1e3}
 
 
-def gnn_step(loss_fn, state: dict, cfg, *batch, **extra):
-    """One step of the reference's make_gnn_train_step (loss, clip 1,
-    AdamW at its defaults) on ``state`` ``{"params", "opt"}``, updated in
-    place; returns the loss, the unclipped gradients and their norm."""
-    from repro_torch.models.common import value_and_grad
-    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
-                                   clip_by_global_norm)
+def gnn_stepper(arch_id: str, loss_fn, cfg, **extra):
+    """The cells' `make_gnn_train_step` (loss, clip 1, AdamW at its
+    defaults, the state updated in place) and its AdamW config."""
+    from repro_torch.launch.steps import make_gnn_train_step
+    from repro_torch.optim import AdamWConfig
 
     opt_cfg = AdamWConfig()
-    if "opt" not in state:
-        state["opt"] = adamw_init(state["params"], opt_cfg)
-    loss, grads = value_and_grad(loss_fn, state["params"], cfg, *batch,
-                                 **extra)
-    clipped, gnorm = clip_by_global_norm(grads, 1.0)
-    state["params"], state["opt"] = adamw_update(
-        state["params"], clipped, state["opt"], opt_cfg)
-    return loss, grads, gnorm
+    return make_gnn_train_step(arch_id, cfg, loss_fn, opt_cfg,
+                               extra), opt_cfg
 
 
-def gnn_train(torch, loss_fn, params, cfg, batch: tuple, steps: int,
-              tag: str, **extra) -> dict:
-    """``steps`` `gnn_step`s on fixed inputs: step ms (host clock to a
-    sync), losses, gradient norms, peak memory, the trained params."""
-    state = {"params": params}
+def gnn_train(torch, arch_id: str, loss_fn, params, cfg, batch: tuple,
+              steps: int, tag: str, **extra) -> dict:
+    """``steps`` `gnn_stepper` steps on fixed inputs: step ms (host clock
+    to a sync), losses, gradient norms, peak memory, the trained
+    params."""
+    from repro_torch.optim import adamw_init
+
+    step, opt_cfg = gnn_stepper(arch_id, loss_fn, cfg, **extra)
+    state = {"params": params, "opt": adamw_init(params, opt_cfg)}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ms, losses, norms = [], [], []
     for _ in range(steps):
         t0 = time.perf_counter()
-        loss, _, gnorm = gnn_step(loss_fn, state, cfg, *batch, **extra)
+        state, metrics = step(state, batch)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(loss))
-        norms.append(float(gnorm))
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
     check(all(math.isfinite(x) for x in losses + norms),
           f"gnn_full {tag}: a loss or gradient norm is not finite")
     return {"params": state["params"], "step_ms": ms, "loss": losses,
@@ -5574,8 +5577,10 @@ def gnn_train(torch, loss_fn, params, cfg, batch: tuple, steps: int,
 def sage_full(torch) -> dict:
     """graphsage-reddit's minibatch_lg cell on the card: the Reddit-scale
     graph, the planted-partition features with a zero sentinel row, both
-    hops sampled every step, SAGE_STEPS steps; step 1's loss and every
-    gradient leaf held to the same step on the host."""
+    hops sampled every step, SAGE_STEPS steps; step 1's loss, and every
+    gradient leaf recomputed on the card after the loop from step 1's
+    parameters and rows, held to the same step on the host (the timed
+    window holds the sampling, the gathers and the step alone)."""
     from repro_torch import prng
     from repro_torch.configs import get_arch
     from repro_torch.configs._gnn_common import minibatch_subgraph_dims
@@ -5583,6 +5588,7 @@ def sage_full(torch) -> dict:
     from repro_torch.graphs.sampler import neighbor_sampler
     from repro_torch.models.common import tree_map, value_and_grad
     from repro_torch.models.gnn.graphsage import init_sage, loss_blocks
+    from repro_torch.optim import adamw_init
 
     arch = get_arch("graphsage-reddit")
     dims = arch.shape("minibatch_lg").dims
@@ -5603,8 +5609,13 @@ def sage_full(torch) -> dict:
     torch.cuda.synchronize()
     feats_s = time.perf_counter() - t0
     offs, in_src = graph.pop("dst_offsets"), graph.pop("in_src")
-    state = {"params": init_sage(torch.Generator(device=DEV).manual_seed(0),
-                                 cfg, device=DEV)}
+    step_fn, opt_cfg = gnn_stepper("graphsage-reddit", loss_blocks, cfg)
+    params = init_sage(torch.Generator(device=DEV).manual_seed(0), cfg,
+                       device=DEV)
+    # step 1's parameters, kept for the check before the step updates
+    # them in place
+    host = tree_map(lambda t: t.cpu(), params)
+    state = {"params": params, "opt": adamw_init(params, opt_cfg)}
     key = prng.PRNGKey(0)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     torch.cuda.synchronize()
@@ -5620,21 +5631,23 @@ def sage_full(torch) -> dict:
         ev[1].record()
         batch = (table[seeds.long()], table[n1.long()], table[n2.long()],
                  labels[seeds.long()])
-        params = state["params"]
-        loss, grads, _ = gnn_step(loss_blocks, state, cfg, *batch)
+        state, metrics = step_fn(state, batch)
+        loss = metrics["loss"]
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         sample_ms.append(ev[0].elapsed_time(ev[1]))
         losses.append(float(loss))
         sentinels.append(int((n2 == REDDIT_N).sum()))
         if step == 0:
-            first = (params, batch, loss, grads)
+            first = (batch, loss)
     peak = torch.cuda.max_memory_allocated()
     check(all(math.isfinite(x) for x in losses),
           "gnn_full graphsage: a loss is not finite")
-    # step 1 on the host, from the same parameters and gathered rows
-    p0, batch, loss, grads = first
-    host = tree_map(lambda t: t.cpu(), p0)
+    # step 1's gradients from its parameters, on the card and on the host,
+    # from the same gathered rows
+    batch, loss = first
+    grads = value_and_grad(loss_blocks, tree_map(lambda t: t.to(DEV), host),
+                           cfg, *batch)[1]
     lh, gh = value_and_grad(loss_blocks, host, cfg,
                             *(x.cpu() for x in batch))
     loss_err = gnn_err(torch, loss, lh, "gnn_full graphsage loss")
@@ -5749,8 +5762,8 @@ def gnn_full_phase(torch) -> dict:
              torch.randint(0, n, (e,), generator=gen, device=DEV),
              torch.randn((n, F), generator=gen, device=DEV))
     params = ga.init_fn(gen, cfg, device=DEV)
-    res = gnn_train(torch, graphcast.loss_edges, params, cfg, batch,
-                    GRAPHCAST_STEPS, "graphcast", n_nodes=n)
+    res = gnn_train(torch, "graphcast", graphcast.loss_edges, params, cfg,
+                    batch, GRAPHCAST_STEPS, "graphcast", n_nodes=n)
     res.pop("params")
     out["graphcast"] = res
     emit("gnn_full", cell="graphcast full_graph_sm", n_nodes=n, n_edges=e,
@@ -5766,8 +5779,8 @@ def gnn_full_phase(torch) -> dict:
              torch.randint(0, n, (e,), generator=gen, device=DEV),
              torch.randn((n, cfg.n_out), generator=gen, device=DEV))
     params = qa.init_fn(gen, cfg, device=DEV)
-    res = gnn_train(torch, equiformer.loss_edges, params, cfg, batch,
-                    EQUIFORMER_STEPS, "equiformer", n_nodes=n)
+    res = gnn_train(torch, "equiformer-v2", equiformer.loss_edges, params,
+                    cfg, batch, EQUIFORMER_STEPS, "equiformer", n_nodes=n)
     res.pop("params")
     out["equiformer"] = res
     emit("gnn_full", cell="equiformer-v2 full_graph_sm", n_nodes=n,
@@ -5782,7 +5795,7 @@ def gnn_full_phase(torch) -> dict:
     N = nf.shape[0]
     target = pos + 0.1 * torch.randn(pos.shape, generator=gen, device=DEV)
     params = ea.init_fn(gen, cfg, device=DEV)
-    res = gnn_train(torch, egnn.loss_edges, params, cfg,
+    res = gnn_train(torch, "egnn", egnn.loss_edges, params, cfg,
                     (nf, pos, es, ed, target), EGNN_STEPS, "egnn",
                     n_nodes=N)
     params = res.pop("params")
@@ -5816,6 +5829,284 @@ def gnn_full_phase(torch) -> dict:
     return out
 
 
+#: the cells phase: each cell's cuts on one card, ``{field: run value}``,
+#: in the order they are made: a field of the shape's dims (the global
+#: batch), then ``n_layers`` of the arch's config, then ``graph``, a factor
+#: that divides a graph's nodes and edges alike; a cell not named runs at
+#: its published size.  A GNN cell keeps the config of its published shape
+#: (`cut_cell`): GraphCast at ogb_products keeps its bf16 latents and its
+#: one remat group of four layers, Equiformer its bf16 irreps and its
+#: edge-chunked scan (over 100,000 edges, kept by 640 seeds at
+#: minibatch_lg).  Equiformer's ``graph`` 256 is one chip's share of the
+#: 16x16 production mesh; at one layer GraphSAGE holds the whole graph.
+CELL_CUTS = {
+    ("grok-1-314b", "train_4k"): {"global_batch": 1, "n_layers": 1},
+    ("grok-1-314b", "prefill_32k"): {"global_batch": 1, "n_layers": 1},
+    ("grok-1-314b", "decode_32k"): {"n_layers": 1},
+    ("moonshot-v1-16b-a3b", "train_4k"): {"global_batch": 8, "n_layers": 2},
+    ("moonshot-v1-16b-a3b", "prefill_32k"): {"global_batch": 1,
+                                             "n_layers": 2},
+    ("moonshot-v1-16b-a3b", "decode_32k"): {"global_batch": 4,
+                                            "n_layers": 12},
+    ("qwen1.5-0.5b", "train_4k"): {"global_batch": 2},
+    ("qwen1.5-0.5b", "prefill_32k"): {"global_batch": 1},
+    ("qwen1.5-0.5b", "decode_32k"): {"global_batch": 8},
+    ("h2o-danube-3-4b", "train_4k"): {"global_batch": 1},
+    ("h2o-danube-3-4b", "prefill_32k"): {"global_batch": 1},
+    ("minicpm-2b", "train_4k"): {"global_batch": 1},
+    ("minicpm-2b", "prefill_32k"): {"global_batch": 1},
+    ("minicpm-2b", "decode_32k"): {"global_batch": 2},
+    ("equiformer-v2", "minibatch_lg"): {"batch_nodes": 640, "n_layers": 2},
+    ("equiformer-v2", "ogb_products"): {"n_layers": 1, "graph": 256},
+    ("graphcast", "ogb_products"): {"n_layers": 4, "graph": 128},
+    ("egnn", "ogb_products"): {"n_layers": 1, "graph": 4},
+    ("graphsage-reddit", "ogb_products"): {"n_layers": 1},
+    ("imm", "imm_sample_google_ic"): {"batch": 256},
+}
+#: the cells run again on a 2x2 mesh of the card, held to their 1x1 run
+CELLS_2X2 = (("fm", "serve_bulk"), ("imm", "imm_select_youtube_ic"),
+             ("graphcast", "full_graph_sm"))
+#: the kernels the cells' steps launch (the LM train and dense prefill
+#: attention, the sharded selection's counters, the sparse sampler's coins)
+CELL_KERNELS = ("coverage_matvec", "flash_attention", "ic_sparse_hits")
+
+
+def cut_cell(arch_id: str, shape_name: str, mesh):
+    """``(cell, reduced, config)``: the cell built on ``mesh`` with its
+    `CELL_CUTS`, ``{field: [published, run]}`` of each cut,
+    and a GNN's config fields that its size chooses.  A GNN cell's config
+    is chosen by its published shape (``config_shape``), so no cut
+    changes it; the phase fails if the cut graph leaves the published
+    cell's layout (the edge-chunked scan)."""
+    from repro_torch.configs import IMM_DRYRUN_CELLS, get_arch
+    from repro_torch.launch import steps
+
+    cuts = CELL_CUTS.get((arch_id, shape_name), {})
+    reduced = {}
+    if arch_id == "imm":
+        spec = dict(IMM_DRYRUN_CELLS[shape_name])
+        for k, v in cuts.items():
+            reduced[k] = [spec[k], v]
+            spec[k] = v
+        return steps.build_imm_cell(shape_name, spec, mesh), reduced, {}
+    arch = get_arch(arch_id)
+    shape = arch.shape(shape_name)
+    dims, cfg = dict(shape.dims), arch.config
+    for k, v in cuts.items():
+        if k == "n_layers":
+            reduced[k] = [cfg.n_layers, v]
+            cfg = dataclasses.replace(cfg, n_layers=v)
+        elif k == "graph":
+            for f in ("n_nodes", "n_edges"):
+                reduced[f] = [dims[f], -(-dims[f] // v)]
+                dims[f] = reduced[f][1]
+        else:
+            reduced[k] = [dims[k], v]
+            dims[k] = v
+    cut_arch = dataclasses.replace(arch, config=cfg)
+    cut_shape = dataclasses.replace(shape, dims=dims)
+    if arch.family != "gnn":
+        return steps.build_arch_cell(cut_arch, cut_shape, mesh), reduced, {}
+    cell = steps.build_arch_cell(cut_arch, cut_shape, mesh,
+                                 config_shape=shape)
+    whole = steps.build_arch_cell(arch, shape, mesh)
+    check(cell.note == whole.note, f"cells {arch_id}/{shape_name}: the cut "
+          f"cell is laid out as {cell.note!r}, the published as "
+          f"{whole.note!r}")
+    run_cfg = steps._gnn_cell_config(cut_arch, shape, mesh)
+    config = {k: getattr(run_cfg, k) for k in ("dtype", "remat_group",
+                                               "channel_axis")
+              if hasattr(run_cfg, k)}
+    return cell, reduced, config
+
+
+def finite(torch, t) -> bool:
+    return bool(torch.isfinite(t.float()).all())
+
+
+def cell_checks(torch, cell, outs) -> dict:
+    """The repo's own checks of a cell's outputs (every call's): finite
+    losses, a second train loss unlike the first; finite logits of the
+    cell's shapes, tokens in the vocab; distinct seeds (of the rounds that
+    gained) with non-increasing gains; sampled rows that hold their roots
+    and sum to the counter."""
+    tag = f"cells {cell.arch_id}/{cell.shape_name}"
+    spec = cell.output_specs
+    if cell.kind == "train":
+        losses = [float(m["loss"]) for _, m in outs]
+        norms = [float(m["grad_norm"]) for _, m in outs]
+        check(all(math.isfinite(x) for x in losses + norms),
+              f"{tag}: a loss or gradient norm is not finite: {losses}")
+        check(losses[1] != losses[0], f"{tag}: the second step's loss "
+              f"equals the first's ({losses[0]})")
+        return {"loss": losses, "grad_norm": norms}
+    if cell.kind == "prefill":
+        logits, cache = outs[-1]
+        check(tuple(logits.shape) == tuple(spec[0].shape)
+              and finite(torch, logits), f"{tag}: logits")
+        check(tuple(cache["k"].shape) == tuple(spec[1]["k"].shape),
+              f"{tag}: cache shape")
+        check(torch.equal(outs[0][0], logits), f"{tag}: two prefills of "
+              "one batch differ")
+        return {"logits_abs_max": float(logits.float().abs().max())}
+    if cell.kind == "decode":
+        toks = [t for t, _ in outs]
+        vocab = int(cell.input_specs[0]["embed"].shape[0])
+        check(all(tuple(t.shape) == tuple(spec[0].shape) for t in toks)
+              and all(int(t.min()) >= 0 and int(t.max()) < vocab
+                      for t in toks), f"{tag}: decoded tokens")
+        return {"tokens": [t[:4, 0].tolist() for t in toks]}
+    if cell.kind == "serve":
+        out = outs[-1]
+        check(tuple(out.shape) == tuple(spec.shape) and finite(torch, out),
+              f"{tag}: logits")
+        check(torch.equal(outs[0], out), f"{tag}: two calls differ")
+        return {"logits_abs_max": float(out.abs().max())}
+    if cell.kind == "select":
+        seeds, frac, gains = outs[-1]
+        g = gains.tolist()
+        picked = [v for v, gain in zip(seeds.tolist(), g) if gain > 0]
+        check(len(set(picked)) == len(picked)
+              and all(a >= b for a, b in zip(g, g[1:]))
+              and 0.0 < float(frac) <= 1.0, f"{tag}: seeds {seeds} gains {g}")
+        check(torch.equal(outs[0][0], seeds), f"{tag}: two calls differ")
+        return {"seeds": seeds[:8].tolist(), "gains": g[:8],
+                "covered_frac": float(frac)}
+    visited, counter, roots = outs[-1]
+    rows = torch.arange(roots.shape[0], device=roots.device)
+    check(tuple(visited.shape) == tuple(spec[0].shape)
+          and bool((visited[rows, roots.long()] == 1).all())
+          and torch.equal(visited.sum(0, dtype=torch.int32), counter),
+          f"{tag}: sampled rows")
+    return {"mean_row_size": float(counter.sum()) / roots.shape[0]}
+
+
+def cell_line(rec: dict) -> dict:
+    return {k: rec.get(k) for k in ("step_ms", "max_memory_allocated",
+                                "executed_flops", "model_flops",
+                                "collectives")}
+
+
+def cells_2x2(torch, arch_id, shape_name, cell, inputs, outs) -> dict:
+    """The cell on a 2x2 mesh of the card held to its 1x1 run: FM
+    serving bitwise, the IMM selection's seeds and gains bitwise; for
+    GraphCast a graph balanced over two dst blocks, laid out for each
+    mesh, both runs within GNN_TOL * (1 + |1x1|).  The 2x2 run's census
+    beside."""
+    from repro_torch.launch import dryrun
+    from repro_torch.mesh import Mesh
+
+    mesh2 = Mesh([[DEV] * 2] * 2, ("data", "model"))
+    cell2, _, _ = cut_cell(arch_id, shape_name, mesh2)
+    tag = f"cells 2x2 {arch_id}/{shape_name}"
+    if arch_id == "graphcast":
+        return graphcast_2x2(torch, cell, cell2, mesh2)
+    outs2, rec = dryrun.execute_cell(cell2, inputs, mesh2, steps=1,
+                                     device=DEV)
+    if arch_id == "fm":
+        check(torch.equal(outs2[-1], outs[-1]), f"{tag}: not bitwise 1x1")
+    else:
+        check(torch.equal(outs2[-1][0], outs[-1][0])
+              and torch.equal(outs2[-1][2], outs[-1][2]),
+              f"{tag}: seeds or gains differ from 1x1")
+    check(all(v["cross_bytes"] == 0 for v in rec["collectives"].values()),
+          f"{tag}: bytes crossed devices on one card")
+    return {"mesh": "2x2", "equal": "bitwise", **cell_line(rec)}
+
+
+def graphcast_2x2(torch, cell, cell2, mesh2) -> dict:
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models.gnn.graphcast import partition_edges
+    from repro_torch.models.common import tree_map
+
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    (state, batch) = cell.make_inputs(gen, DEV)
+    nf, ef, _, _, tg = batch
+    n, e = nf.shape[0], ef.shape[0]
+    src, dst = steps.graphcast_edges(gen, n, e, 2)
+    runs = []
+    for c, (n_dp, n_tp), mesh in ((cell, (1, 1), None),
+                                  (cell2, (2, 2), mesh2)):
+        pef, pes, ped = partition_edges(src, dst, ef, n, n_dp, n_tp)
+        st = tree_map(lambda t: t.clone(), state)
+        outs, rec = dryrun.execute_cell(
+            c, (st, (nf, pef, pes.to(torch.int32), ped.to(torch.int32),
+                     tg)), mesh, steps=1, device=DEV)
+        runs.append((outs, rec, st))
+    (o1, _, s1), (o2, rec, s2) = runs
+    errs = {"loss": max(gnn_err(torch, b[1]["loss"], a[1]["loss"], "loss")
+                        for a, b in zip(o1, o2)),
+            "grad_norm": max(gnn_err(torch, b[1]["grad_norm"],
+                                     a[1]["grad_norm"], "norm")
+                             for a, b in zip(o1, o2)),
+            "params": gnn_tree_err(torch, s2["params"], s1["params"],
+                                   "cells graphcast 2x2")["worst_err"]}
+    check(max(errs.values()) <= GNN_TOL, f"cells 2x2 graphcast: {errs}")
+    return {"mesh": "2x2", "max_err": errs, **cell_line(rec)}
+
+
+def cells_phase(torch, assigned: list) -> dict:
+    """Every cell of the launchers: (a) all 39 (``assigned``, the arch x
+    shape cells of the configs as imported, before lm_train registers
+    qwen-100m, and the IMM cells) dry-run on the 16x16 and 2x16x16 meshes
+    of the meta device, nothing allocated on the card; (b) one step of
+    each (two for train) on a 1x1 mesh of the card, cut as `CELL_CUTS`
+    says; (c) `CELLS_2X2` on a 2x2 mesh of the card.  Returns the
+    kernels' launches."""
+    from repro_torch.configs import IMM_DRYRUN_CELLS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.mesh import Mesh
+
+    t0 = time.perf_counter()
+    todo = list(assigned) + [("imm", n) for n in IMM_DRYRUN_CELLS]
+    check(len(todo) == 39, f"cells: {len(todo)} cells, not 39")
+    held = torch.cuda.memory_allocated()
+    dry = {}
+    for arch_id, shape_name in todo:
+        recs = [dryrun.run_cell(arch_id, shape_name, mp)
+                for mp in (False, True)]
+        check(all(r["ok"] for r in recs), f"cells: {arch_id}/{shape_name} "
+              "did not dry-run")
+        dry[f"{arch_id}/{shape_name}"] = {
+            "bytes_per_device": [r["bytes_per_device"] for r in recs],
+            "fits_hbm": [r["fits_hbm"] for r in recs],
+            "model_flops": recs[0]["model_flops"]}
+    check(torch.cuda.memory_allocated() == held,
+          "cells: the dry run allocated on the card")
+    emit("cells", part="dry_run", meshes=["16x16", "2x16x16"],
+         seconds=time.perf_counter() - t0, cells=dry)
+
+    mesh = Mesh([[DEV]], ("data", "model"))
+    ops.reset_launches()
+    for i, (arch_id, shape_name) in enumerate(todo):
+        t1 = time.perf_counter()
+        cell, reduced, config = cut_cell(arch_id, shape_name, mesh)
+        inputs = cell.make_inputs(
+            torch.Generator(device=DEV).manual_seed(i), DEV)
+        outs, rec = dryrun.execute_cell(cell, inputs, mesh, steps=1,
+                                        device=DEV)
+        line = dict(cell=f"{arch_id}/{shape_name}", kind=cell.kind,
+                    note=cell.note, reduced=reduced, **cell_line(rec),
+                    **({"config": config} if config else {}),
+                    published_model_flops=dry[f"{arch_id}/{shape_name}"][
+                        "model_flops"], **cell_checks(torch, cell, outs))
+        if (arch_id, shape_name) in CELLS_2X2:
+            line["on_2x2"] = cells_2x2(torch, arch_id, shape_name, cell,
+                                       inputs, outs)
+        del cell, inputs, outs
+        torch.cuda.empty_cache()
+        emit("cells", **line, seconds=time.perf_counter() - t1)
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    for k in CELL_KERNELS:
+        check(launches.get(k, 0) > 0, f"cells: {k} launched no time")
+    total = time.perf_counter() - t0
+    emit("cells", part="summary", cells=len(todo), seconds=total,
+         launches=launches,
+         nvidia_smi=nvidia_smi())
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--max-theta", type=int, default=THETA,
@@ -5827,15 +6118,15 @@ def main(argv=None) -> int:
                             "stream_full,mesh_stream_full,tier_full,"
                             "mesh_tier_full,pallas_full,lm_parity,"
                             "lm_full,lm_train,fm_parity,fm_full,fm_profile,"
-                            "gnn_parity,gnn_full",
+                            "gnn_parity,gnn_full,cells",
                     help="comma list of kernels, parity, imm_full, "
                          "packed_full, compressed_full, mesh_full, "
                          "indices_full, lt_full, stream_full, "
                          "mesh_stream_full, tier_full, mesh_tier_full, "
                          "pallas_full, lm_parity, "
                          "lm_full, lm_train, fm_parity, fm_full, "
-                         "fm_profile, gnn_parity, gnn_full and the "
-                         "optional profile")
+                         "fm_profile, gnn_parity, gnn_full, cells and "
+                         "the optional profile")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if "mesh_stream_full" in phases:
@@ -5868,6 +6159,7 @@ def run_phases(torch, phases: set, max_theta: int) -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
         load_peaks()
+        from repro_torch.configs import all_cells
         from repro_torch.core.sampler import make_logq
         from repro_torch.graphs.datasets import scaled_snap, synthetic_snap
         from repro_torch.kernels import build
@@ -5877,6 +6169,7 @@ def run_phases(torch, phases: set, max_theta: int) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    assigned = all_cells()
 
     smi = nvidia_smi()
     build_s = build.build_all()
@@ -5969,6 +6262,9 @@ def run_phases(torch, phases: set, max_theta: int) -> int:
     if "gnn_full" in phases:
         gnn_full_phase(torch)
         ended("gnn_full")
+    if "cells" in phases:
+        launches["cells"] = cells_phase(torch, assigned)
+        ended("cells")
     two_card_phase(torch)
     ended("two_cards")
     # each kernel's launches on the full run that is its path

@@ -8,9 +8,12 @@ recsys model (``fm``), served and trained::
 
     from repro_torch.configs import get_arch
     cfg = get_arch("qwen1.5-0.5b").config
+
+``all_cells`` lists every (arch, shape) cell and ``IMM_DRYRUN_CELLS`` the
+three IMM production cells, which ``repro_torch.launch.steps`` builds.
 """
 from repro_torch.configs.base import (
-    ArchDef, ShapeDef, all_archs, get_arch, register,
+    ArchDef, ShapeDef, all_archs, all_cells, get_arch, register,
 )
 
 # importing the modules registers the archs
@@ -27,4 +30,7 @@ from repro_torch.configs import (          # noqa: F401
     qwen1_5_0_5b,
 )
 
-__all__ = ["ArchDef", "ShapeDef", "all_archs", "get_arch", "register"]
+from repro_torch.configs.imm_snap import IMM_DRYRUN_CELLS, IMM_EXPERIMENTS
+
+__all__ = ["ArchDef", "ShapeDef", "all_archs", "all_cells", "get_arch",
+           "register", "IMM_EXPERIMENTS", "IMM_DRYRUN_CELLS"]

@@ -56,3 +56,15 @@ def get_arch(arch_id: str) -> ArchDef:
 
 def all_archs() -> dict[str, ArchDef]:
     return dict(_REGISTRY)
+
+
+def all_cells(include_skipped: bool = False):
+    """[(arch_id, shape_name)] for every assigned cell, in the reference's
+    order: archs sorted by id, each arch's shapes in its table's order."""
+    cells = []
+    for aid, arch in sorted(_REGISTRY.items()):
+        for sname, sdef in arch.shapes.items():
+            if sdef.skip and not include_skipped:
+                continue
+            cells.append((aid, sname))
+    return cells

@@ -214,17 +214,22 @@ def _tiled(R, valid, n, mesh, theta_axes, vertex_axis, partition, codec):
     """``(tiles, valid, partition, codec)`` of a strategy's arena: a
     `ShardedStore` view's own tiles, or — for a single-device store on a
     mesh, whose arena the reference scatters on entry — its valid rows
-    (decoded) written into a `ShardedStore` on ``mesh``."""
+    (decoded) written into a `ShardedStore` on ``mesh``, in blocks of
+    rows of about 1 GiB, so no second copy of the whole arena is made on
+    the way."""
     if isinstance(R, tuple):
         return R, valid, partition, codec
     from repro_torch.core.store import ShardedStore
-    rows = R[valid]
-    if codec is not None and codec.kind != "bitmap":
-        rows = codec.decode(rows)
     store = ShardedStore(n, mesh=mesh, theta_axes=theta_axes,
-                         vertex_axis=vertex_axis, capacity=rows.shape[0],
-                         partition=partition)
-    store.add_batch(rows)
+                         vertex_axis=vertex_axis,
+                         capacity=int(valid.sum()), partition=partition)
+    step = max(1, (1 << 30) // max(R.stride(0), 1) // store.D) * store.D
+    for lo in range(0, R.shape[0], step):
+        rows = R[lo:lo + step][valid[lo:lo + step]]
+        if codec is not None and codec.kind != "bitmap":
+            rows = codec.decode(rows)
+        if rows.shape[0]:
+            store.add_batch(rows)
     tiled = store.view()
     return tiled.R, tiled.valid, store.partition, store.codec
 

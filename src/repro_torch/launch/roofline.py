@@ -16,7 +16,8 @@ tensor cores (an FMA counts two operations) that bounds the port's f32
 and integer kernels.  ``chip_smoke.py`` reads its bounds from that row.
 
 The reference's HLO collective parser (``parse_collectives``) reads XLA
-text and has no counterpart here (ROADMAP A9d).
+text; PyTorch eager lowers nothing, so the port counts its collectives as
+they run instead (`repro_torch.launch.dryrun.collective_census`).
 """
 from __future__ import annotations
 

@@ -23,6 +23,16 @@ groups of tiles that share every coordinate but the named axes
 Every collective is made of ``.to``, ``+``, ``cat`` and ``stack``, so
 autograd runs through it: a gradient comes back to each tile's device.
 
+Every collective adds to three obs counters keyed by its ``kind``
+(``psum``, ``psum_or``, ``all_gather``, ``all_gather_cols``,
+``all_to_all``): ``mesh.collective.calls``, ``mesh.collective.bytes``
+(the bytes of the tiles it was given) and ``mesh.collective.cross_bytes``
+(the bytes it moved between two distinct devices: 0 on a grid that
+repeats one device).  The counters are host-side, read only shapes and
+devices, and take no sync; with obs off each is one flag check.  They
+are the port's counterpart of the collective census the reference reads
+from XLA's optimized HLO (``repro.launch.hlo_analysis``).
+
 A device may repeat in the grid — the counterpart of XLA's
 ``--xla_force_host_platform_device_count``: a 2x2 mesh of ``cpu`` runs
 the full tiled code path in one process, and so does a 2x2 mesh of one
@@ -32,6 +42,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch import obs
 
 
 class Mesh:
@@ -112,9 +124,31 @@ def _indexed(dev: torch.device) -> torch.device:
 
 # ------------------------------------------------------------ collectives --
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _census(kind: str, nbytes: int, cross: int) -> None:
+    """One call of collective ``kind`` over ``nbytes`` of tiles, ``cross``
+    of them moved between distinct devices (obs counters; no sync)."""
+    if obs.enabled():
+        obs.counter("mesh.collective.calls", kind=kind).add(1)
+        obs.counter("mesh.collective.bytes", kind=kind).add(nbytes)
+        obs.counter("mesh.collective.cross_bytes", kind=kind).add(cross)
+
+
+def _gather_census(kind: str, parts, device) -> None:
+    """`_census` of ``parts`` all brought to ``device``."""
+    if obs.enabled():
+        dev = _indexed(torch.device(device))
+        _census(kind, sum(_nbytes(p) for p in parts),
+                sum(_nbytes(p) for p in parts if p.device != dev))
+
+
 def psum(parts, device) -> torch.Tensor:
     """Sum of the per-tile tensors ``parts`` on ``device``, added in
     tile order."""
+    _gather_census("psum", parts, device)
     out = parts[0].to(device, non_blocking=True)
     for p in parts[1:]:
         out = out + p.to(device, non_blocking=True)
@@ -123,6 +157,7 @@ def psum(parts, device) -> torch.Tensor:
 
 def psum_or(parts, device) -> torch.Tensor:
     """Logical or of the per-tile bool tensors ``parts`` on ``device``."""
+    _gather_census("psum_or", parts, device)
     out = parts[0].to(device, non_blocking=True)
     for p in parts[1:]:
         out = out | p.to(device, non_blocking=True)
@@ -132,6 +167,7 @@ def psum_or(parts, device) -> torch.Tensor:
 def all_gather(parts, device) -> torch.Tensor:
     """The per-tile tensors ``parts`` stacked in tile order on
     ``device``."""
+    _gather_census("all_gather", parts, device)
     return torch.stack([p.to(device, non_blocking=True) for p in parts])
 
 
@@ -139,6 +175,7 @@ def all_gather_cols(parts, device, out) -> torch.Tensor:
     """The per-tile column blocks ``parts`` (each ``(K, w_v)``) gathered
     in tile order into ``out (K, sum w_v)`` on ``device``: the frontier
     exchange of a column-blocked BFS."""
+    _gather_census("all_gather_cols", parts, out.device)
     lo = 0
     for p in parts:
         w = p.shape[1]
@@ -194,7 +231,13 @@ def psum_over(mesh: Mesh, parts: np.ndarray, axes) -> np.ndarray:
     in tile order, on the tile's device."""
     out = np.empty(parts.shape, dtype=object)
     for group in axis_groups(mesh, axes):
-        total = psum([parts[c] for c in group], mesh.devices[group[0]])
+        home = mesh.devices[group[0]]
+        total = psum([parts[c] for c in group], home)
+        if obs.enabled():
+            # the sum's copies back to the group's other devices
+            obs.counter("mesh.collective.cross_bytes", kind="psum").add(
+                _nbytes(total) * sum(mesh.devices[c] != home
+                                     for c in group))
         for c in group:
             out[c] = total.to(mesh.devices[c], non_blocking=True)
     return out
@@ -209,6 +252,7 @@ def all_gather_over(mesh: Mesh, parts: np.ndarray, axes,
     for group in axis_groups(mesh, axes):
         for c in group:
             dev = mesh.devices[c]
+            _gather_census("all_gather", [parts[g] for g in group], dev)
             out[c] = torch.cat([parts[g].to(dev, non_blocking=True)
                                 for g in group], dim=dim)
     return out
@@ -227,6 +271,12 @@ def all_to_all(parts, split_axis: int, concat_axis: int,
         raise ValueError(f"all_to_all: axis {split_axis} of size {size} "
                          f"does not split into {n} tiles")
     chunks = [p.chunk(n, dim=split_axis) for p in parts]
+    if obs.enabled():
+        _census("all_to_all", sum(_nbytes(p) for p in parts),
+                sum(_nbytes(chunks[i][j]) for i in range(n)
+                    for j in range(n)
+                    if chunks[i][j].device
+                    != _indexed(torch.device(devices[j]))))
     return [torch.cat([chunks[i][j].to(devices[j], non_blocking=True)
                        for i in range(n)], dim=concat_axis)
             for j in range(n)]

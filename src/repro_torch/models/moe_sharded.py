@@ -125,8 +125,10 @@ def moe_ffn_sharded(p: dict, x: torch.Tensor, cfg):
         def partial(c, dev):
             lo, hi = c[tp_at] * f, (c[tp_at] + 1) * f
             wgu = p["w_gate_up"]
-            gate_up = torch.cat([wgu[..., lo:hi],
-                                 wgu[..., cfg.d_ff + lo:cfg.d_ff + hi]], -1)
+            # one model tile holds the whole ff axis: its block is the
+            # weight itself, so no copy of it is made
+            gate_up = wgu if n_tp == 1 else torch.cat(
+                [wgu[..., lo:hi], wgu[..., cfg.d_ff + lo:cfg.d_ff + hi]], -1)
             return moe.experts(xe[c], gate_up.to(dev),
                                p["w_down"][:, lo:hi].to(dev))
 

@@ -57,17 +57,24 @@ class NamedSharding:
             out.append(axes)
         return out
 
-    def tile_slices(self, shape) -> Callable:
-        """``coords -> tuple of slices``: the block of a leaf of
-        ``shape`` that tile ``coords`` holds."""
-        axes = self._axes(len(shape))
-        blocks = []
-        for dim, (n, ax) in enumerate(zip(shape, axes)):
+    def shard_shape(self, shape) -> tuple:
+        """The block of a leaf of ``shape`` that one tile holds (every
+        split dim must divide, as ``NamedSharding.shard_shape``
+        requires)."""
+        out = []
+        for dim, (n, ax) in enumerate(zip(shape, self._axes(len(shape)))):
             parts = math.prod(self.mesh.shape[a] for a in ax)
             if n % parts:
                 raise ValueError(f"dim {dim} of size {n} does not split "
                                  f"into {parts} blocks (spec {self.spec})")
-            blocks.append(n // parts)
+            out.append(n // parts)
+        return tuple(out)
+
+    def tile_slices(self, shape) -> Callable:
+        """``coords -> tuple of slices``: the block of a leaf of
+        ``shape`` that tile ``coords`` holds."""
+        axes = self._axes(len(shape))
+        blocks = self.shard_shape(shape)
 
         def slices(coords):
             out = []

@@ -14,6 +14,7 @@ Two variants:
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch import mesh as M
@@ -82,13 +83,18 @@ def sharded_embedding_lookup(local_tables, global_indices: torch.Tensor, *,
 
     ``local_tables``: an object ndarray of the mesh's shape, tile ``c``'s
     ``(shard_rows, dim)`` block of contiguous rows (`row_shards`).
-    ``global_indices``: any int shape of *global* row ids.  Returns, as an
-    object ndarray of the mesh's shape, every tile's
-    ``(*global_indices.shape, dim)`` gathered rows, summed over
-    ``axis_name`` in tile order (an id no tile owns gives zeros)."""
+    ``global_indices``: any int shape of *global* row ids, or an object
+    ndarray of the mesh's shape holding each tile's own ids (the block a
+    ``shard_map`` hands each tile; the tiles of a group along
+    ``axis_name`` hold ids of one shape).  Returns, as an object ndarray
+    of the mesh's shape, every tile's ``(*ids.shape, dim)`` gathered rows,
+    summed over ``axis_name`` in tile order (an id no tile owns gives
+    zeros)."""
     def tile(c, dev):
         lo = M.axis_index(mesh, c, axis_name) * shard_rows
-        local_ids = global_indices.to(device=dev, dtype=torch.int64) - lo
+        ids = (global_indices[c] if isinstance(global_indices, np.ndarray)
+               else global_indices)
+        local_ids = ids.to(device=dev, dtype=torch.int64) - lo
         hit = (local_ids >= 0) & (local_ids < shard_rows)
         safe = torch.clamp(local_ids, 0, shard_rows - 1)
         rows = local_tables[c].index_select(0, safe.reshape(-1)).view(

@@ -61,7 +61,8 @@ def test_no_module_imports_jax_or_repro():
                  "sparse.embedding_bag", "graphs.sampler",
                  "data.graph_feats", "configs._gnn_common", "configs.egnn",
                  "configs.equiformer_v2", "configs.graphcast",
-                 "configs.graphsage_reddit"):
+                 "configs.graphsage_reddit", "launch.steps",
+                 "launch.shardings", "launch.mesh", "launch.dryrun"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["leaked"] == []
 
@@ -147,6 +148,22 @@ def test_entry_points_default_to_cuda():
     assert IMServe(mesh_kwargs={"mesh": mesh, "vertex_axis": "vertex"},
                    device="cpu").device.type == "cpu"
     assert resolve_device("cpu").type == "cpu"
+    # the launchers (A9d): a cell, its step and a local mesh run on the
+    # card unless told otherwise; the dry run's meta mesh touches none
+    from repro_torch.launch.dryrun import execute_cell
+    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+    from repro_torch.launch.steps import build_cell
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_local_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_production_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_cell("fm", "serve_p99")
+    cell = build_cell("fm", "serve_p99", device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        execute_cell(cell, ())
+    assert make_local_mesh(device="cpu").size == 1
+    assert make_production_mesh(device="meta").size == 256
 
 
 def test_chip_smoke_refuses_without_a_gpu(tmp_path):

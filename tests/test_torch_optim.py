@@ -113,6 +113,35 @@ def test_adamw_leaves_its_arguments_alone():
     assert int(new_state["step"]) == 1
 
 
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_adamw_update_in_place_equals_clip_then_update(moment_dtype,
+                                                        monkeypatch):
+    """`adamw_update_` (slices of 7 elements here) gives
+    `clip_by_global_norm` + `adamw_update`'s bits, two steps running."""
+    from repro_torch.optim import adamw, adamw_update_, global_norm_scale
+    monkeypatch.setattr(adamw, "_SLICE", 7)
+    g = torch.Generator().manual_seed(3)
+    params = {"a": torch.randn(50, generator=g).to(torch.bfloat16),
+              "b": [torch.randn(4, 6, generator=g)]}
+    grads = {"a": torch.randn(50, generator=g).to(torch.bfloat16) * 4,
+             "b": [torch.randn(4, 6, generator=g) * 4]}
+    cfg = AdamWConfig(moment_dtype=moment_dtype)
+    want_p, want_s = params, adamw_init(params, cfg)
+    got_p = {"a": params["a"].clone(), "b": [params["b"][0].clone()]}
+    got_s = adamw_init(got_p, cfg)
+    for _ in range(2):
+        clipped, _ = clip_by_global_norm(grads, 1.0)
+        want_p, want_s = adamw_update(want_p, clipped, want_s, cfg)
+        scale, _ = global_norm_scale(grads, 1.0)
+        adamw_update_(got_p, grads, got_s, cfg, scale)
+    for got, want in ((got_p["a"], want_p["a"]),
+                      (got_p["b"][0], want_p["b"][0]),
+                      (got_s["mu"]["a"], want_s["mu"]["a"]),
+                      (got_s["nu"]["b"][0], want_s["nu"]["b"][0])):
+        assert torch.equal(got, want)
+    assert int(got_s["step"]) == int(want_s["step"]) == 2
+
+
 @pytest.mark.parametrize("scale", [0.1, 10.0])
 def test_clip_by_global_norm_matches_jax(scale):
     g = {k: v * np.float32(scale) if isinstance(v, np.ndarray) else v
