@@ -130,10 +130,11 @@ Phases, one JSON line each:
             prompt and a decode token out of the vocabulary give NaN rows
             in the same places on both devices; for the five smoke
             configs lm_loss and every gradient leaf on cuda (attention's
-            gradient through FlashAttention, remat on: two launches a
-            layer) against the cpu's; the meshed MoE (ep and tpe) on 1x2
-            and 2x2 meshes of the card against the single-device MoE FFN
-            at a capacity where nothing drops
+            gradient through FlashAttention, remat on: two forward
+            launches a layer and one of the SIMT backward) against the
+            cpu's; the meshed MoE (ep and tpe) on 1x2 and 2x2 meshes of
+            the card against the single-device MoE FFN at a capacity
+            where nothing drops
   lm_full   LMServer on the full-width Qwen1.5-0.5B config (24 layers,
             d 1,024, vocab 151,936, bf16, random weights from a seeded
             generator on the card): 4 requests of 512 prompt tokens, 32
@@ -148,9 +149,11 @@ Phases, one JSON line each:
             retries are used up, then restored from step 3's checkpoint
             and replayed: B's final params, moments and step bitwise A's;
             flash_attention launches held to 24 forward + 24 recompute a
-            step call, the loss falling, step ms, bytes on disk, save and
-            load seconds, the time to recover, peak memory, the disk's
-            free space; index_add_ against the sorted embedding gradient
+            step call and flash_attention_bwd's to 24 (all on the
+            tensor-core kernels), the loss falling, step ms, bytes on
+            disk, save and load seconds, the time to recover, peak
+            memory, the disk's free space; index_add_ against the sorted
+            embedding gradient
             on the Zipf batch (equal runs of 5); one more step under the
             profiler (its device time and the share under the attention
             backward); run A's last checkpoint resharded onto a 2x2 mesh
@@ -163,8 +166,12 @@ Phases, one JSON line each:
             layer's attention at the training shape (4 x 16 x 4,096 x
             64) through FlashAttention, its output held to the plain
             version and its dq, dk, dv to the plain version's autograd,
-            on f32 copies, the plain backward's ms beside the kernel's
-            forward and SDPA's forward + backward (a yardstick); then
+            on f32 copies, two backward calls bitwise equal, the
+            backward kernels' ms beside the plain backward's, the
+            kernel's forward and SDPA's forward + backward and backward
+            alone (a yardstick), with the bound at 10 D and 24 D flops a
+            pair; the backward at grok's and Danube's head shapes and,
+            in f32, at qwen-100m's, against the plain backward; then
             moonshot-v1-16b-a3b at full width cut to 2 layers (64
             experts top-6, capacity 960) takes two steps in a loop that
             writes no checkpoint, on 2 x 4,096 (each step's dropped
@@ -239,8 +246,8 @@ Phases, one JSON line each:
             collective census, the outputs checked; fm serve_bulk,
             imm_select_youtube_ic (bitwise) and graphcast full_graph_sm
             (within 1e-4 * (1 + |1x1|)) again on a 2x2 mesh of the card,
-            held to their 1x1 run; coverage_matvec, flash_attention and
-            ic_sparse_hits must launch
+            held to their 1x1 run; coverage_matvec, flash_attention,
+            flash_attention_bwd and ic_sparse_hits must launch
 
 The kernels phase holds arena_commit (both kinds, with the batch's row
 sums written into a stale sizes slice) bitwise on all-ones and all-zero
@@ -290,9 +297,10 @@ Then the kernel table (each kernel's launches counted on the one full
 run that is its path: the bitmap kernels and the coins on imm_full, the
 packed commit and packed_count on packed_full, token_count on
 compressed_full, ic_frontier_step on pallas_full, flash_attention on
-lm_full, both FM kernels on fm_full; beside them its launches on every
-full run, the meshed phases' and the cells' included), the card's name and
-power limit, and ``{"ok": true, "device": {...}}`` last.
+lm_full, flash_attention_bwd on lm_train, both FM kernels on fm_full;
+beside them its launches on every full run, the meshed phases' and the
+cells' included), the card's name and power limit, and ``{"ok": true,
+"device": {...}}`` last.
 Any failure exits non-zero without the ok line; so does a machine with
 no CUDA device, or a directory without the repo's src/repro_torch.
 Each phase's end goes to stderr with the seconds since the start.  A
@@ -1954,7 +1962,8 @@ KERNEL_PATH = {
        for name in names},
     "ic_sparse_hits": "imm_full",
     "ic_frontier_step": "pallas_full", "uniform_draw": "pallas_full",
-    "flash_attention": "lm_full", "fm_interaction": "fm_full",
+    "flash_attention": "lm_full", "flash_attention_bwd": "lm_train",
+    "fm_interaction": "fm_full",
     "fm_gather_interaction": "fm_full",
 }
 
@@ -3851,7 +3860,7 @@ def lm_grad_parity(torch) -> dict:
     remat on) on cuda against the same on cpu, from the same weights and
     tokens; on cuda attention runs through FlashAttention, whose forward
     launches twice a layer (the forward and the checkpoint's
-    recompute)."""
+    recompute) and whose backward, the SIMT kernel in f32, once."""
     from repro_torch import prng
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
@@ -3870,13 +3879,16 @@ def lm_grad_parity(torch) -> dict:
             ops.reset_launches()
             loss, grads = lm_value_and_grad(p, cfg, toks[:, :-1].to(dev),
                                             toks[:, 1:].to(dev))
+            counts = ops.launch_counts()
             res[dev] = (float(loss), {"/".join(k): g.float().cpu()
                                       for k, g in tree_leaves(grads)},
-                        ops.launch_counts().get("flash_attention", 0))
+                        (counts.get("flash_attention", 0),
+                         counts.get("flash_attention_bwd:simt", 0)))
         (lc, gc, nc), (lh, gh, nh) = res[DEV], res["cpu"]
-        check(nc == 2 * cfg.n_layers and nh == 0,
-              f"lm_grad {arch}: flash_attention launched {nc} (cuda) / {nh}"
-              f" (cpu) times, want {2 * cfg.n_layers} / 0")
+        check(nc == (2 * cfg.n_layers, cfg.n_layers) and nh == (0, 0),
+              f"lm_grad {arch}: flash_attention and flash_attention_bwd:"
+              f"simt launched {nc} (cuda) / {nh} (cpu) times, want "
+              f"{(2 * cfg.n_layers, cfg.n_layers)} / (0, 0)")
         check(abs(lc - lh) <= GRAD_TOL * (1 + abs(lh)),
               f"lm_grad {arch}: loss {lc} (cuda) against {lh} (cpu)")
         worst = {}
@@ -3892,7 +3904,8 @@ def lm_grad_parity(torch) -> dict:
         out[arch] = dict(loss_cuda=lc, loss_cpu=lh, leaves=len(worst),
                          worst_leaf=name, worst_err=worst[name],
                          qkv_err=max(worst[f"layers/w{c}"] for c in "qkv"),
-                         flash_attention_launches=nc)
+                         flash_attention_launches=nc[0],
+                         flash_attention_bwd_launches=nc[1])
     return out
 
 
@@ -4189,7 +4202,8 @@ Q100M_STEPS, Q100M_B, Q100M_S, Q100M_SAVE = 200, 8, 256, 50
 def instrument(torch, loop, record: dict) -> None:
     """Wrap a `TrainLoop`'s step, batch source and checkpoint manager so
     that ``record`` gets, for each call of the step, its flash_attention
-    launches (all and tensor-core) and the MoE choices routed and dropped
+    launches (all and tensor-core), its flash_attention_bwd launches and
+    the MoE choices routed and dropped
     (`moe.route`'s obs counters; 0 while obs is off); the host clock at
     each batch call; each checkpoint's step, seconds (from a device sync)
     and bytes on disk, and each restore's seconds."""
@@ -4212,6 +4226,8 @@ def instrument(torch, loop, record: dict) -> None:
             - before.get("flash_attention", 0),
             tc=after.get("flash_attention:tc", 0)
             - before.get("flash_attention:tc", 0),
+            bwd=after.get("flash_attention_bwd", 0)
+            - before.get("flash_attention_bwd", 0),
             routed=[a - b for a, b in zip(routed(), moe0)]))
         return out
 
@@ -4272,6 +4288,7 @@ def loop_steps(loop, record) -> dict:
                 retried=[r.retried for r in loop.history],
                 restored=[r.restored for r in loop.history],
                 launches_per_call=[c["launches"] for c in record["calls"]],
+                bwd_launches_per_call=[c["bwd"] for c in record["calls"]],
                 saves=record["saves"],
                 loads=[x for x in record["loads"] if x["step"]])
 
@@ -4503,13 +4520,111 @@ def qwen_100m(torch, root: str) -> dict:
                     os.path.join(d, files[-1])))
 
 
+#: the backward's shapes, (name, B, Hq, Hkv, S, D, window, dtype): one
+#: Qwen1.5-0.5B layer at the training shape (QWEN_B x 16 heads x TRAIN_S
+#: x 64), which attention_grad_check runs; then grok-1's heads (48:8, D
+#: 128) and h2o-danube-3's (32:8, D 120, its window of 4,096 inside S) at
+#: a small B, and qwen-100m's training shape in f32 (examples/train_lm.py:
+#: 8 x 256, 8 heads of 64), which attention_bwd_shapes runs
+ATTN_BWD_TRAIN = ("qwen", QWEN_B, 16, 16, TRAIN_S, 64, 0, "bfloat16")
+ATTN_BWD_SHAPES = (("grok", 1, 48, 8, 2048, 128, 0, "bfloat16"),
+                   ("danube", 1, 32, 8, 6144, 120, 4096, "bfloat16"),
+                   ("qwen-100m", 8, 8, 8, 256, 64, 0, "float32"))
+
+
+def attention_bwd_bound(B, Hq, Hkv, S, D, window, f32: bool = False):
+    """(bound ms at the gradient's 10 D flops a pair, bound_by, the same
+    at the design's flops, bytes): q, k, v, dO and lse read once, dq, dk,
+    dv written once (the delta the dQ pass hands the dK/dV pass is
+    scratch, not counted); bf16 at the tensor-core rate and 24 D (the
+    tensor-core design), f32 at the f32 rate outside the tensor cores and
+    18 D (the SIMT design)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    pairs = B * Hq * fa.admitted_pairs(S, S, window=window)
+    nbytes = (4 if f32 else 2) * D * (3 * B * Hq * S + 4 * B * Hkv * S) \
+        + 4 * B * Hq * S
+    rate = ALU_OPS_PER_S if f32 else BF16_FLOPS_PER_S
+    b_ms, by = bound(nbytes, 10 * D * pairs, rate)
+    design_ms, _ = bound(nbytes, (18 if f32 else 24) * D * pairs, rate)
+    return b_ms, by, design_ms, nbytes
+
+
+def attention_bwd_yardsticks(torch, q, k, v, dout, window: int):
+    """``(plain ms, library ms)`` of one causal attention backward on
+    these inputs: flash_attention_backward_plain, and SDPA's backward
+    alone (a yardstick, never called by the port: GQA without a repeat,
+    a window as a boolean mask, f32 in f32)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    plain_ms = time_cuda(torch, lambda: fa.flash_attention_backward_plain(
+        q, k, v, dout, window=window), warmup=1, iters=3)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    o = sdpa(torch, qg, kg, vg, window)()
+    library_ms = time_cuda(torch, lambda: torch.autograd.grad(
+        o, (qg, kg, vg), dout, retain_graph=True), warmup=1, iters=5)
+    return plain_ms, library_ms
+
+
+def attention_bwd_shapes(torch) -> dict:
+    """dq, dk, dv of the backward kernels at ATTN_BWD_SHAPES against the
+    plain backward on f32 copies (ATTN_TOL), one backward launch each,
+    and the ms there of the kernels and of attention_bwd_yardsticks."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    out = {}
+    for name, B, Hq, Hkv, S, D, window, dtype_name in ATTN_BWD_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        q, k, v = attention_inputs(torch, gen, B, Hq, Hkv, S, S, D, dtype)
+        dout = torch.randn(q.shape, generator=gen, device=DEV).to(dtype)
+        ops.reset_launches()
+        _, lse = fa.forward_cuda(q, k, v, window=window, with_lse=True)
+        got = fa.flash_attention_backward_cuda(q, k, v, lse, dout,
+                                               window=window)
+        launches = ops.launch_counts()
+        check(launches.get("flash_attention_bwd", 0) == 1
+              and launches.get(f"flash_attention_bwd:{fa.design(q, k, v)}",
+                               0) == 1,
+              f"flash_attention_bwd {name}: launches {launches}")
+        want = fa.flash_attention_backward_plain(
+            q.float(), k.float(), v.float(), dout.float(), window=window)
+        errs = {}
+        for g_name, g, w in zip(("dq", "dk", "dv"), got, want):
+            check(g.dtype == dtype, f"flash_attention_bwd {name}: {g_name} "
+                  f"{g.dtype}")
+            errs[g_name] = attention_err(torch, g, w, dtype_name,
+                                         f"backward {name} {g_name}")
+        del got, want
+        ms = time_cuda(torch, lambda: fa.flash_attention_backward_cuda(
+            q, k, v, lse, dout, window=window), warmup=1, iters=5)
+        plain_ms, library_ms = attention_bwd_yardsticks(torch, q, k, v,
+                                                        dout, window)
+        b_ms, by, design_ms, _ = attention_bwd_bound(
+            B, Hq, Hkv, S, D, window, f32=dtype == torch.float32)
+        out[name] = dict(shape=[B, Hq, Hkv, S, D], window=window,
+                         dtype=dtype_name, impl=fa.design(q, k, v), ms=ms,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         max_abs_err={n: e[0] for n, e in errs.items()},
+                         rel_err={n: e[1] for n, e in errs.items()},
+                         bound_ms=b_ms, bound_by=by,
+                         design_bound_ms=design_ms)
+        del q, k, v, dout, lse
+        torch.cuda.empty_cache()
+    return out
+
+
 def attention_grad_check(torch, B, H, S, D) -> dict:
     """One full-width layer's attention in bf16 at the training shape:
     the output and dq, dk, dv through FlashAttention against the plain
     version and its autograd on f32 copies (ATTN_TOL's bf16 bound on
-    ``|err| / (1 + |ref|)``); the kernel's forward ms, the plain
-    backward's ms, and SDPA's forward + backward ms as a yardstick
-    (never called by the port)."""
+    ``|err| / (1 + |ref|)``); the backward kernels' ms (the backward
+    alone, from a saved logsumexp) beside the plain backward's, SDPA's
+    forward + backward and its backward alone (a yardstick, never called
+    by the port), with the bound at the gradient's 10 D flops a pair and
+    at the design's 24 D; and the backward at ATTN_BWD_SHAPES.  -> the
+    kernel table's row of flash_attention_bwd and the phase's record."""
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device=DEV).manual_seed(5)
@@ -4520,37 +4635,60 @@ def attention_grad_check(torch, B, H, S, D) -> dict:
     got = torch.autograd.grad(out, (qg, kg, vg), dout)
     q32, k32, v32 = (t.float().requires_grad_() for t in (q, k, v))
     plain = fa.flash_attention_plain(q32, k32, v32)
-    errs = {"out": attention_err(torch, out, plain.detach(), "bfloat16",
-                                 f"forward at {B}x{H}x{S}x{D}")}
+    errs = {"out": attention_err(torch, out.detach(), plain.detach(),
+                                 "bfloat16", f"forward at {B}x{H}x{S}x{D}")}
     want = torch.autograd.grad(plain, (q32, k32, v32), dout.float())
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         check(g.dtype == torch.bfloat16, f"lm_train {name} dtype {g.dtype}")
         errs[name] = attention_err(torch, g, w, "bfloat16",
                                    f"backward {name}")
     del want, plain, out, got, q32, k32, v32
+    torch.cuda.empty_cache()
+    _, lse = fa.forward_cuda(q, k, v, with_lse=True)
+    twice = [fa.flash_attention_backward_cuda(q, k, v, lse, dout)
+             for _ in range(2)]
+    same = all(bool(torch.equal(a, b)) for a, b in zip(*twice))
+    check(same, "flash_attention_bwd: two calls differ")
+    del twice
     fwd_ms = time_cuda(torch, lambda: fa.flash_attention_cuda(q, k, v),
                        iters=5)
-    bwd_ms = time_cuda(torch, lambda: fa.flash_attention_backward_plain(
-        q, k, v, dout), warmup=1, iters=3)
+    bwd_ms = time_cuda(torch, lambda: fa.flash_attention_backward_cuda(
+        q, k, v, lse, dout), iters=10)
+    plain_ms, sdpa_bwd_ms = attention_bwd_yardsticks(torch, q, k, v, dout, 0)
 
     def fused():
         o = fa.FlashAttention.apply(qg, kg, vg, True, 0)
         return torch.autograd.grad(o, (qg, kg, vg), dout)
 
-    both_ms = time_cuda(torch, fused, warmup=1, iters=3)
+    both_ms = time_cuda(torch, fused, warmup=1, iters=5)
     lib = sdpa(torch, qg, kg, vg, 0)
     sdpa_fwd_ms = time_cuda(torch, lib, iters=5)
     sdpa_ms = time_cuda(torch, lambda: torch.autograd.grad(
         lib(), (qg, kg, vg), dout), warmup=1, iters=5)
     flops, nbytes, bound_ms, by = attention_bound(B, H, H, S, S, D, 0)
-    return dict(shape=[B, H, S, D], max_abs_err={n: e[0] for n, e in
-                                                 errs.items()},
-                rel_err={n: e[1] for n, e in errs.items()},
-                tol=ATTN_TOL["bfloat16"], kernel_fwd_ms=fwd_ms,
-                plain_bwd_ms=bwd_ms, fwd_plus_bwd_ms=both_ms,
-                sdpa_fwd_ms=sdpa_fwd_ms, sdpa_fwd_bwd_ms=sdpa_ms,
-                fwd_bound_ms=bound_ms, fwd_bound_by=by,
-                bwd_bound_ms=2.5 * bound_ms)
+    b_ms, b_by, design_ms, bwd_bytes = attention_bwd_bound(B, H, H, S, D, 0)
+    shapes = attention_bwd_shapes(torch)
+    row = dict(route="cuda", source="src/repro_torch/kernels/csrc/"
+               "flash_attention_bwd_tc.cu", replaces="src/repro/kernels/"
+               "flash_attention.py:72",
+               max_abs_err=max(errs[n][0] for n in ("dq", "dk", "dv")),
+               ms=bwd_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=sdpa_bwd_ms, design_bound_ms=design_ms,
+               shape=[B, H, S, D])
+    record = dict(shape=[B, H, S, D],
+                  max_abs_err={n: e[0] for n, e in errs.items()},
+                  rel_err={n: e[1] for n, e in errs.items()},
+                  tol=ATTN_TOL["bfloat16"], kernel_fwd_ms=fwd_ms,
+                  kernel_bwd_ms=bwd_ms, plain_bwd_ms=plain_ms,
+                  fwd_plus_bwd_ms=both_ms, sdpa_fwd_ms=sdpa_fwd_ms,
+                  sdpa_fwd_bwd_ms=sdpa_ms, sdpa_bwd_ms=sdpa_bwd_ms,
+                  fwd_bound_ms=bound_ms, fwd_bound_by=by,
+                  bwd_bound_ms=b_ms, bwd_bound_by=b_by,
+                  bwd_design_bound_ms=design_ms, bwd_bytes=bwd_bytes,
+                  bwd_share_of_bound=b_ms / bwd_ms, bwd_vs_sdpa=bwd_ms
+                  / sdpa_bwd_ms, bwd_bitwise_twice=same,
+                  other_shapes=shapes)
+    return row, record
 
 
 def lm_train_phase(torch) -> dict:
@@ -4600,6 +4738,15 @@ def lm_train_phase(torch) -> dict:
               == counts.get("flash_attention", 0) == want * len(calls),
               f"lm_train qwen: a launch went past the tensor-core kernel "
               f"({counts})")
+        bwd_calls = runs["run_a"]["bwd_launches_per_call"] + \
+            runs["run_b"]["bwd_launches_per_call"]
+        check(all(n == cfg.n_layers for n in bwd_calls)
+              and counts.get("flash_attention_bwd:tc", 0)
+              == counts.get("flash_attention_bwd", 0)
+              == cfg.n_layers * len(calls),
+              f"lm_train qwen: flash_attention_bwd launches a step "
+              f"{bwd_calls}, predicted {cfg.n_layers} (one a layer), all "
+              f"on the tensor-core kernel ({counts})")
         losses = runs["run_a"]["losses"]
         check(all(math.isfinite(x) for x in losses) and losses[-1]
               < losses[0], f"lm_train qwen: loss {losses} did not fall")
@@ -4632,8 +4779,10 @@ def lm_train_phase(torch) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     # one layer's attention at the training shape (4 x 16 x 4,096 x 64)
-    attn = attention_grad_check(torch, QWEN_B, cfg.n_heads, TRAIN_S,
-                                cfg.head_dim)
+    _, B, H, _, S, D, _, _ = ATTN_BWD_TRAIN
+    check((B, H, S, D) == (QWEN_B, cfg.n_heads, TRAIN_S, cfg.head_dim),
+          f"ATTN_BWD_TRAIN {ATTN_BWD_TRAIN} is not {cfg.name}'s shape")
+    bwd_row, attn = attention_grad_check(torch, B, H, S, D)
     torch.cuda.empty_cache()
     emit("lm_train", arch=cfg.name, n_layers=cfg.n_layers,
          d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.dtype,
@@ -4642,11 +4791,13 @@ def lm_train_phase(torch) -> dict:
          fault_step=QWEN_FAULT_STEP, disk_free=disk.free,
          disk_total=disk.total, max_memory_allocated=peak,
          flash_attention_launches=counts.get("flash_attention", 0),
+         flash_attention_bwd_launches=counts.get("flash_attention_bwd", 0),
          predicted_launches_per_step=want, **runs,
          zipf_top_token_share=top_share, embed_grad_repeats=atomics,
          step_profile=profile, elastic=elastic, compression=compression,
          qwen_100m=q100m,
          layer_attention_fwd_ms=attn["kernel_fwd_ms"],
+         layer_attention_bwd_ms=attn["kernel_bwd_ms"],
          layer_attention_plain_bwd_ms=attn["plain_bwd_ms"],
          attention_grad=attn)
 
@@ -4740,8 +4891,9 @@ def lm_train_phase(torch) -> dict:
          prefill_ms=prefill_s * 1e3,
          decode_ms_per_token=decode_s / MOON_GEN * 1e3,
          generate_s=generate_s, tokens=gen1[0].tolist())
-    return {"flash_attention": counts.get("flash_attention", 0),
-            "flash_attention:tc": counts.get("flash_attention:tc", 0)}
+    return {k: counts.get(k, 0) for k in (
+        "flash_attention", "flash_attention:tc", "flash_attention_bwd",
+        "flash_attention_bwd:tc")}, bwd_row
 
 
 # ---------------------------------------------------------------- FM ----
@@ -5868,7 +6020,8 @@ CELLS_2X2 = (("fm", "serve_bulk"), ("imm", "imm_select_youtube_ic"),
              ("graphcast", "full_graph_sm"))
 #: the kernels the cells' steps launch (the LM train and dense prefill
 #: attention, the sharded selection's counters, the sparse sampler's coins)
-CELL_KERNELS = ("coverage_matvec", "flash_attention", "ic_sparse_hits")
+CELL_KERNELS = ("coverage_matvec", "flash_attention", "flash_attention_bwd",
+                "ic_sparse_hits")
 
 
 def cut_cell(arch_id: str, shape_name: str, mesh):
@@ -6242,7 +6395,8 @@ def run_phases(torch, phases: set, max_theta: int) -> int:
         launches["lm_full"] = lm_full_phase(torch)
         ended("lm_full")
     if "lm_train" in phases:
-        launches["lm_train"] = lm_train_phase(torch)
+        launches["lm_train"], rows["flash_attention_bwd"] = \
+            lm_train_phase(torch)
         ended("lm_train")
     if "fm_parity" in phases:
         fm_parity_phase(torch)

@@ -31,7 +31,10 @@
 // registers.  Thread (ty, tx) of the 16 x 16 grid owns query rows
 // ty + 16 i (i < 4) and, for q.k, keys tx + 16 j (j < 4); for p.v, the
 // float4 column groups 4 tx + 64 g (g < DM / 64).  Both products are SIMT
-// f32 FMAs from 16-byte shared-memory loads (64 FMAs per 8 loads).
+// f32 FMAs from 16-byte shared-memory loads (64 FMAs per 8 loads).  For
+// a gradient it also writes each row's logsumexp, m + log l (f32, (B, Hq,
+// Sq)), which the backward (flash_attention_bwd.cu) reads; with a null
+// pointer it writes none.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -78,9 +81,9 @@ constexpr size_t smem_bytes() {
 template <int DM>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ out, int Hq,
-             int Hkv, int Sq, int Skv, int D, int causal, int window,
-             float scale) {
+             const float* __restrict__ v, float* __restrict__ out,
+             float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv, int D,
+             int causal, int window, float scale) {
   constexpr int KS = DM + 4;          // Q and K row stride (floats)
   constexpr int NG = DM / 64;         // float4 column groups a thread owns
   constexpr int EPC = 4;              // floats in a 16-byte chunk
@@ -230,6 +233,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty + 16 * i;
     if (r >= Sq) continue;
+    if (lse != nullptr && tx == 0)
+      lse[(int64_t)bh * Sq + r] = m[i] + logf(l[i]);
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
       const int c = 64 * g + 4 * tx;
@@ -242,9 +247,9 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int DM>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Hq, int Hkv, int Sq, int Skv, int D, int causal, int window,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           void* lse, int B, int Hq, int Hkv, int Sq, int Skv, int D,
+           int causal, int window, float scale, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<DM>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<DM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -252,37 +257,38 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((Sq + kTq - 1) / kTq), (unsigned)(B * Hq));
   flash_kernel<DM><<<grid, kThreads, bytes, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, Hq,
-      Hkv, Sq, Skv, D, causal, window, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)out,
+      (float*)lse, Hq, Hkv, Sq, Skv, D, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
-int launch_d(const void* q, const void* k, const void* v, void* out, int B,
-             int Hq, int Hkv, int Sq, int Skv, int D, int causal, int window,
-             float scale, cudaStream_t stream) {
+int launch_d(const void* q, const void* k, const void* v, void* out,
+             void* lse, int B, int Hq, int Hkv, int Sq, int Skv, int D,
+             int causal, int window, float scale, cudaStream_t stream) {
   if (D <= 64)
-    return launch<64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, D, causal, window,
-                      scale, stream);
+    return launch<64>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, D, causal,
+                      window, scale, stream);
   if (D <= 128)
-    return launch<128>(q, k, v, out, B, Hq, Hkv, Sq, Skv, D, causal,
+    return launch<128>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, D, causal,
                        window, scale, stream);
-  return launch<256>(q, k, v, out, B, Hq, Hkv, Sq, Skv, D, causal, window,
-                     scale, stream);
+  return launch<256>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, D, causal,
+                     window, scale, stream);
 }
 
 }  // namespace
 
 // Contiguous (B, H, S, D) float32 operands on 16-byte boundaries, D a
 // multiple of 8 up to 256, Hq a multiple of Hkv (the wrapper checks all of
-// these).
+// these).  lse (B, Hq, Sq) f32 may be null; given, the kernel writes the
+// rows' logsumexp there too.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out, int batch,
-                                     int hq, int hkv, int sq, int skv, int d,
-                                     int causal, int window, float scale,
-                                     void* stream) {
+                                     const void* v, void* out, void* lse,
+                                     int batch, int hq, int hkv, int sq,
+                                     int skv, int d, int causal, int window,
+                                     float scale, void* stream) {
   if (batch <= 0 || sq <= 0) return 0;
   if (d <= 0 || d > 256 || d % 8 != 0 || hkv <= 0 || hq % hkv != 0)
     return (int)cudaErrorInvalidValue;
-  return launch_d(q, k, v, out, batch, hq, hkv, sq, skv, d, causal, window,
-                  scale, (cudaStream_t)stream);
+  return launch_d(q, k, v, out, lse, batch, hq, hkv, sq, skv, d, causal,
+                  window, scale, (cudaStream_t)stream);
 }

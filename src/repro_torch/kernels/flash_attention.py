@@ -59,13 +59,30 @@ Every CUDA launch counts once under ``flash_attention`` and once under
 ``flash_attention:<design>`` (`_common.launch_counts`).
 
 **The gradient** (`FlashAttention`, what `ops.flash_attention` calls on
-the card): the forward is the kernel above; the backward is
-`flash_attention_backward_plain`, plain PyTorch.  It is plain because
-the reference has no backward kernel either: no function of the JAX
-package differentiates a Pallas kernel with a kernel of its own (there
-is no ``custom_vjp`` under ``src/repro``), so JAX differentiates its
-attention through the plain ``ref``/blockwise paths.  A backward kernel
-is a follow-up (ROADMAP B).
+the card) has a kernel of each design too, though the reference has
+none (JAX differentiates its plain attention; there is no ``custom_vjp``
+under ``src/repro``): the function is `flash_attention_backward_plain`'s.
+For a gradient the forward also writes each row's logsumexp
+(`flash_attention_stats_plain` is its plain version); the backward
+(`flash_attention_backward_cuda`) takes it, recomputes P in f32 and takes
+``delta = rowsum(P * dP)`` from it, as the plain version does:
+
+- **bf16: ``csrc/flash_attention_bwd_tc.cu``**, ``wgmma`` + TMA on the
+  forward's building blocks (``csrc/hopper_tc.cuh``): a dQ pass (a block
+  keeps its query rows' Q and dO and walks their key tiles twice, delta
+  then dQ) and a dK/dV pass (a block keeps a key tile's K and V and walks
+  the group's query heads and the query tiles that admit its keys).  P
+  and dS enter their products as two bf16 parts (the rounding and its
+  residue): rounded once they put dV and dK near the bf16 bound.  24 D
+  flops a pair against the gradient's 10 D.
+- **f32: ``csrc/flash_attention_bwd.cu``**, the same passes on SIMT f32
+  FMAs, 18 D flops a pair.
+
+Neither uses atomics: two backward calls on the same inputs give the same
+bits, as a `TrainLoop`'s bitwise replay needs.  Every backward counts
+once under ``flash_attention_bwd`` and ``flash_attention_bwd:<design>``,
+not under ``flash_attention``.  `flash_attention_backward_plain` stays as
+the plain version, for the tests and as a yardstick.
 """
 from __future__ import annotations
 
@@ -116,20 +133,20 @@ def check_operands(q, k, v, causal: bool) -> None:
             f"tile size and the oracle's is NaN, so neither is defined")
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          window: int = 0) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: repeat the KV heads, f32
-    einsum, mask, softmax, f32 einsum, cast.  Walks query blocks so that
-    at most ``_PLAIN_BLOCK_ELEMS`` f32 scores are live at once."""
+def _plain_forward(q, k, v, causal: bool, window: int, with_lse: bool):
+    """The f32 output and, given ``with_lse``, the rows' logsumexp,
+    walking query blocks so that at most ``_PLAIN_BLOCK_ELEMS`` f32
+    scores are live at once."""
     check_operands(q, k, v, causal)
     B, Hq, Sq, D = q.shape
-    Hkv, Skv = k.shape[1], k.shape[2]
-    group = Hq // Hkv
-    scale = 1.0 / math.sqrt(D)
+    group = Hq // k.shape[1]
     kk = k.to(torch.float32).repeat_interleave(group, dim=1)
     vv = v.to(torch.float32).repeat_interleave(group, dim=1)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32,
+                      device=q.device) if with_lse else None
+    Skv, scale = kk.shape[2], 1.0 / math.sqrt(D)
     kpos = torch.arange(Skv, device=q.device)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     step = max(1, _PLAIN_BLOCK_ELEMS // max(B * Hq * Skv, 1))
     for s0 in range(0, Sq, step):
         s1 = min(Sq, s0 + step)
@@ -139,12 +156,35 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
             mask &= kpos[None, :] <= qpos[:, None]
         if window > 0:
             mask &= kpos[None, :] > qpos[:, None] - window
-        s = torch.einsum("bhqd,bhkd->bhqk",
-                         q[:, :, s0:s1].to(torch.float32), kk) * scale
+        s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, s0:s1].to(torch.float32),
+                         kk) * scale
         s.masked_fill_(~mask, float("-inf"))
-        p = torch.softmax(s, dim=-1)
-        out[:, :, s0:s1] = torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
-    return out
+        if with_lse:
+            lse[:, :, s0:s1] = torch.logsumexp(s, dim=-1)
+        out[:, :, s0:s1] = torch.einsum("bhqk,bhkd->bhqd",
+                                        torch.softmax(s, dim=-1), vv)
+    return out, lse
+
+
+def flash_attention_stats_plain(q, k, v, dout=None, *, causal: bool = True,
+                                window: int = 0):
+    """``(lse, delta)``, ``(B, Hq, Sq)`` f32 each: every row's logsumexp
+    of its scaled, masked scores (natural log), which the forward kernel
+    writes for a gradient, and, given the output's cotangent ``dout``,
+    ``delta = rowsum(dout * O)`` with O the f32 output, which the backward
+    kernels' dQ pass sums as ``rowsum(P * dP)`` (equal in exact
+    arithmetic); None without ``dout``."""
+    out, lse = _plain_forward(q, k, v, causal, window, True)
+    delta = None if dout is None else (dout.to(torch.float32) * out).sum(-1)
+    return lse, delta
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          window: int = 0) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: repeat the KV heads, f32
+    einsum, mask, softmax, f32 einsum, cast.  Walks query blocks so that
+    at most ``_PLAIN_BLOCK_ELEMS`` f32 scores are live at once."""
+    return _plain_forward(q, k, v, causal, window, False)[0].to(q.dtype)
 
 
 def _key_span(s0: int, s1: int, Sq: int, Skv: int, causal: bool,
@@ -224,23 +264,27 @@ def flash_attention_backward_plain(q, k, v, dout, *, causal: bool = True,
 
 
 class FlashAttention(torch.autograd.Function):
-    """`flash_attention_cuda` with a gradient: the forward launches the
-    kernel (``tc`` for bf16, ``simt`` for f32) and saves q, k and v; the
-    backward is `flash_attention_backward_plain` on them.  A recompute
-    under ``torch.utils.checkpoint`` runs the forward, and so launches the
+    """The kernels with a gradient: the forward launches
+    `flash_attention_cuda`'s kernel (``tc`` for bf16, ``simt`` for f32),
+    which also writes the rows' logsumexp when an input needs a gradient,
+    and saves q, k, v and it; the backward launches
+    `flash_attention_backward_cuda`.  A recompute under
+    ``torch.utils.checkpoint`` runs the forward, and so launches the
     kernel, again."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
-        ctx.save_for_backward(q, k, v)
+        out, lse = forward_cuda(q, k, v, causal=causal, window=window,
+                                with_lse=any(ctx.needs_input_grad[:3]))
+        ctx.save_for_backward(q, k, v, lse)
         ctx.causal, ctx.window = causal, window
-        return flash_attention_cuda(q, k, v, causal=causal, window=window)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward_plain(
-            q, k, v, dout, causal=ctx.causal, window=ctx.window)
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward_cuda(
+            q, k, v, lse, dout, causal=ctx.causal, window=ctx.window)
         return dq, dk, dv, None, None
 
 
@@ -256,10 +300,15 @@ DESIGNS = {torch.bfloat16: "tc", torch.float32: "simt"}
 #: the csrc source of each design; its C entry point is ``repro_<source>``,
 #: and both take the same arguments
 _SOURCE = {"tc": "flash_attention_tc", "simt": "flash_attention"}
+#: the backward's name in the launch counts, and its sources
+BWD_KERNEL = "flash_attention_bwd"
+_BWD_SOURCE = {"tc": "flash_attention_bwd_tc", "simt": "flash_attention_bwd"}
 #: query rows a tensor-core block takes, and CUDA's cap on a grid's
 #: second axis (the SIMT grid is (query tiles, B * Hq), the tensor-core
 #: one (B * Hq, query tiles))
 _TC_BLOCK_Q, _GRID_MAX = 128, 65535
+#: the backward's smallest tile of rows (its grids are (heads, tiles))
+_BWD_TILE = {"tc": 64, "simt": 32}
 
 
 def design(q, k, v) -> str:
@@ -271,15 +320,17 @@ def design(q, k, v) -> str:
     return DESIGNS[q.dtype]
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True,
-                         window: int = 0) -> torch.Tensor:
+def _launch_checks(q, k, v, causal: bool) -> str:
+    """What every launch of either direction needs of q, k and v: the
+    function's shapes, one dtype of the two designs, one device, a head
+    dim the kernels take and a forward grid CUDA can launch; the
+    design."""
     check_operands(q, k, v, causal)
     impl = design(q, k, v)
     if not (q.device == k.device == v.device):
         raise ValueError(f"{KERNEL}: q, k, v on {q.device}, {k.device}, "
                          f"{v.device}")
     B, Hq, Sq, D = q.shape
-    Hkv, Skv = k.shape[1], k.shape[2]
     if D % 8 or not 0 < D <= 256:
         raise ValueError(f"{KERNEL}: head dim {D} must be a multiple of 8 "
                          f"up to 256")
@@ -288,17 +339,78 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
         raise ValueError(f"{KERNEL}: {'B * Hq' if impl == 'simt' else 'Sq'}"
                          f" exceeds the {impl} kernel's grid ({rows} > "
                          f"{_GRID_MAX:,} blocks)")
+    return impl
+
+
+def forward_cuda(q, k, v, *, causal: bool = True, window: int = 0,
+                 with_lse: bool = False):
+    """``(out, lse)``: the kernel's output and, given ``with_lse``, each
+    row's logsumexp of its scaled, masked scores, ``(B, Hq, Sq)`` f32,
+    which `flash_attention_backward_cuda` takes; without it lse is None
+    and the kernel writes none."""
+    impl = _launch_checks(q, k, v, causal)
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32,
+                      device=q.device) if with_lse else None
     if out.numel() == 0:
-        return out
+        return out, lse
     source = _SOURCE[impl]
     fn = C.bind(build.library(source), f"repro_{source}",
-                (C.VOIDP, C.VOIDP, C.VOIDP, C.VOIDP) + (C.I32,) * 8
-                + (ctypes.c_float, C.VOIDP))
+                (C.VOIDP,) * 5 + (C.I32,) * 8 + (ctypes.c_float, C.VOIDP))
     with C.on_device(KERNEL, q, k, v, out) as stream:
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, Hq, Hkv, Sq, Skv, D, int(bool(causal)),
-                 max(int(window), 0), 1.0 / math.sqrt(D), stream)
+                 None if lse is None else lse.data_ptr(), B, Hq, Hkv, Sq,
+                 Skv, D, int(bool(causal)), max(int(window), 0),
+                 1.0 / math.sqrt(D), stream)
     C.launched(KERNEL, err, impl)
-    return out
+    return out, lse
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True,
+                         window: int = 0) -> torch.Tensor:
+    return forward_cuda(q, k, v, causal=causal, window=window)[0]
+
+
+def flash_attention_backward_cuda(q, k, v, lse, dout, *,
+                                  causal: bool = True, window: int = 0):
+    """``(dq, dk, dv)`` in the operands' dtype, on the design's backward
+    kernels: ``lse`` is the rows' logsumexp from `forward_cuda` with
+    ``with_lse``, ``dout`` the output's cotangent in q's dtype.  The
+    operand, head-dim and grid checks are the forward's; one call of the C
+    entry point (the dQ pass, which also writes delta, then the dK/dV
+    pass) counts once under ``flash_attention_bwd`` and
+    ``flash_attention_bwd:<design>``."""
+    impl = _launch_checks(q, k, v, causal)
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if dout.dtype != q.dtype or tuple(dout.shape) != tuple(q.shape):
+        raise ValueError(f"{BWD_KERNEL}: dout {tuple(dout.shape)} "
+                         f"{dout.dtype} does not match q {tuple(q.shape)} "
+                         f"{q.dtype}")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (B, Hq, Sq):
+        raise ValueError(f"{BWD_KERNEL}: lse must be float32 {(B, Hq, Sq)},"
+                         f" got {tuple(lse.shape)} {lse.dtype}")
+    tiles = -(-max(Sq, Skv) // _BWD_TILE[impl])
+    if tiles > _GRID_MAX:
+        raise ValueError(f"{BWD_KERNEL}: S exceeds the {impl} backward's "
+                         f"grid ({tiles} > {_GRID_MAX:,} tiles)")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    lse, dout = _aligned(lse), _aligned(dout)
+    if q.numel() == 0:
+        return torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    source = _BWD_SOURCE[impl]
+    fn = C.bind(build.library(source), f"repro_{source}",
+                (C.VOIDP,) * 9 + (C.I32,) * 8 + (ctypes.c_float, C.VOIDP))
+    with C.on_device(BWD_KERNEL, q, k, v, lse, dout) as stream:
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
+                 dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), delta.data_ptr(), B, Hq, Hkv, Sq, Skv, D,
+                 int(bool(causal)), max(int(window), 0), 1.0 / math.sqrt(D),
+                 stream)
+    C.launched(BWD_KERNEL, err, impl)
+    return dq, dk, dv

@@ -148,8 +148,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     right-aligned to the keys: ``q (B, Hq, Sq, D)``, ``k, v (B, Hkv, Skv,
     D)`` -> ``(B, Hq, Sq, D)`` in q's dtype
     (`repro_torch.kernels.flash_attention`).  On the card the kernel runs
-    under `FlashAttention`, whose backward is the plain
-    `flash_attention_backward_plain`; on the CPU autograd runs through the
+    under `FlashAttention`, whose backward is a kernel too
+    (`flash_attention_backward_cuda`); on the CPU autograd runs through the
     plain version."""
     if impl_for(_fa.KERNEL, q, k, v) == "cuda":
         return _fa.FlashAttention.apply(q, k, v, causal, window)

@@ -11,9 +11,10 @@ one onto the other leaf for leaf.  PyTorch runs eagerly: the reference's
 `lm_hidden` in ``torch.utils.checkpoint`` when a gradient is being taken,
 as ``jax.checkpoint`` does; `lm_loss`'s CE chunks are checkpointed too, so
 the ``(B, S, V)`` logits never exist at once.  On the card attention runs
-through the ``flash_attention`` kernel and its gradient through the plain
-backward (`repro_torch.kernels.flash_attention.FlashAttention`); a
-checkpointed layer launches the kernel again when it is recomputed.
+through the ``flash_attention`` kernel and its gradient through the
+backward kernel (`repro_torch.kernels.flash_attention.FlashAttention`); a
+checkpointed layer launches the forward kernel again when it is
+recomputed.
 
 The MoE FFN (``n_experts > 0``) is `_moe_ffn`, the reference's gather
 dispatch (`repro_torch.models.moe`); with ``moe_impl="shard_map"`` the

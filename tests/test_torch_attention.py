@@ -216,7 +216,9 @@ def test_cuda_wrapper_picks_the_kernel_by_dtype(monkeypatch):
         assert out.dtype == dtype and out.shape == q.shape
         src, entry, args = _Lib.calls[-1]
         assert (src, entry) == (source, f"repro_{source}")
-        assert args == (1, 4, 2, 10, 12, 24, 1, 5, 1 / np.sqrt(24), 0)
+        # no gradient asked: a null logsumexp pointer
+        assert args == (None, 1, 4, 2, 10, 12, 24, 1, 5, 1 / np.sqrt(24),
+                        0)
     # reset_launches zeroes the keys that earlier tests of this process
     # made, and keeps them: the launches are the nonzero counts
     assert {key: n for key, n in ops.launch_counts().items() if n} == {
