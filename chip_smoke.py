@@ -169,9 +169,10 @@ Phases, one JSON line each:
             on f32 copies, two backward calls bitwise equal, the
             backward kernels' ms beside the plain backward's, the
             kernel's forward and SDPA's forward + backward and backward
-            alone (a yardstick), with the bound at 10 D and 24 D flops a
-            pair; the backward at grok's and Danube's head shapes and,
-            in f32, at qwen-100m's, against the plain backward; then
+            alone (a yardstick), with the bound at 10 D and the
+            design's 16 D flops a pair; the backward at grok's and
+            Danube's head shapes and, in f32, at qwen-100m's, against
+            the plain backward; then
             moonshot-v1-16b-a3b at full width cut to 2 layers (64
             experts top-6, capacity 960) takes two steps in a loop that
             writes no checkpoint, on 2 x 4,096 (each step's dropped
@@ -4535,10 +4536,12 @@ ATTN_BWD_SHAPES = (("grok", 1, 48, 8, 2048, 128, 0, "bfloat16"),
 def attention_bwd_bound(B, Hq, Hkv, S, D, window, f32: bool = False):
     """(bound ms at the gradient's 10 D flops a pair, bound_by, the same
     at the design's flops, bytes): q, k, v, dO and lse read once, dq, dk,
-    dv written once (the delta the dQ pass hands the dK/dV pass is
-    scratch, not counted); bf16 at the tensor-core rate and 24 D (the
-    tensor-core design), f32 at the f32 rate outside the tensor cores and
-    18 D (the SIMT design)."""
+    dv written once (delta and the dQ sums one pass hands the next are
+    scratch, not counted); bf16 at the tensor-core rate and the
+    tensor-core design's 16 D at D <= 64 (delta's S and dP, then S, dP,
+    dV with P in two parts, dK and dQ) or 22 D above it (the dQ pass's
+    two walks, dK with dS in two parts), f32 at the f32 rate outside the
+    tensor cores and 18 D (the SIMT design)."""
     from repro_torch.kernels import flash_attention as fa
 
     pairs = B * Hq * fa.admitted_pairs(S, S, window=window)
@@ -4546,7 +4549,8 @@ def attention_bwd_bound(B, Hq, Hkv, S, D, window, f32: bool = False):
         + 4 * B * Hq * S
     rate = ALU_OPS_PER_S if f32 else BF16_FLOPS_PER_S
     b_ms, by = bound(nbytes, 10 * D * pairs, rate)
-    design_ms, _ = bound(nbytes, (18 if f32 else 24) * D * pairs, rate)
+    design = 18 if f32 else 16 if D <= 64 else 22
+    design_ms, _ = bound(nbytes, design * D * pairs, rate)
     return b_ms, by, design_ms, nbytes
 
 
@@ -4623,7 +4627,7 @@ def attention_grad_check(torch, B, H, S, D) -> dict:
     alone, from a saved logsumexp) beside the plain backward's, SDPA's
     forward + backward and its backward alone (a yardstick, never called
     by the port), with the bound at the gradient's 10 D flops a pair and
-    at the design's 24 D; and the backward at ATTN_BWD_SHAPES.  -> the
+    at the design's 16 D; and the backward at ATTN_BWD_SHAPES.  -> the
     kernel table's row of flash_attention_bwd and the phase's record."""
     from repro_torch.kernels import flash_attention as fa
 

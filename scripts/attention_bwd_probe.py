@@ -2,7 +2,7 @@
 """Time the attention backward kernels on the card, alone.
 
     python3 scripts/attention_bwd_probe.py [--repeats 3] [--yardsticks]
-        [--root DIR]
+        [--kernels] [--root DIR]
 
 Builds the port's kernels from ``DIR/src`` (default: this checkout) and
 times ``flash_attention_backward_cuda`` (CUDA events, the mean of 20
@@ -13,9 +13,11 @@ qwen-100m's in f32), beside each shape's bound from ``chip_smoke.py``'s
 ``attention_bwd_bound`` (the gradient's 10 D flops an admitted pair at
 the roofline's h100 rate for the dtype); with ``--yardsticks``, each
 repeat also times ``chip_smoke.py``'s ``attention_bwd_yardsticks`` there
-(the plain backward and SDPA's backward alone).  Prints one JSON line
-with the card's name and power limit.  Run it from two checkouts in one call to
-compare two versions on one card.
+(the plain backward and SDPA's backward alone); with ``--kernels``, the
+device ms of each kernel and memset of one call (the mean of 5 under
+``torch.profiler``), by name.  Prints one JSON line with the card's name
+and power limit.  Run it from two checkouts in one call to compare two
+versions on one card.
 """
 from __future__ import annotations
 
@@ -26,10 +28,33 @@ import subprocess
 import sys
 
 
+def kernel_ms(torch, call, n: int) -> dict:
+    """Device ms a call of each kernel (and memset) that ``call``
+    launches, the mean over ``n`` calls under the profiler, keyed by the
+    kernel's name up to its template arguments."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    ms: dict = {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = ev.name.replace("void ", "").replace(
+            "(anonymous namespace)::", "").split("<")[0].split("(")[0]
+        ms[key] = ms.get(key, 0.0) + ev.device_time / 1e3 / n
+    return ms
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--yardsticks", action="store_true")
+    ap.add_argument("--kernels", action="store_true")
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     args = ap.parse_args()
@@ -84,6 +109,8 @@ def main() -> int:
         if yardsticks:
             out[name].update(plain_ms=[y[0] for y in yardsticks],
                              library_ms=[y[1] for y in yardsticks])
+        if args.kernels:
+            out[name]["kernel_ms"] = kernel_ms(torch, call, 5)
         del q, k, v, dout, lse
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)

@@ -1,8 +1,9 @@
 // Hopper building blocks of the bf16 attention kernels (flash_attention_tc.cu,
-// the forward; flash_attention_bwd_tc.cu, the backward): mbarriers, TMA
-// tile loads and their tensor maps, wgmma on 128-byte swizzled shared-
-// memory tiles, and the bf16 pair packing and quad reductions of the
-// accumulator layout.  sm_90a only (wgmma, setmaxnreg).
+// the forward; flash_attention_bwd_tc.cu, the backward): mbarriers, named
+// barriers, TMA tile loads and their tensor maps, bulk reductions into
+// device memory and the counters that order them, wgmma on 128-byte
+// swizzled shared-memory tiles, and the bf16 pair packing and quad
+// reductions of the accumulator layout.  sm_90a only (wgmma, setmaxnreg).
 //
 // Layouts shared by both kernels: a tile of R rows x DP bf16 columns is
 // DP / 64 sub-tiles of R rows x 128 bytes, each swizzled (128B); a K-major
@@ -61,6 +62,22 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// the same without the trap, for the waits of a warpgroup that needs its
+// registers: a __trap() on its path keeps ptxas from compiling it with
+// more than the launch bound's share (168 at 384 threads), whatever
+// setmaxnreg.inc asks
+__device__ __forceinline__ void bar_wait_spin(uint64_t* bar,
+                                              uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+}
+
 // ---- TMA ----------------------------------------------------------------
 
 // one box of a 3-D tensor map {column, row, head} into shared memory
@@ -92,6 +109,83 @@ __device__ __forceinline__ void wg_commit() {
 }
 __device__ __forceinline__ void wg_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// ---- named barriers (id 0 is __syncthreads'); count: the threads that
+// take part, a multiple of 32; arrive does not wait for the others
+
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---- the async proxy (TMA, bulk copies, wgmma's shared-memory operands)
+
+// this thread's shared-memory writes, made visible to the async proxy
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// orders this thread's global accesses against its async-proxy ones
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// dst[0:bytes] += src[0:bytes], f32 elementwise, in L2 (bytes a multiple
+// of 16, both 16-byte aligned); one bulk group a commit
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst,
+                                                    const void* src,
+                                                    uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], "
+      "[%1], %2;\n" ::"l"(dst), "r"(smem_addr(src)), "r"(bytes)
+      : "memory");
+}
+// dst[0:bytes] = src[0:bytes], the same way
+__device__ __forceinline__ void bulk_copy_f32(float* dst, const void* src,
+                                              uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst), "r"(smem_addr(src)), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// returns once at most N of the bulk groups this thread committed are
+// still in flight (the others completed: their writes performed)
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// returns once at most N of this thread's bulk groups still read their
+// source (the others may still be writing)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- device-memory counters between blocks
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void add_release(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p),
+               "r"(v) : "memory");
+}
+// returns once *p == v; a wait of seconds means a turn that never comes,
+// and traps rather than hang
+__device__ __forceinline__ void wait_until_eq(const int* p, int v) {
+  for (uint32_t tries = 0; load_acquire(p) != v; ++tries) {
+    if (tries == (1u << 24)) __trap();
+    __nanosleep(20);
+  }
 }
 
 // keeps the compiler from moving accumulator reads and writes across the
@@ -128,6 +222,30 @@ __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
       "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
       "%30, %31}, "
       "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (m64 x 64, f32) = or += A (m64 x k16, MN-major smem) . B (k16 x 64,
+// MN-major smem)
+__device__ __forceinline__ void wgmma_ss_mn64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      "%30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),

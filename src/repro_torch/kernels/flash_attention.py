@@ -68,18 +68,24 @@ For a gradient the forward also writes each row's logsumexp
 ``delta = rowsum(P * dP)`` from it, as the plain version does:
 
 - **bf16: ``csrc/flash_attention_bwd_tc.cu``**, ``wgmma`` + TMA on the
-  forward's building blocks (``csrc/hopper_tc.cuh``): a dQ pass (a block
-  keeps its query rows' Q and dO and walks their key tiles twice, delta
-  then dQ) and a dK/dV pass (a block keeps a key tile's K and V and walks
-  the group's query heads and the query tiles that admit its keys).  P
-  and dS enter their products as two bf16 parts (the rounding and its
-  residue): rounded once they put dV and dK near the bf16 bound.  24 D
-  flops a pair against the gradient's 10 D.
-- **f32: ``csrc/flash_attention_bwd.cu``**, the same passes on SIMT f32
-  FMAs, 18 D flops a pair.
+  forward's building blocks (``csrc/hopper_tc.cuh``): a delta pass (a
+  block keeps its query rows' Q and dO and walks their key tiles once),
+  then a dK/dV pass (a block keeps 128 keys' K and V and walks the
+  group's query heads and the query tiles that admit its keys) that also
+  forms each tile's share of dQ and adds it into an f32 sum in device
+  memory, the key blocks of a query tile in ascending order (a counter a
+  tile says whose turn it is), and an epilogue that rounds the sums to
+  bf16.  P enters dV as two bf16 parts (the rounding and its residue:
+  rounded once it puts dV past the bf16 bound at GQA 48:8); dS is
+  rounded once, but for dK above D 64 (two parts: once, it put dk past
+  the bound at grok's heads).  16 D flops a pair at D <= 64, 22 D above,
+  against the gradient's 10 D.
+- **f32: ``csrc/flash_attention_bwd.cu``**, a dQ pass (delta, then dQ)
+  and a dK/dV pass on SIMT f32 FMAs, 18 D flops a pair.
 
-Neither uses atomics: two backward calls on the same inputs give the same
-bits, as a `TrainLoop`'s bitwise replay needs.  Every backward counts
+Neither adds in an order that changes from call to call: two backward
+calls on the same inputs give the same bits, as a `TrainLoop`'s bitwise
+replay needs.  Every backward counts
 once under ``flash_attention_bwd`` and ``flash_attention_bwd:<design>``,
 not under ``flash_attention``.  `flash_attention_backward_plain` stays as
 the plain version, for the tests and as a yardstick.
@@ -374,15 +380,34 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     return forward_cuda(q, k, v, causal=causal, window=window)[0]
 
 
+def _bwd_workspace_words(impl: str, B: int, Hq: int, Sq: int,
+                         D: int) -> int:
+    """4-byte words of the backward's scratch, which the C entry point
+    carves: the rows' delta (``(B, Hq, Sq)`` f32); for ``tc`` also, each
+    part on a 16-byte boundary, the counters (a ticket, then one a dq_acc
+    chunk; the entry point zeroes them) and, at D <= 64, dq_acc, the f32
+    sums of dQ's shares in 64 x 64 chunks (B * Hq heads x query tiles of
+    64), which the kernel fills (``csrc/flash_attention_bwd_tc.cu``
+    ``carve``)."""
+    rows = B * Hq * Sq
+    if impl != "tc":
+        return rows
+    chunks = B * Hq * -(-Sq // 64) if D <= 64 else 0
+
+    def up4(n):
+        return -(-n // 4) * 4
+
+    return up4(rows) + up4(1 + chunks) + chunks * 64 * 64
+
+
 def flash_attention_backward_cuda(q, k, v, lse, dout, *,
                                   causal: bool = True, window: int = 0):
     """``(dq, dk, dv)`` in the operands' dtype, on the design's backward
     kernels: ``lse`` is the rows' logsumexp from `forward_cuda` with
     ``with_lse``, ``dout`` the output's cotangent in q's dtype.  The
     operand, head-dim and grid checks are the forward's; one call of the C
-    entry point (the dQ pass, which also writes delta, then the dK/dV
-    pass) counts once under ``flash_attention_bwd`` and
-    ``flash_attention_bwd:<design>``."""
+    entry point (all of the design's passes) counts once under
+    ``flash_attention_bwd`` and ``flash_attention_bwd:<design>``."""
     impl = _launch_checks(q, k, v, causal)
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
@@ -402,14 +427,15 @@ def flash_attention_backward_cuda(q, k, v, lse, dout, *,
     if q.numel() == 0:
         return torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    workspace = torch.empty(_bwd_workspace_words(impl, B, Hq, Sq, D),
+                            dtype=torch.float32, device=q.device)
     source = _BWD_SOURCE[impl]
     fn = C.bind(build.library(source), f"repro_{source}",
                 (C.VOIDP,) * 9 + (C.I32,) * 8 + (ctypes.c_float, C.VOIDP))
     with C.on_device(BWD_KERNEL, q, k, v, lse, dout) as stream:
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
                  dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), delta.data_ptr(), B, Hq, Hkv, Sq, Skv, D,
+                 dv.data_ptr(), workspace.data_ptr(), B, Hq, Hkv, Sq, Skv, D,
                  int(bool(causal)), max(int(window), 0), 1.0 / math.sqrt(D),
                  stream)
     C.launched(BWD_KERNEL, err, impl)

@@ -7,11 +7,12 @@ FFN, held to the plain path on the same inputs.
   kernels within ``1e-4 * (1 + |ref|)``, bf16 on the tensor-core kernels
   against the plain version on f32 copies within ``1e-2 * (1 + |ref|)``
   (the bf16 bound of ``chip_smoke.py``'s ``ATTN_TOL``: q, k, v and dO are
-  bf16 operands, P and dS enter their products as two bf16 parts each,
-  and each gradient is rounded to bf16 once; delta is summed from the
+  bf16 operands, P enters dV as two bf16 parts, dS is rounded once, and
+  each gradient is rounded to bf16 once; delta is summed from the
   recomputed f32 P); at D 8 to 256, GQA up to 48:8, ragged S, Sq
   < Skv and a window narrower than a tile; the forward's logsumexp against
-  the plain one (1e-5); two backward calls give the same bits;
+  the plain one (1e-5); two backward calls give the same bits, also with
+  dQ summed over many key blocks in a fixed order;
   the backward launches its kernel and never the plain version;
 - ``lm_loss`` and every gradient leaf of the five smoke configs on cuda
   against cpu within ``1e-4 * (1 + |cpu|)`` (the f32 LM tolerance), and
@@ -142,6 +143,39 @@ def test_backward_gives_the_same_bits_twice(cuda, dtype):
     again = _kernel_grads(q, k, v, dout, 100)
     for a, b in zip(first, again):
         assert torch.equal(a, b)
+
+
+# (B, Hq, Hkv, S, D, window), bf16: at D <= 64 many key blocks add their
+# dQ shares into each query tile in turn: S 2,048 causal; GQA 48:8 at S
+# 1,024; 1,024 key blocks of work (8 x 16 heads x S 1,024), far more
+# than the card's SMs, so that a block waits on shares from blocks that
+# started long before it; a window's first block, and Sq < Skv with it.
+# Above D 64 (the dQ pass): grok's 48:8 at D 128, a window at D 120 and
+# Sq < Skv at D 256
+ORDERED_CASES = [(1, 4, 4, 2048, 64, 0), (1, 48, 8, 1024, 64, 0),
+                 (8, 16, 16, 1024, 64, 0), (1, 8, 2, 2048, 64, 700),
+                 (2, 4, 2, (1000, 2100), 64, 500), (1, 48, 8, 1024, 128, 0),
+                 (1, 8, 2, 2048, 120, 700),
+                 (2, 4, 2, (1000, 2100), 256, 500)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,window", ORDERED_CASES)
+def test_backward_ordered_dq_sums_match_plain_and_repeat(cuda, B, Hq, Hkv,
+                                                         S, D, window):
+    """dQ summed across the key blocks in a fixed order: the gradient
+    within the bf16 bound of the plain one, and two calls bitwise."""
+    q, k, v, dout = _attention_inputs(B, Hq, Hkv, S, D, torch.bfloat16, 17)
+    ops.reset_launches()
+    got = _kernel_grads(q, k, v, dout, window)
+    assert ops.launch_counts().get(f"{fa.BWD_KERNEL}:tc") == 1
+    again = _kernel_grads(q, k, v, dout, window)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    ref = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(
+        fa.flash_attention_plain(*ref, window=window), ref, dout.float())
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= ATTN_TOL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("dtype,impl", [(torch.bfloat16, "tc"),
