@@ -1147,6 +1147,13 @@ ATTN_TIMED = (("serve_prefill", 4, 16, 16, 512, 64, 0),
               ("qwen_8k", 1, 16, 16, 8192, 64, 0),
               ("danube_8k", 1, 32, 8, 8192, 120, 4096),
               ("prefill_32k", 1, 16, 16, 32768, 64, 0))
+#: the SIMT kernel's timed shapes in f32 (name, B, Hq, Hkv, S, D, window):
+#: the serving prefill, Qwen's 8k prefill, and qwen-100m's training shape
+#: (examples/train_lm.py, 8 x 256); the f32 forward's probe adds
+#: danube_8k (scripts/attention_bwd_probe.py --forward)
+ATTN_F32_TIMED = (("serve_prefill", 4, 16, 16, 512, 64, 0),
+                  ("qwen_8k", 1, 16, 16, 8192, 64, 0),
+                  ("qwen_100m", 8, 8, 8, 256, 64, 0))
 #: flash_attention against its plain version: |err| <= tol * (1 + |ref|).
 #: f32: the same f32 arithmetic summed in another order (~1e-6 seen in
 #: the CPU tests); bf16: both round the same f32 value once, so they differ
@@ -1173,15 +1180,17 @@ def attention_err(torch, got, want, dtype_name: str, tag: str):
     return float(diff.max()), rel
 
 
-def attention_bound(B, Hq, Hkv, Sq, Skv, D, window, itemsize=2):
+def attention_bound(B, Hq, Hkv, Sq, Skv, D, window, f32: bool = False):
     """(flops, bytes, bound ms, bound_by) of one call: 4 D flops per
-    admitted pair at the bf16 tensor-core rate; q, k, v read once and the
-    output written once."""
+    admitted pair, at the bf16 tensor-core rate, or with ``f32`` (the SIMT
+    kernel's operands) at the f32 rate outside the tensor cores; q, k, v
+    read once and the output written once, 2 or 4 bytes an element."""
     from repro_torch.kernels import flash_attention as fa
 
     flops = 4 * D * B * Hq * fa.admitted_pairs(Sq, Skv, window=window)
-    nbytes = itemsize * D * (2 * B * Hq * Sq + 2 * B * Hkv * Skv)
-    return (flops, nbytes) + bound(nbytes, flops, BF16_FLOPS_PER_S)
+    nbytes = (4 if f32 else 2) * D * (2 * B * Hq * Sq + 2 * B * Hkv * Skv)
+    return (flops, nbytes) + bound(
+        nbytes, flops, ALU_OPS_PER_S if f32 else BF16_FLOPS_PER_S)
 
 
 def sdpa(torch, q, k, v, window: int):
@@ -1205,9 +1214,9 @@ def attention_rows(torch, gen) -> dict:
     one too, in query blocks); the kernel's, the plain version's and
     SDPA's times there, with the bound, the share of the 989 TFLOP/s bf16
     rate the kernel reaches and the ratio to SDPA; the SIMT kernel's f32
-    times at the two smaller shapes beside SDPA's in f32; and the host
-    cost of encoding the
-    tensor-core kernel's TMA maps at the serving prefill."""
+    rows at ``ATTN_F32_TIMED`` (`attention_f32_row`); and the host cost
+    of encoding the tensor-core kernel's TMA maps at the serving
+    prefill."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
 
@@ -1267,21 +1276,13 @@ def attention_rows(torch, gen) -> dict:
                            flops_share=flops / ms * 1e3 / BF16_FLOPS_PER_S,
                            vs_sdpa=ms / library_ms,
                            max_abs_err=abs_e, max_rel_err=rel_e)
-        if name in ("serve_prefill", "qwen_8k"):
-            qf, kf, vf = q.float(), k.float(), v.float()
-            f32_ms = time_cuda(torch, lambda: fa.flash_attention_cuda(
-                qf, kf, vf, window=window), warmup=1, iters=3)
-            f32_sdpa_ms = time_cuda(torch, sdpa(torch, qf, kf, vf, window),
-                                    warmup=1, iters=3)
-            timed[name]["f32"] = dict(impl=fa.design(qf, kf, vf), ms=f32_ms,
-                                      library_ms=f32_sdpa_ms,
-                                      vs_sdpa=f32_ms / f32_sdpa_ms,
-                                      tflops=flops / f32_ms / 1e9)
-            del qf, kf, vf
         if name == "serve_prefill":
             timed[name]["host_us"] = attention_host_us(torch, q, k, v)
         del q, k, v
         torch.cuda.empty_cache()
+    for name, B, Hq, Hkv, S, D, window in ATTN_F32_TIMED:
+        timed.setdefault(name, {})["f32"] = attention_f32_row(
+            torch, gen, name, B, Hq, Hkv, S, D, window)
     emit("flash_attention", tol=ATTN_TOL, cases=cases, **timed)
     row = timed["serve_prefill"]
     return dict(route="cuda", source="src/repro_torch/kernels/csrc/"
@@ -1290,6 +1291,41 @@ def attention_rows(torch, gen) -> dict:
                 **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms",
                                        "shape")})
+
+
+def attention_f32_row(torch, gen, name, B, Hq, Hkv, S, D, window) -> dict:
+    """The SIMT kernel in f32 at one timed shape: held to its plain
+    version, two calls bitwise equal; its ms beside the plain version's,
+    SDPA's in f32 and the bound at the f32 rate, with the share of that
+    bound it reaches and its ratio to SDPA."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = attention_inputs(torch, gen, B, Hq, Hkv, S, S, D,
+                               torch.float32)
+    big = S > 2048
+    got = fa.flash_attention_cuda(q, k, v, window=window)
+    abs_e, rel_e = attention_err(
+        torch, got, fa.flash_attention_plain(q, k, v, window=window),
+        "float32", f"{name} f32")
+    check(torch.equal(got, fa.flash_attention_cuda(q, k, v, window=window)),
+          f"flash_attention {name} f32: two calls differ")
+    del got
+    ms = time_cuda(torch, lambda: fa.flash_attention_cuda(
+        q, k, v, window=window), warmup=1, iters=3 if big else 10)
+    plain_ms = time_cuda(torch, lambda: fa.flash_attention_plain(
+        q, k, v, window=window), warmup=1, iters=1 if big else 5)
+    library_ms = time_cuda(torch, sdpa(torch, q, k, v, window), warmup=1,
+                           iters=3 if big else 10)
+    flops, nbytes, b_ms, b_by = attention_bound(B, Hq, Hkv, S, S, D, window,
+                                                f32=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return dict(shape=[B, Hq, Hkv, S, D], window=window, impl="simt", ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                bound_by=b_by, flops=flops, bytes=nbytes,
+                tflops=flops / ms / 1e9, bound_share=b_ms / ms,
+                vs_sdpa=ms / library_ms, max_abs_err=abs_e,
+                max_rel_err=rel_e, bitwise_twice=True)
 
 
 def attention_host_us(torch, q, k, v, calls: int = 2000):
@@ -4487,11 +4523,13 @@ def qwen_100m(torch, root: str) -> dict:
     """examples/train_lm.py's run on the card: ``qwen-100m`` registered
     as the example registers it, `train_lm` for 200 steps of 8 x 256
     with a checkpoint every 50; the mean of the last 10 losses below
-    the first 10's."""
+    the first 10's; the f32 attention kernels' launches over the run and
+    a step."""
     import numpy as np
 
     from repro_torch.configs import base
     from repro_torch.configs._lm_common import lm_shapes, lm_smoke_step
+    from repro_torch.kernels import ops
     from repro_torch.launch.train import train_lm
     from repro_torch.models.transformer import LMConfig, init_lm
 
@@ -4501,12 +4539,16 @@ def qwen_100m(torch, root: str) -> dict:
         config=cfg, smoke_config=cfg, shapes=lm_shapes(), init_fn=init_lm,
         smoke_step=lm_smoke_step))
     d = os.path.join(root, "qwen-100m")
+    before = ops.launch_counts()
     t = time.perf_counter()
     _, losses, loop = train_lm("qwen-100m", smoke=True, steps=Q100M_STEPS,
                                batch=Q100M_B, seq_len=Q100M_S,
                                checkpoint_dir=d, save_every=Q100M_SAVE,
                                log=lambda *a: None, device=DEV)
     total_s = time.perf_counter() - t
+    launches = {key: n - before.get(key, 0)
+                for key, n in ops.launch_counts().items()
+                if key in ("flash_attention:simt", "flash_attention_bwd:simt")}
     first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
     check(all(math.isfinite(x) for x in losses) and last < first,
           f"lm_train qwen-100m: first-10 mean {first}, last-10 {last}")
@@ -4516,7 +4558,9 @@ def qwen_100m(torch, root: str) -> dict:
                 batch=Q100M_B, seq=Q100M_S, first10_mean=first,
                 last10_mean=last, losses_every_10=losses[::10],
                 step_ms_median=ms[len(ms) // 2], step_ms_max=ms[-1],
-                total_s=total_s, files=files,
+                total_s=total_s, files=files, attention_launches=launches,
+                attention_launches_per_step={
+                    key: n / len(losses) for key, n in launches.items()},
                 checkpoint_bytes=os.path.getsize(
                     os.path.join(d, files[-1])))
 

@@ -1,31 +1,56 @@
 #!/usr/bin/env python3
-"""Time the attention backward kernels on the card, alone.
+"""Time the attention kernels on the card, alone: the backward, or with
+``--forward`` the f32 forward.
 
     python3 scripts/attention_bwd_probe.py [--repeats 3] [--yardsticks]
         [--kernels] [--root DIR]
+    python3 scripts/attention_bwd_probe.py --forward [--repeats 3]
+        [--root DIR]
 
-Builds the port's kernels from ``DIR/src`` (default: this checkout) and
-times ``flash_attention_backward_cuda`` (CUDA events, the mean of 20
-calls after 3 warm-ups, ``--repeats`` times) at ``chip_smoke.py``'s
-backward shapes, ``ATTN_BWD_TRAIN`` (Qwen1.5-0.5B's training shape) and
-``ATTN_BWD_SHAPES`` (grok-1's heads, h2o-danube-3's with its window,
-qwen-100m's in f32), beside each shape's bound from ``chip_smoke.py``'s
-``attention_bwd_bound`` (the gradient's 10 D flops an admitted pair at
-the roofline's h100 rate for the dtype); with ``--yardsticks``, each
-repeat also times ``chip_smoke.py``'s ``attention_bwd_yardsticks`` there
-(the plain backward and SDPA's backward alone); with ``--kernels``, the
-device ms of each kernel and memset of one call (the mean of 5 under
-``torch.profiler``), by name.  Prints one JSON line with the card's name
-and power limit.  Run it from two checkouts in one call to compare two
-versions on one card.
+Builds the port's kernels from ``DIR/src`` (default: this checkout; the
+helpers and shapes come from this checkout's ``chip_smoke.py``) and
+prints one JSON line with the card's name and power limit.  Run it from
+two checkouts in one call to compare two versions on one card: ``--root``
+each in turn, in the order parent, change, change, parent.
+
+The backward (the default): times ``flash_attention_backward_cuda``
+(CUDA events, the mean of 20 calls after 3 warm-ups, ``--repeats``
+times) at ``chip_smoke.py``'s backward shapes, ``ATTN_BWD_TRAIN``
+(Qwen1.5-0.5B's training shape) and ``ATTN_BWD_SHAPES`` (grok-1's heads,
+h2o-danube-3's with its window, qwen-100m's in f32), beside each shape's
+bound from ``attention_bwd_bound`` (the gradient's 10 D flops an admitted
+pair at the roofline's h100 rate for the dtype); with ``--yardsticks``,
+each repeat also times ``attention_bwd_yardsticks`` there (the plain
+backward and SDPA's backward alone); with ``--kernels``, the device ms of
+each kernel and memset of one call (the mean of 5 under
+``torch.profiler``), by name.
+
+``--forward``: builds the f32 forward's source alone and times
+``flash_attention_cuda`` in f32 (the SIMT kernel; the mean of 20 calls
+after 3 warm-ups, ``--repeats`` times) at ``chip_smoke.py``'s
+``ATTN_F32_TIMED`` shapes and Danube's windowed one (``danube_8k`` of
+``ATTN_TIMED``), each repeat beside SDPA in f32 on the same inputs, with
+the bound at the f32 rate (`attention_bound`) and the share of it the
+kernel reaches; then the kernel's and SDPA's device ms alone (the mean
+of 5 calls under ``torch.profiler``, as ``--kernels``), which at the
+small shapes is below the calls' enqueue time.  Each shape's output is held to the
+plain version (``ATTN_TOL``), compared bitwise with a second call, and
+the plain version timed once (the mean of 2 calls after 1).
+Where the build has ``repro_flash_attention_config``, each shape also
+gets its tile: query rows a block, shared memory, registers and local
+(stack and spill) bytes a thread, blocks an SM; and ptxas's register
+and spill lines of the build, either way.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import subprocess
 import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def kernel_ms(torch, call, n: int) -> dict:
@@ -50,29 +75,21 @@ def kernel_ms(torch, call, n: int) -> dict:
     return ms
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--repeats", type=int, default=3)
-    ap.add_argument("--yardsticks", action="store_true")
-    ap.add_argument("--kernels", action="store_true")
-    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    args = ap.parse_args()
-    import torch
-    if not torch.cuda.is_available():
-        print("attention_bwd_probe: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path[:0] = [os.path.join(args.root, "src"), args.root]
-    import chip_smoke
-    from repro_torch.kernels import flash_attention as fa
+def event_ms(torch, call, warmup: int = 3, iters: int = 20) -> float:
+    """The mean ms of ``iters`` calls after ``warmup``, CUDA events."""
+    for _ in range(warmup):
+        call()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        call()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
 
-    chip_smoke.load_peaks()
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    out = {"root": args.root, "nvidia_smi": smi}
+def backward(torch, args, chip_smoke, fa, gen, out) -> None:
     for name, B, Hq, Hkv, S, D, window, dtype in (
             (chip_smoke.ATTN_BWD_TRAIN,) + chip_smoke.ATTN_BWD_SHAPES):
         def draw(h):
@@ -91,16 +108,7 @@ def main() -> int:
             if args.yardsticks:
                 yardsticks.append(chip_smoke.attention_bwd_yardsticks(
                     torch, q, k, v, dout, window))
-            for _ in range(3):
-                call()
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            for _ in range(20):
-                call()
-            t1.record()
-            torch.cuda.synchronize()
-            runs.append(t0.elapsed_time(t1) / 20)
+            runs.append(event_ms(torch, call))
         bound_ms, _, design_ms, _ = chip_smoke.attention_bwd_bound(
             B, Hq, Hkv, S, D, window, f32=dtype == "float32")
         out[name] = dict(shape=[B, Hq, Hkv, S, D], window=window,
@@ -113,6 +121,95 @@ def main() -> int:
             out[name]["kernel_ms"] = kernel_ms(torch, call, 5)
         del q, k, v, dout, lse
         torch.cuda.empty_cache()
+
+
+def forward_tile(lib, S: int, D: int) -> dict | None:
+    """What the build says a launch at (S, D) runs, where it can say."""
+    try:
+        fn = lib.repro_flash_attention_config
+    except AttributeError:
+        return None
+    info = (ctypes.c_int * 5)()
+    fn.argtypes = (ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+    if fn(S, D, ctypes.addressof(info)) != 0:
+        return None
+    return dict(zip(("rows", "smem_bytes", "registers", "local_bytes",
+                     "blocks_per_sm"), info))
+
+
+def forward(torch, args, chip_smoke, fa, gen, out) -> None:
+    from repro_torch.kernels import build
+
+    # the f32 forward's library alone: the other sources are not timed
+    build.build_all(("flash_attention",))
+    lib = ctypes.CDLL(str(build.lib_path("flash_attention")))
+    build._libs.setdefault("flash_attention", lib)
+    log = build.BUILD_DIR / "flash_attention.log"
+    if log.exists():
+        out["ptxas"] = [line.strip() for line in log.read_text().splitlines()
+                        if "registers" in line or "spill" in line]
+    shapes = chip_smoke.ATTN_F32_TIMED + tuple(
+        row for row in chip_smoke.ATTN_TIMED if row[0] == "danube_8k")
+    for name, B, Hq, Hkv, S, D, window in shapes:
+        q, k, v = chip_smoke.attention_inputs(torch, gen, B, Hq, Hkv, S, S,
+                                              D, torch.float32)
+
+        def call():
+            return fa.flash_attention_cuda(q, k, v, window=window)
+
+        got = call()
+        abs_e, rel_e = chip_smoke.attention_err(
+            torch, got, fa.flash_attention_plain(q, k, v, window=window),
+            "float32", f"{name} f32")
+        bitwise = bool(torch.equal(got, call()))
+        del got
+        plain_ms = event_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, window=window), warmup=1, iters=2)
+        lib_call = chip_smoke.sdpa(torch, q, k, v, window)
+        runs, sdpa_runs = [], []
+        for _ in range(args.repeats):
+            sdpa_runs.append(event_ms(torch, lib_call))
+            runs.append(event_ms(torch, call))
+        _, _, bound_ms, _ = chip_smoke.attention_bound(
+            B, Hq, Hkv, S, S, D, window, f32=True)
+        out[name] = dict(shape=[B, Hq, Hkv, S, D], window=window, ms=runs,
+                         device_ms=kernel_ms(torch, call, 5),
+                         sdpa_ms=sdpa_runs,
+                         sdpa_device_ms=kernel_ms(torch, lib_call, 5),
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_share=[bound_ms / ms for ms in runs],
+                         max_abs_err=abs_e, max_rel_err=rel_e,
+                         bitwise_twice=bitwise,
+                         tile=forward_tile(lib, S, D))
+        del q, k, v, lib_call
+        torch.cuda.empty_cache()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--forward", action="store_true")
+    ap.add_argument("--yardsticks", action="store_true")
+    ap.add_argument("--kernels", action="store_true")
+    ap.add_argument("--root", default=HERE)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("attention_bwd_probe: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path[:0] = [os.path.join(args.root, "src"), HERE]
+    import chip_smoke
+    from repro_torch.kernels import flash_attention as fa
+
+    chip_smoke.load_peaks()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"root": args.root, "nvidia_smi": smi,
+           "mode": "forward" if args.forward else "backward"}
+    (forward if args.forward else backward)(torch, args, chip_smoke, fa,
+                                            gen, out)
     print(json.dumps(out), flush=True)
     return 0
 

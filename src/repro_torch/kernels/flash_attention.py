@@ -49,11 +49,20 @@ dtype on a CUDA tensor:
   relative error of at most 2**-9 a term, inside the bf16 tolerance.  Left
   for later: a softmax/GEMM pingpong, GQA sharing of staged K/V, fp8, a
   backward kernel.
-- **f32: ``csrc/flash_attention.cu``**, SIMT f32 FMAs (one block per
-  ``(b * Hq + h, 64-query tile)``, K and V staged in shared memory as
-  f32).  The tensor cores would round f32 operands to TF32, which the f32
-  contract (1e-4, and f32 greedy tokens equal to the reference's) does not
-  allow; its bound is the f32 rate of 67 TFLOP/s.
+- **f32: ``csrc/flash_attention.cu``**, SIMT f32 FMAs.  The tensor
+  cores would round f32 operands to TF32, which the f32 contract (1e-4,
+  and f32 greedy tokens equal to the reference's) does not allow; its
+  bound is the f32 rate of 67 TFLOP/s (2.05 ms at 1 x 16 x 8,192 x 64).
+  One block of 256 threads per (query tile, ``b * Hq + h``), the grid one
+  axis of them, heaviest tiles first; a thread owns 8 query rows (4 below
+  Sq 1,024, where the tile is 64 queries, not 128) by 4 keys of S and the
+  same rows of O, so every operand is a conflict-free 16-byte
+  shared-memory load, 8 wavefronts a warp per 64 FMAs at D 64; K and V
+  stream through two 64-key shared-memory stages filled by
+  ``cp.async``, each landing while the other product runs; only the
+  tiles on the diagonal or a window edge evaluate the mask; P is
+  ``ex2.approx`` of one FMA.  Registers, spills and blocks an SM: the
+  source's header.
 
 Every CUDA launch counts once under ``flash_attention`` and once under
 ``flash_attention:<design>`` (`_common.launch_counts`).
@@ -310,9 +319,11 @@ _SOURCE = {"tc": "flash_attention_tc", "simt": "flash_attention"}
 BWD_KERNEL = "flash_attention_bwd"
 _BWD_SOURCE = {"tc": "flash_attention_bwd_tc", "simt": "flash_attention_bwd"}
 #: query rows a tensor-core block takes, and CUDA's cap on a grid's
-#: second axis (the SIMT grid is (query tiles, B * Hq), the tensor-core
-#: one (B * Hq, query tiles))
+#: second axis (the tensor-core grid is (B * Hq, query tiles))
 _TC_BLOCK_Q, _GRID_MAX = 128, 65535
+#: the SIMT forward's smallest query tile, and CUDA's cap on a grid's
+#: first axis, where that kernel puts its B * Hq * query tiles blocks
+_SIMT_BLOCK_Q, _GRID_X_MAX = 64, 2**31 - 1
 #: the backward's smallest tile of rows (its grids are (heads, tiles))
 _BWD_TILE = {"tc": 64, "simt": 32}
 
@@ -340,11 +351,14 @@ def _launch_checks(q, k, v, causal: bool) -> str:
     if D % 8 or not 0 < D <= 256:
         raise ValueError(f"{KERNEL}: head dim {D} must be a multiple of 8 "
                          f"up to 256")
-    rows = B * Hq if impl == "simt" else -(-Sq // _TC_BLOCK_Q)
-    if rows > _GRID_MAX:
-        raise ValueError(f"{KERNEL}: {'B * Hq' if impl == 'simt' else 'Sq'}"
-                         f" exceeds the {impl} kernel's grid ({rows} > "
-                         f"{_GRID_MAX:,} blocks)")
+    if impl == "simt":
+        what, blocks, cap = ("B * Hq * query tiles",
+                             B * Hq * -(-Sq // _SIMT_BLOCK_Q), _GRID_X_MAX)
+    else:
+        what, blocks, cap = "Sq", -(-Sq // _TC_BLOCK_Q), _GRID_MAX
+    if blocks > cap:
+        raise ValueError(f"{KERNEL}: {what} exceeds the {impl} kernel's "
+                         f"grid ({blocks:,} > {cap:,} blocks)")
     return impl
 
 

@@ -229,13 +229,44 @@ def test_cuda_wrapper_picks_the_kernel_by_dtype(monkeypatch):
         fa.flash_attention_cuda(q.bfloat16(), k.bfloat16(), v.bfloat16())
     assert ops.launch_counts()["flash_attention:tc"] == 1
     _Lib.err[0] = 0
-    # the SIMT grid's second axis is B * Hq, the tensor-core grid's first
+    # B * Hq past a grid's second axis: the tensor-core grid's first, a
+    # factor of the SIMT grid's one axis; that axis refuses 2**31 blocks
     wide = torch.zeros((1, 65536, 1, 8))
+    for dtype, source in ((torch.float32, "flash_attention"),
+                          (torch.bfloat16, "flash_attention_tc")):
+        fa.flash_attention_cuda(wide.to(dtype), wide.to(dtype),
+                                wide.to(dtype))
+        assert _Lib.calls[-1][0] == source
+    calls = len(_Lib.calls)
+    huge = torch.zeros((1, 65536, 64 * 32768, 8), device="meta")
     with pytest.raises(ValueError, match="simt kernel's grid"):
-        fa.flash_attention_cuda(wide, wide, wide)
-    fa.flash_attention_cuda(wide.bfloat16(), wide.bfloat16(),
-                            wide.bfloat16())
-    assert _Lib.calls[-1][0] == "flash_attention_tc"
+        fa.flash_attention_cuda(huge, huge, huge)
+    assert len(_Lib.calls) == calls
+
+
+def test_f32_forward_bound():
+    """The SIMT kernel's bound at ``chip_smoke.py``'s f32 rows: 4 D flops
+    an admitted pair (`fa.admitted_pairs`) at the roofline's f32 rate of
+    67 TFLOP/s, which outweighs the bytes: 0.0321 ms at the serving
+    prefill (a), 2.052 ms at Qwen's 8k prefill (b)."""
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    chip_smoke.load_peaks()
+    rows = {name: chip_smoke.attention_bound(B, Hq, Hkv, S, S, D, window,
+                                             f32=True)
+            for name, B, Hq, Hkv, S, D, window in chip_smoke.ATTN_F32_TIMED}
+    assert rows["serve_prefill"][0] == 4 * 64 * 64 * fa.admitted_pairs(
+        512, 512) == 4 * 64 * 64 * 512 * 513 // 2
+    assert rows["qwen_8k"][0] == 4 * 64 * 16 * 8192 * 8193 // 2
+    assert round(rows["serve_prefill"][2], 4) == 0.0321
+    assert round(rows["qwen_8k"][2], 3) == 2.052
+    assert {row[3] for row in rows.values()} == {"operations"}
 
 
 # ------------------------------------------------------------- RoPE ----

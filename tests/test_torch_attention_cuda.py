@@ -22,7 +22,11 @@ pytestmark = pytest.mark.cuda
 TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 
 # (B, Hq, Hkv, Sq, Skv, D, window): D 8 to 256, GQA 4:1 and 2:1, windows,
-# decode-shaped Sq 1, Sq not a multiple of 64 or 128, Sq < Skv
+# decode-shaped Sq 1, Sq not a multiple of 64 or 128, Sq < Skv; then the
+# SIMT kernel's tiles (64 query rows below Sq 1,024, 128 from it, 64-key
+# stages): one past a query and a key tile's edge, windows that are and
+# are not a multiple of the key tile, Sq 1 against 4,097 keys at D 256,
+# D 8 and D 120 at Sq 300, and the 128-row tile at D 64 and D 120
 CASES = [
     (4, 16, 16, 512, 512, 64, 0), (2, 4, 2, 1000, 1000, 64, 0),
     (4, 16, 16, 1, 512, 64, 0), (2, 4, 4, 100, 1000, 64, 64),
@@ -30,6 +34,11 @@ CASES = [
     (1, 2, 2, 130, 130, 256, 0), (3, 2, 1, 65, 65, 8, 5),
     (1, 4, 2, 129, 129, 128, 64), (1, 8, 2, 700, 1500, 120, 300),
     (2, 2, 1, 200, 333, 256, 50), (1, 4, 4, 1, 1, 64, 0),
+    (1, 4, 2, 129, 129, 64, 0), (1, 4, 2, 257, 4097, 64, 0),
+    (1, 4, 2, 1000, 1000, 64, 192), (1, 4, 2, 1000, 1000, 64, 200),
+    (1, 4, 1, 1, 4097, 256, 0), (1, 4, 2, 300, 300, 8, 0),
+    (2, 4, 2, 300, 300, 120, 0), (1, 4, 2, 1025, 1025, 64, 0),
+    (1, 4, 2, 1153, 4097, 120, 0), (1, 2, 2, 1100, 1100, 120, 1000),
 ]
 
 
@@ -80,6 +89,25 @@ def test_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D, window, dtype):
     assert counts.get(f"flash_attention:{({'tc', 'simt'} - {impl}).pop()}",
                       0) == 0
     _check(got, fa.flash_attention_plain(q, k, v, window=window), dtype)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,window", [
+    (1, 4, 2, 1025, 1025, 64, 0), (2, 4, 2, 300, 300, 120, 100)])
+def test_f32_lse_matches_plain_and_repeats(cuda, B, Hq, Hkv, Sq, Skv, D,
+                                           window):
+    """The SIMT kernel's logsumexp (what the f32 backward reads) within
+    ``1e-5 * (1 + |ref|)`` of the plain version's, and two calls give
+    the same bits, output and lse."""
+    q, k, v = _qkv(B, Hq, Hkv, Sq, Skv, D, torch.float32, seed=Sq + window)
+    out, lse = fa.forward_cuda(q, k, v, window=window, with_lse=True)
+    out2, lse2 = fa.forward_cuda(q, k, v, window=window, with_lse=True)
+    want, _ = fa.flash_attention_stats_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    err = float(((lse - want).abs() / (1 + want.abs())).max())
+    assert err <= 1e-5, err
+    _check(out, fa.flash_attention_plain(q, k, v, window=window),
+           torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
