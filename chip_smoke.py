@@ -172,7 +172,11 @@ Phases, one JSON line each:
             alone (a yardstick), with the bound at 10 D and the
             design's 16 D flops a pair; the backward at grok's and
             Danube's head shapes and, in f32, at qwen-100m's, against
-            the plain backward; then
+            the plain backward; the f32 backward at ATTN_BWD_F32_TIMED
+            (from the forward's logsumexp and output: within 1e-4 of
+            the plain backward, two calls bitwise, call ms and graph_ms,
+            the bound at 10 D and 14 D, SDPA's f32 backward);
+            then
             moonshot-v1-16b-a3b at full width cut to 2 layers (64
             experts top-6, capacity 960) takes two steps in a loop that
             writes no checkpoint, on 2 x 4,096 (each step's dropped
@@ -4575,6 +4579,12 @@ ATTN_BWD_TRAIN = ("qwen", QWEN_B, 16, 16, TRAIN_S, 64, 0, "bfloat16")
 ATTN_BWD_SHAPES = (("grok", 1, 48, 8, 2048, 128, 0, "bfloat16"),
                    ("danube", 1, 32, 8, 6144, 120, 4096, "bfloat16"),
                    ("qwen-100m", 8, 8, 8, 256, 64, 0, "float32"))
+#: the f32 backward's timed shapes, (name, B, Hq, Hkv, S, D, window):
+#: ATTN_F32_TIMED's (the serving prefill, Qwen's 8k prefill, qwen-100m's
+#: training shape) and Danube's attention with its window (danube_8k of
+#: ATTN_TIMED), which attention_bwd_f32_rows runs
+ATTN_BWD_F32_TIMED = ATTN_F32_TIMED + tuple(
+    row for row in ATTN_TIMED if row[0] == "danube_8k")
 
 
 def attention_bwd_bound(B, Hq, Hkv, S, D, window, f32: bool = False):
@@ -4585,7 +4595,9 @@ def attention_bwd_bound(B, Hq, Hkv, S, D, window, f32: bool = False):
     tensor-core design's 16 D at D <= 64 (delta's S and dP, then S, dP,
     dV with P in two parts, dK and dQ) or 22 D above it (the dQ pass's
     two walks, dK with dS in two parts), f32 at the f32 rate outside the
-    tensor cores and 18 D (the SIMT design)."""
+    tensor cores and 14 D (the SIMT design: the dQ pass's S, dP and dQ
+    in one walk, delta from the f32 output; the dK/dV pass's S, dP, dV
+    and dK)."""
     from repro_torch.kernels import flash_attention as fa
 
     pairs = B * Hq * fa.admitted_pairs(S, S, window=window)
@@ -4593,7 +4605,7 @@ def attention_bwd_bound(B, Hq, Hkv, S, D, window, f32: bool = False):
         + 4 * B * Hq * S
     rate = ALU_OPS_PER_S if f32 else BF16_FLOPS_PER_S
     b_ms, by = bound(nbytes, 10 * D * pairs, rate)
-    design = 18 if f32 else 16 if D <= 64 else 22
+    design = 14 if f32 else 16 if D <= 64 else 22
     design_ms, _ = bound(nbytes, design * D * pairs, rate)
     return b_ms, by, design_ms, nbytes
 
@@ -4628,9 +4640,11 @@ def attention_bwd_shapes(torch) -> dict:
         q, k, v = attention_inputs(torch, gen, B, Hq, Hkv, S, S, D, dtype)
         dout = torch.randn(q.shape, generator=gen, device=DEV).to(dtype)
         ops.reset_launches()
-        _, lse = fa.forward_cuda(q, k, v, window=window, with_lse=True)
+        o, lse = fa.forward_cuda(q, k, v, window=window, with_lse=True)
+        # the f32 backward takes delta from the forward's output
+        extra = {"out": o} if dtype == torch.float32 else {}
         got = fa.flash_attention_backward_cuda(q, k, v, lse, dout,
-                                               window=window)
+                                               window=window, **extra)
         launches = ops.launch_counts()
         check(launches.get("flash_attention_bwd", 0) == 1
               and launches.get(f"flash_attention_bwd:{fa.design(q, k, v)}",
@@ -4646,7 +4660,7 @@ def attention_bwd_shapes(torch) -> dict:
                                          f"backward {name} {g_name}")
         del got, want
         ms = time_cuda(torch, lambda: fa.flash_attention_backward_cuda(
-            q, k, v, lse, dout, window=window), warmup=1, iters=5)
+            q, k, v, lse, dout, window=window, **extra), warmup=1, iters=5)
         plain_ms, library_ms = attention_bwd_yardsticks(torch, q, k, v,
                                                         dout, window)
         b_ms, by, design_ms, _ = attention_bwd_bound(
@@ -4658,7 +4672,62 @@ def attention_bwd_shapes(torch) -> dict:
                          rel_err={n: e[1] for n, e in errs.items()},
                          bound_ms=b_ms, bound_by=by,
                          design_bound_ms=design_ms)
-        del q, k, v, dout, lse
+        del q, k, v, dout, lse, o, extra
+        torch.cuda.empty_cache()
+    return out
+
+
+def attention_bwd_f32_rows(torch) -> dict:
+    """The SIMT backward at ATTN_BWD_F32_TIMED, from the f32 forward's
+    logsumexp and output: dq, dk, dv against the plain backward
+    (ATTN_TOL), two calls bitwise; its ms (CUDA events, 3 calls above S
+    2,048) and its device ms with no host launch cost (`graph_ms`: the
+    calls in a CUDA graph; the profiler records no kernels this late in
+    a whole run, see fm_profile_phase), beside the bound at the
+    gradient's 10 D and the design's 14 D, the plain backward's ms and
+    SDPA's f32 backward alone (attention_bwd_yardsticks); each pass's
+    device ms: scripts/attention_bwd_probe.py --f32-backward."""
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    out = {}
+    for name, B, Hq, Hkv, S, D, window in ATTN_BWD_F32_TIMED:
+        q, k, v = attention_inputs(torch, gen, B, Hq, Hkv, S, S, D,
+                                   torch.float32)
+        dout = torch.randn(q.shape, generator=gen, device=DEV)
+        o, lse = fa.forward_cuda(q, k, v, window=window, with_lse=True)
+
+        def call():
+            return fa.flash_attention_backward_cuda(q, k, v, lse, dout,
+                                                    window=window, out=o)
+
+        got = call()
+        want = fa.flash_attention_backward_plain(q, k, v, dout,
+                                                 window=window)
+        errs = {g_name: attention_err(torch, g, w, "float32",
+                                      f"backward f32 {name} {g_name}")
+                for g_name, g, w in zip(("dq", "dk", "dv"), got, want)}
+        check(all(bool(torch.equal(a, b)) for a, b in zip(got, call())),
+              f"flash_attention_bwd f32 {name}: two calls differ")
+        del got, want
+        big = S > 2048
+        ms = time_cuda(torch, call, warmup=1, iters=3 if big else 10)
+        graph_ms = time_graph(torch, call, iters=3 if big else 20, replays=2)
+        plain_ms, library_ms = attention_bwd_yardsticks(torch, q, k, v,
+                                                        dout, window)
+        b_ms, by, design_ms, nbytes = attention_bwd_bound(
+            B, Hq, Hkv, S, D, window, f32=True)
+        out[name] = dict(shape=[B, Hq, Hkv, S, D], window=window,
+                         impl="simt", ms=ms, graph_ms=graph_ms,
+                         plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=b_ms, bound_by=by,
+                         design_bound_ms=design_ms, bytes=nbytes,
+                         bound_share=b_ms / ms, design_share=design_ms / ms,
+                         vs_sdpa=ms / library_ms,
+                         max_abs_err={n: e[0] for n, e in errs.items()},
+                         rel_err={n: e[1] for n, e in errs.items()},
+                         bitwise_twice=True)
+        del q, k, v, dout, o, lse
         torch.cuda.empty_cache()
     return out
 
@@ -4671,8 +4740,9 @@ def attention_grad_check(torch, B, H, S, D) -> dict:
     alone, from a saved logsumexp) beside the plain backward's, SDPA's
     forward + backward and its backward alone (a yardstick, never called
     by the port), with the bound at the gradient's 10 D flops a pair and
-    at the design's 16 D; and the backward at ATTN_BWD_SHAPES.  -> the
-    kernel table's row of flash_attention_bwd and the phase's record."""
+    at the design's 16 D; the backward at ATTN_BWD_SHAPES and the f32
+    backward at ATTN_BWD_F32_TIMED.  -> the kernel table's row of
+    flash_attention_bwd and the phase's record."""
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device=DEV).manual_seed(5)
@@ -4716,6 +4786,7 @@ def attention_grad_check(torch, B, H, S, D) -> dict:
     flops, nbytes, bound_ms, by = attention_bound(B, H, H, S, S, D, 0)
     b_ms, b_by, design_ms, bwd_bytes = attention_bwd_bound(B, H, H, S, D, 0)
     shapes = attention_bwd_shapes(torch)
+    f32_rows = attention_bwd_f32_rows(torch)
     row = dict(route="cuda", source="src/repro_torch/kernels/csrc/"
                "flash_attention_bwd_tc.cu", replaces="src/repro/kernels/"
                "flash_attention.py:72",
@@ -4735,7 +4806,7 @@ def attention_grad_check(torch, B, H, S, D) -> dict:
                   bwd_design_bound_ms=design_ms, bwd_bytes=bwd_bytes,
                   bwd_share_of_bound=b_ms / bwd_ms, bwd_vs_sdpa=bwd_ms
                   / sdpa_bwd_ms, bwd_bitwise_twice=same,
-                  other_shapes=shapes)
+                  other_shapes=shapes, f32_timed=f32_rows)
     return row, record
 
 

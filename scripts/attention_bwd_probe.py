@@ -6,6 +6,8 @@
         [--kernels] [--root DIR]
     python3 scripts/attention_bwd_probe.py --forward [--repeats 3]
         [--root DIR]
+    python3 scripts/attention_bwd_probe.py --f32-backward [--repeats 3]
+        [--root DIR]
 
 Builds the port's kernels from ``DIR/src`` (default: this checkout; the
 helpers and shapes come from this checkout's ``chip_smoke.py``) and
@@ -40,15 +42,33 @@ Where the build has ``repro_flash_attention_config``, each shape also
 gets its tile: query rows a block, shared memory, registers and local
 (stack and spill) bytes a thread, blocks an SM; and ptxas's register
 and spill lines of the build, either way.
+
+``--f32-backward``: builds the f32 forward's and backward's sources
+alone and times ``flash_attention_backward_cuda`` in f32 (the SIMT
+kernels, from the forward's logsumexp and, where the checkout's wrapper
+takes it, its output; the mean of 20 calls after a warm-up, 5 at S
+above 2,048, ``--repeats`` times) at ``chip_smoke.py``'s
+``ATTN_BWD_F32_TIMED``, each repeat beside SDPA's f32 backward alone on
+the same inputs; the bound at the gradient's 10 D flops a pair and at
+the design's (`attention_bwd_bound`), the share of the 10 D bound; the
+device ms of each pass and of SDPA's backward under the profiler; dq,
+dk, dv held to the plain backward (``ATTN_TOL``), two calls bitwise,
+the plain backward timed once; each pass's tile from
+``repro_flash_attention_bwd_config`` where the build has it, and
+ptxas's lines.  At qwen-100m's shape it also takes the host µs of one
+Python call of each direction (the mean of 200 enqueued without a
+sync) and of binding the backward's C entry point (`_common.bind`).
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import inspect
 import json
 import os
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -97,11 +117,15 @@ def backward(torch, args, chip_smoke, fa, gen, out) -> None:
                                device="cuda").to(getattr(torch, dtype))
 
         q, k, v, dout = draw(Hq), draw(Hkv), draw(Hkv), draw(Hq)
-        _, lse = fa.forward_cuda(q, k, v, window=window, with_lse=True)
+        o, lse = fa.forward_cuda(q, k, v, window=window, with_lse=True)
+        # an f32 backward that takes delta from the forward's output
+        extra = {"out": o} if dtype == "float32" and "out" in \
+            inspect.signature(fa.flash_attention_backward_cuda).parameters \
+            else {}
 
         def call():
             return fa.flash_attention_backward_cuda(q, k, v, lse, dout,
-                                                    window=window)
+                                                    window=window, **extra)
 
         runs, yardsticks = [], []
         for _ in range(args.repeats):
@@ -119,7 +143,7 @@ def backward(torch, args, chip_smoke, fa, gen, out) -> None:
                              library_ms=[y[1] for y in yardsticks])
         if args.kernels:
             out[name]["kernel_ms"] = kernel_ms(torch, call, 5)
-        del q, k, v, dout, lse
+        del q, k, v, dout, lse, o, extra
         torch.cuda.empty_cache()
 
 
@@ -144,10 +168,7 @@ def forward(torch, args, chip_smoke, fa, gen, out) -> None:
     build.build_all(("flash_attention",))
     lib = ctypes.CDLL(str(build.lib_path("flash_attention")))
     build._libs.setdefault("flash_attention", lib)
-    log = build.BUILD_DIR / "flash_attention.log"
-    if log.exists():
-        out["ptxas"] = [line.strip() for line in log.read_text().splitlines()
-                        if "registers" in line or "spill" in line]
+    out["ptxas"] = ptxas_lines(build, "flash_attention")
     shapes = chip_smoke.ATTN_F32_TIMED + tuple(
         row for row in chip_smoke.ATTN_TIMED if row[0] == "danube_8k")
     for name, B, Hq, Hkv, S, D, window in shapes:
@@ -185,10 +206,130 @@ def forward(torch, args, chip_smoke, fa, gen, out) -> None:
         torch.cuda.empty_cache()
 
 
+def ptxas_lines(build, name: str) -> list:
+    log = build.BUILD_DIR / f"{name}.log"
+    if not log.exists():
+        return []
+    return [line.strip() for line in log.read_text().splitlines()
+            if "registers" in line or "spill" in line
+            or "Compiling entry" in line]
+
+
+def backward_tiles(lib, D: int) -> dict | None:
+    """What the build says each backward pass runs at head dim D, where
+    it can say: own rows a block, walked rows a tile, shared memory,
+    registers and local bytes a thread, blocks an SM, threads a block."""
+    try:
+        fn = lib.repro_flash_attention_bwd_config
+    except AttributeError:
+        return None
+    keys = ("rows", "walked", "smem_bytes", "registers", "local_bytes",
+            "blocks_per_sm", "threads")
+    tiles = {}
+    for npass, name in enumerate(("dq", "dkdv")):
+        info = (ctypes.c_int * 7)()
+        fn.argtypes = (ctypes.c_int,) * 2 + (ctypes.c_void_p,)
+        if fn(D, npass, ctypes.addressof(info)) != 0:
+            return None
+        tiles[name] = dict(zip(keys, info))
+    return tiles
+
+
+def host_us(torch, call, n: int = 200) -> float:
+    """Host µs of one Python call, ``n`` enqueued with no sync between."""
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def f32_backward(torch, args, chip_smoke, fa, gen, out) -> None:
+    from repro_torch.kernels import _common as C
+    from repro_torch.kernels import build
+
+    names = ("flash_attention", "flash_attention_bwd")
+    build.build_all(names)
+    for name in names:
+        build._libs.setdefault(name, ctypes.CDLL(str(build.lib_path(name))))
+    lib = build._libs["flash_attention_bwd"]
+    out["ptxas"] = ptxas_lines(build, "flash_attention_bwd")
+    takes_out = "out" in inspect.signature(
+        fa.flash_attention_backward_cuda).parameters
+    out["takes_out"] = takes_out
+    for name, B, Hq, Hkv, S, D, window in chip_smoke.ATTN_BWD_F32_TIMED:
+        big = S > 2048
+        q, k, v = chip_smoke.attention_inputs(torch, gen, B, Hq, Hkv, S, S,
+                                              D, torch.float32)
+        dout = torch.randn(q.shape, generator=gen, device="cuda")
+        o, lse = fa.forward_cuda(q, k, v, window=window, with_lse=True)
+        extra = {"out": o} if takes_out else {}
+
+        def call():
+            return fa.flash_attention_backward_cuda(q, k, v, lse, dout,
+                                                    window=window, **extra)
+
+        got = call()
+        want = fa.flash_attention_backward_plain(q, k, v, dout,
+                                                 window=window)
+        errs = {g_name: chip_smoke.attention_err(
+            torch, g, w, "float32", f"{name} backward {g_name}")
+            for g_name, g, w in zip(("dq", "dk", "dv"), got, want)}
+        bitwise = all(bool(torch.equal(a, b)) for a, b in zip(got, call()))
+        del got, want
+        plain_ms = event_ms(torch, lambda: fa.flash_attention_backward_plain(
+            q, k, v, dout, window=window), warmup=1, iters=1)
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        o_lib = chip_smoke.sdpa(torch, qg, kg, vg, window)()
+
+        def lib_call():
+            return torch.autograd.grad(o_lib, (qg, kg, vg), dout,
+                                       retain_graph=True)
+
+        iters = 5 if big else 20
+        runs, sdpa_runs = [], []
+        for _ in range(args.repeats):
+            sdpa_runs.append(event_ms(torch, lib_call, warmup=1,
+                                      iters=iters))
+            runs.append(event_ms(torch, call, warmup=1, iters=iters))
+        b_ms, by, design_ms, nbytes = chip_smoke.attention_bwd_bound(
+            B, Hq, Hkv, S, D, window, f32=True)
+        n_prof = 2 if big else 5
+        out[name] = dict(
+            shape=[B, Hq, Hkv, S, D], window=window, ms=runs,
+            kernel_ms=kernel_ms(torch, call, n_prof),
+            sdpa_ms=sdpa_runs, sdpa_device_ms=sum(
+                kernel_ms(torch, lib_call, n_prof).values()),
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+            design_bound_ms=design_ms, bytes=nbytes,
+            bound_share=[b_ms / ms for ms in runs],
+            max_abs_err={n: e[0] for n, e in errs.items()},
+            rel_err={n: e[1] for n, e in errs.items()},
+            bitwise_twice=bitwise, tile=backward_tiles(lib, D))
+        if name == "qwen_100m":
+            argtypes = ((C.VOIDP,) * (10 if takes_out else 9)
+                        + (C.I32,) * 8 + (ctypes.c_float, C.VOIDP))
+            n = 2000
+            t0 = time.perf_counter()
+            for _ in range(n):
+                C.bind(lib, "repro_flash_attention_bwd", argtypes)
+            bind_us = (time.perf_counter() - t0) / n * 1e6
+            out[name]["host_us"] = dict(
+                forward=host_us(torch, lambda: fa.forward_cuda(
+                    q, k, v, window=window, with_lse=True)),
+                backward=host_us(torch, call), bind=bind_us)
+        del q, k, v, dout, o, lse, qg, kg, vg, o_lib
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--forward", action="store_true")
+    ap.add_argument("--f32-backward", action="store_true")
     ap.add_argument("--yardsticks", action="store_true")
     ap.add_argument("--kernels", action="store_true")
     ap.add_argument("--root", default=HERE)
@@ -206,10 +347,11 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    out = {"root": args.root, "nvidia_smi": smi,
-           "mode": "forward" if args.forward else "backward"}
-    (forward if args.forward else backward)(torch, args, chip_smoke, fa,
-                                            gen, out)
+    mode = ("forward" if args.forward else
+            "f32_backward" if args.f32_backward else "backward")
+    out = {"root": args.root, "nvidia_smi": smi, "mode": mode}
+    {"forward": forward, "f32_backward": f32_backward,
+     "backward": backward}[mode](torch, args, chip_smoke, fa, gen, out)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -101,9 +101,14 @@ def on_device(kernel: str, *tensors):
 
 
 def bind(lib, fn: str, argtypes) -> ctypes._CFuncPtr:
+    """``lib.fn`` taking ``argtypes`` and returning an int.  The library
+    keeps the function, so its types are set on the first call only
+    (setting them costs more host time than the rest of a small launch's
+    wrapper)."""
     f = getattr(lib, fn)
-    f.argtypes = list(argtypes)
-    f.restype = ctypes.c_int
+    if getattr(f, "argtypes", None) is None:
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
     return f
 
 

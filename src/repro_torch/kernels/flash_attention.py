@@ -73,8 +73,11 @@ none (JAX differentiates its plain attention; there is no ``custom_vjp``
 under ``src/repro``): the function is `flash_attention_backward_plain`'s.
 For a gradient the forward also writes each row's logsumexp
 (`flash_attention_stats_plain` is its plain version); the backward
-(`flash_attention_backward_cuda`) takes it, recomputes P in f32 and takes
-``delta = rowsum(P * dP)`` from it, as the plain version does:
+(`flash_attention_backward_cuda`) takes it and recomputes P in f32.  Each
+design takes ``delta`` (``rowsum(P * dP)``, equal to ``rowsum(dO * O)``
+in exact arithmetic) where its output allows: bf16 sums it from the
+recomputed P, as the plain version does, since its output is rounded;
+f32 from its output, which is not, so `FlashAttention` saves it:
 
 - **bf16: ``csrc/flash_attention_bwd_tc.cu``**, ``wgmma`` + TMA on the
   forward's building blocks (``csrc/hopper_tc.cuh``): a delta pass (a
@@ -89,8 +92,14 @@ For a gradient the forward also writes each row's logsumexp
   rounded once, but for dK above D 64 (two parts: once, it put dk past
   the bound at grok's heads).  16 D flops a pair at D <= 64, 22 D above,
   against the gradient's 10 D.
-- **f32: ``csrc/flash_attention_bwd.cu``**, a dQ pass (delta, then dQ)
-  and a dK/dV pass on SIMT f32 FMAs, 18 D flops a pair.
+- **f32: ``csrc/flash_attention_bwd.cu``**, SIMT f32 FMAs on the
+  forward's tiling (8 own rows by 4 walked rows a thread at D <= 64,
+  conflict-free 16-byte shared loads, the walked tiles in two
+  ``cp.async`` stages, the mask on edge tiles only, P by ``ex2`` of one
+  FMA): a dQ pass whose
+  prologue sums ``delta = rowsum(dO * O)`` from the saved f32 output and
+  which then walks its key tiles once, and a dK/dV pass; 14 D flops a
+  pair.
 
 Neither adds in an order that changes from call to call: two backward
 calls on the same inputs give the same bits, as a `TrainLoop`'s bitwise
@@ -186,9 +195,10 @@ def flash_attention_stats_plain(q, k, v, dout=None, *, causal: bool = True,
     """``(lse, delta)``, ``(B, Hq, Sq)`` f32 each: every row's logsumexp
     of its scaled, masked scores (natural log), which the forward kernel
     writes for a gradient, and, given the output's cotangent ``dout``,
-    ``delta = rowsum(dout * O)`` with O the f32 output, which the backward
-    kernels' dQ pass sums as ``rowsum(P * dP)`` (equal in exact
-    arithmetic); None without ``dout``."""
+    ``delta = rowsum(dout * O)`` with O the f32 output, which the f32
+    backward kernel's dQ pass sums so from the forward's output and the
+    bf16 one as ``rowsum(P * dP)`` (equal in exact arithmetic); None
+    without ``dout``."""
     out, lse = _plain_forward(q, k, v, causal, window, True)
     delta = None if dout is None else (dout.to(torch.float32) * out).sum(-1)
     return lse, delta
@@ -233,7 +243,7 @@ def flash_attention_backward_plain(q, k, v, dout, *, causal: bool = True,
     bf16 gradients 4x further from the f32 ones (at 1 x 4 x 2,048 x 64,
     a bf16 output from the plain forward: 0.0089 of the 1e-2 bound,
     ``1 + |ref|`` relative, against 0.0022 this way).  So the output is
-    not needed, and not saved."""
+    not needed here; the f32 kernel takes delta from its f32 output."""
     check_operands(q, k, v, causal)
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
@@ -282,7 +292,8 @@ class FlashAttention(torch.autograd.Function):
     """The kernels with a gradient: the forward launches
     `flash_attention_cuda`'s kernel (``tc`` for bf16, ``simt`` for f32),
     which also writes the rows' logsumexp when an input needs a gradient,
-    and saves q, k, v and it; the backward launches
+    and saves q, k, v and it, and for f32 its output too (the f32
+    backward's delta); the backward launches
     `flash_attention_backward_cuda`.  A recompute under
     ``torch.utils.checkpoint`` runs the forward, and so launches the
     kernel, again."""
@@ -291,15 +302,18 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal: bool, window: int):
         out, lse = forward_cuda(q, k, v, causal=causal, window=window,
                                 with_lse=any(ctx.needs_input_grad[:3]))
-        ctx.save_for_backward(q, k, v, lse)
+        keep = (out,) if lse is not None and design(q, k, v) == "simt" \
+            else ()
+        ctx.save_for_backward(q, k, v, lse, *keep)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, lse = ctx.saved_tensors
+        q, k, v, lse, *keep = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward_cuda(
-            q, k, v, lse, dout, causal=ctx.causal, window=ctx.window)
+            q, k, v, lse, dout, causal=ctx.causal, window=ctx.window,
+            out=keep[0] if keep else None)
         return dq, dk, dv, None, None
 
 
@@ -324,7 +338,8 @@ _TC_BLOCK_Q, _GRID_MAX = 128, 65535
 #: the SIMT forward's smallest query tile, and CUDA's cap on a grid's
 #: first axis, where that kernel puts its B * Hq * query tiles blocks
 _SIMT_BLOCK_Q, _GRID_X_MAX = 64, 2**31 - 1
-#: the backward's smallest tile of rows (its grids are (heads, tiles))
+#: the backward's smallest tile of rows; the tensor-core grids are
+#: (heads, tiles), each SIMT grid one axis of heads x tiles
 _BWD_TILE = {"tc": 64, "simt": 32}
 
 
@@ -415,12 +430,15 @@ def _bwd_workspace_words(impl: str, B: int, Hq: int, Sq: int,
 
 
 def flash_attention_backward_cuda(q, k, v, lse, dout, *,
-                                  causal: bool = True, window: int = 0):
+                                  causal: bool = True, window: int = 0,
+                                  out=None):
     """``(dq, dk, dv)`` in the operands' dtype, on the design's backward
     kernels: ``lse`` is the rows' logsumexp from `forward_cuda` with
-    ``with_lse``, ``dout`` the output's cotangent in q's dtype.  The
-    operand, head-dim and grid checks are the forward's; one call of the C
-    entry point (all of the design's passes) counts once under
+    ``with_lse``, ``dout`` the output's cotangent in q's dtype, and for
+    f32 ``out`` the forward's output on these operands, whose
+    ``rowsum(dout * out)`` is delta (bf16 takes none: it sums delta from
+    P).  The operand, head-dim and grid checks are the forward's; one call
+    of the C entry point (all of the design's passes) counts once under
     ``flash_attention_bwd`` and ``flash_attention_bwd:<design>``."""
     impl = _launch_checks(q, k, v, causal)
     B, Hq, Sq, D = q.shape
@@ -432,24 +450,38 @@ def flash_attention_backward_cuda(q, k, v, lse, dout, *,
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B, Hq, Sq):
         raise ValueError(f"{BWD_KERNEL}: lse must be float32 {(B, Hq, Sq)},"
                          f" got {tuple(lse.shape)} {lse.dtype}")
+    if impl == "simt":
+        if out is None or out.dtype != torch.float32 or \
+                tuple(out.shape) != tuple(q.shape):
+            got = "none" if out is None else \
+                f"{tuple(out.shape)} {out.dtype}"
+            raise ValueError(f"{BWD_KERNEL}: the f32 backward takes delta "
+                             f"from the forward's output: out must be "
+                             f"float32 {tuple(q.shape)}, got {got}")
+    elif out is not None:
+        raise ValueError(f"{BWD_KERNEL}: the bf16 backward sums delta from "
+                         f"P and takes no out")
     tiles = -(-max(Sq, Skv) // _BWD_TILE[impl])
-    if tiles > _GRID_MAX:
+    blocks, cap = (B * Hq * tiles, _GRID_X_MAX) if impl == "simt" else \
+        (tiles, _GRID_MAX)
+    if blocks > cap:
         raise ValueError(f"{BWD_KERNEL}: S exceeds the {impl} backward's "
-                         f"grid ({tiles} > {_GRID_MAX:,} tiles)")
+                         f"grid ({blocks:,} > {cap:,} blocks)")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     lse, dout = _aligned(lse), _aligned(dout)
+    extra = (_aligned(out),) if impl == "simt" else ()
     if q.numel() == 0:
         return torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     workspace = torch.empty(_bwd_workspace_words(impl, B, Hq, Sq, D),
                             dtype=torch.float32, device=q.device)
     source = _BWD_SOURCE[impl]
+    ptrs = (q, k, v, lse, dout, *extra, dq, dk, dv, workspace)
     fn = C.bind(build.library(source), f"repro_{source}",
-                (C.VOIDP,) * 9 + (C.I32,) * 8 + (ctypes.c_float, C.VOIDP))
-    with C.on_device(BWD_KERNEL, q, k, v, lse, dout) as stream:
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
-                 dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), workspace.data_ptr(), B, Hq, Hkv, Sq, Skv, D,
+                (C.VOIDP,) * len(ptrs) + (C.I32,) * 8
+                + (ctypes.c_float, C.VOIDP))
+    with C.on_device(BWD_KERNEL, q, k, v, lse, dout, *extra) as stream:
+        err = fn(*(t.data_ptr() for t in ptrs), B, Hq, Hkv, Sq, Skv, D,
                  int(bool(causal)), max(int(window), 0), 1.0 / math.sqrt(D),
                  stream)
     C.launched(BWD_KERNEL, err, impl)

@@ -269,6 +269,38 @@ def test_f32_forward_bound():
     assert {row[3] for row in rows.values()} == {"operations"}
 
 
+def test_f32_backward_bound():
+    """The SIMT backward's bound at ``chip_smoke.py``'s
+    ``ATTN_BWD_F32_TIMED``: the gradient's 10 D flops an admitted pair at
+    the roofline's f32 rate of 67 TFLOP/s, which outweighs the bytes, and
+    the design's 14 D (the dQ pass's S, dP and dQ in one walk, delta from
+    the f32 output; the dK/dV pass's S, dP, dV and dK)."""
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    chip_smoke.load_peaks()
+    rows = {name: chip_smoke.attention_bwd_bound(B, Hq, Hkv, S, D, window,
+                                                 f32=True)
+            for name, B, Hq, Hkv, S, D, window
+            in chip_smoke.ATTN_BWD_F32_TIMED}
+    # ms at 10 D and at 14 D, each within a unit of its last digit
+    want = {"serve_prefill": (0.0803, 0.1124, 1e-4),
+            "qwen_8k": (5.129, 7.180, 1e-3),
+            "qwen_100m": (0.0201, 0.0282, 1e-4),
+            "danube_8k": (14.42, 20.19, 1e-2)}
+    assert rows.keys() == want.keys()
+    for name, (at10, at14, unit) in want.items():
+        b10, by, b14, _ = rows[name]
+        assert by == "operations"
+        assert b14 == pytest.approx(1.4 * b10)
+        assert abs(b10 - at10) <= unit and abs(b14 - at14) <= unit
+
+
 # ------------------------------------------------------------- RoPE ----
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -9,14 +9,16 @@ nothing built.
   arithmetic summed in another order), with GQA, windows, ragged S, Sq <
   Skv and no causal mask.
 - `flash_attention_backward_cuda` refuses what its kernels do not take
-  (dtype, head dim, shapes, the grid) before anything is built.
+  (dtype, head dim, shapes, the grid; in f32 a missing forward output or
+  one of the wrong shape or dtype, in bf16 any) before anything is built.
 - `FlashAttention` (what ``ops.flash_attention`` runs on CUDA tensors)
   with both C entry points stood in for: the forward asks for the
   logsumexp exactly when an input needs a gradient and saves q, k, v and
-  it; the backward hands those to the design's backward entry point
-  (bf16 ``flash_attention_bwd_tc``, f32 ``flash_attention_bwd``), counts
-  one launch under ``flash_attention_bwd`` and its design, and never
-  calls the plain backward.
+  it, and in f32 its output (the f32 backward's delta); the backward
+  hands those to the design's backward entry point (bf16
+  ``flash_attention_bwd_tc``, f32 ``flash_attention_bwd``), counts one
+  launch under ``flash_attention_bwd`` and its design, and never calls
+  the plain backward.
 """
 import contextlib
 import math
@@ -186,13 +188,32 @@ def test_backward_refusals_come_before_any_build(monkeypatch):
     qq, kk, vv = _qkv(torch.bfloat16, Sq=12, Skv=10)
     with pytest.raises(ValueError, match="admit no key"):
         bwd(qq, kk, vv, torch.zeros((1, 4, 12)), qq)
-    # the backward grids' tiles: 64 rows a tensor-core tile, 32 a SIMT one
-    for dtype, rows in ((torch.bfloat16, 64), (torch.float32, 32)):
-        S = rows * 65535 + 1
-        qq, kk, vv = _qkv(dtype, Hq=1, Hkv=1, Sq=S, Skv=S, D=8,
+    # the backward grids: at most 65,535 tensor-core tiles of 64 rows;
+    # one axis of B * Hq * tiles of 32 rows in the SIMT passes
+    for dtype, Hq, S in ((torch.bfloat16, 1, 64 * 65535 + 1),
+                         (torch.float32, 65536, 32 * 32768 + 1)):
+        qq, kk, vv = _qkv(dtype, Hq=Hq, Hkv=1, Sq=S, Skv=S, D=8,
                           device="meta")
+        out = qq if dtype == torch.float32 else None
         with pytest.raises(ValueError, match="backward's grid"):
-            bwd(qq, kk, vv, torch.zeros((1, 1, S), device="meta"), qq)
+            bwd(qq, kk, vv, torch.zeros((1, Hq, S), device="meta"), qq,
+                out=out)
+
+
+@pytest.mark.parametrize("case", ["f32 none", "f32 shape", "f32 dtype",
+                                  "bf16 given"])
+def test_backward_out_refusals_come_before_any_build(monkeypatch, case):
+    """The f32 backward takes delta from the forward's f32 output, so it
+    needs one of q's shape; the bf16 one sums delta from P and takes
+    none."""
+    monkeypatch.setattr(build, "library", _nothing_built)
+    dtype = torch.bfloat16 if case == "bf16 given" else torch.float32
+    q, k, v = _qkv(dtype)
+    out = {"f32 none": None, "f32 shape": q[:, :, :9],
+           "f32 dtype": q.double(), "bf16 given": q}[case]
+    with pytest.raises(ValueError, match="out"):
+        fa.flash_attention_backward_cuda(q, k, v, torch.zeros((1, 4, 10)),
+                                         q, out=out)
 
 
 @pytest.mark.parametrize("dtype,impl", [(torch.bfloat16, "tc"),
@@ -203,20 +224,29 @@ def test_flash_attention_routes_its_gradient_to_the_kernels(stub, dtype,
     out = fa.FlashAttention.apply(q, k, v, True, 5)
     source, entry, args = stub[-1]
     assert (source, entry) == (fa._SOURCE[impl], f"repro_{fa._SOURCE[impl]}")
-    # an input needs a gradient: the forward writes the logsumexp
-    sq, sk, sv, lse = out.grad_fn.saved_tensors
+    # an input needs a gradient: the forward writes the logsumexp; f32
+    # also keeps its output, for delta
+    sq, sk, sv, lse, *kept = out.grad_fn.saved_tensors
     assert all(a is b for a, b in zip((sq, sk, sv), (q, k, v)))
     assert lse.dtype == torch.float32 and tuple(lse.shape) == (1, 4, 10)
     assert args[4] == lse.data_ptr()
+    assert len(kept) == (impl == "simt")
+    if kept:
+        assert kept[0].data_ptr() == out.data_ptr()
+        assert kept[0].shape == out.shape
     dout = torch.zeros_like(out)
     dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
     source, entry, args = stub[-1]
     assert (source, entry) == (fa._BWD_SOURCE[impl],
                                f"repro_{fa._BWD_SOURCE[impl]}")
-    assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        lse.data_ptr())
-    assert args[5:8] == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
-    assert args[9:] == (1, 4, 2, 10, 12, 16, 1, 5, 1 / math.sqrt(16), 0)
+    assert args[:5] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        lse.data_ptr(), dout.data_ptr())
+    # the SIMT entry point takes O's pointer after dO's
+    n = len(kept)
+    assert args[5:5 + n] == tuple(t.data_ptr() for t in kept)
+    assert args[5 + n:8 + n] == (dq.data_ptr(), dk.data_ptr(),
+                                 dv.data_ptr())
+    assert args[9 + n:] == (1, 4, 2, 10, 12, 16, 1, 5, 1 / math.sqrt(16), 0)
     for g, t in zip((dq, dk, dv), (q, k, v)):
         assert g.dtype == dtype and g.shape == t.shape
     assert {key: n for key, n in ops.launch_counts().items() if n} == {

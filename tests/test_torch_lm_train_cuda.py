@@ -12,8 +12,12 @@ FFN, held to the plain path on the same inputs.
   recomputed f32 P); at D 8 to 256, GQA up to 48:8, ragged S, Sq
   < Skv and a window narrower than a tile; the forward's logsumexp against
   the plain one (1e-5); two backward calls give the same bits, also with
-  dQ summed over many key blocks in a fixed order;
-  the backward launches its kernel and never the plain version;
+  dQ summed over many key blocks in a fixed order, and in f32 over
+  thousands of blocks; the f32 kernels (delta from the forward's output,
+  64-row tiles, 32 at D 256) at their tiles' edges: S 127 to 129 and
+  1,025, a window narrower than a tile, Sq < Skv, D 8 and 256, GQA 48:8,
+  no causal mask; the backward launches its kernel and never the plain
+  version;
 - ``lm_loss`` and every gradient leaf of the five smoke configs on cuda
   against cpu within ``1e-4 * (1 + |cpu|)`` (the f32 LM tolerance), and
   the repair this slice made: on CUDA tensors the q, k and v projections
@@ -133,14 +137,57 @@ def test_forward_lse_matches_plain(cuda, dtype, Sq, Skv, D, window):
     assert none is None and torch.equal(out, alone)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "f32"])
-def test_backward_gives_the_same_bits_twice(cuda, dtype):
+# (B, Hq, Hkv, S, D, window), f32 at the SIMT kernels' tile edges: S one
+# below, at and above 128 rows (two 64-row tiles) and 1,025; a window
+# narrower than a tile; Sq < Skv (with a window too); D 8, 120 and 256
+# (32-row tiles); grok's 48:8; the last case without the causal mask
+F32_EDGE_CASES = [(2, 4, 2, 127, 64, 0), (2, 4, 2, 128, 64, 0),
+                  (2, 4, 2, 129, 64, 0), (1, 4, 2, 1025, 64, 0),
+                  (1, 4, 2, 300, 64, 9), (2, 4, 2, (65, 257), 64, 0),
+                  (1, 4, 1, (100, 1025), 64, 30), (2, 4, 2, 129, 8, 0),
+                  (1, 4, 2, (70, 200), 120, 40), (1, 4, 2, 129, 256, 0),
+                  (1, 2, 1, (33, 97), 256, 20), (1, 48, 8, 257, 64, 0),
+                  (1, 4, 2, (50, 90), 32, 16)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,window", F32_EDGE_CASES)
+def test_f32_backward_tile_edges_match_plain(cuda, B, Hq, Hkv, S, D,
+                                             window):
+    """The f32 gradient, one SIMT backward launch, within ``1e-4 * (1 +
+    |ref|)`` of autograd through the plain version."""
+    causal = (B, Hq, Hkv, S, D, window) != F32_EDGE_CASES[-1]
+    q, k, v, dout = _attention_inputs(B, Hq, Hkv, S, D, torch.float32,
+                                      23 + D + window)
+    ops.reset_launches()
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = fa.FlashAttention.apply(qg, kg, vg, causal, window)
+    got = torch.autograd.grad(out, (qg, kg, vg), dout)
+    assert ops.launch_counts().get(f"{fa.BWD_KERNEL}:simt") == 1
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(
+        fa.flash_attention_plain(*ref, causal=causal, window=window), ref,
+        dout)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32
+        assert _rel(a, b) <= ATTN_TOL[torch.float32]
+
+
+# (B, Hq, Hkv, S, D, window) of the bitwise test: GQA with a window; in
+# f32 also 4 x 16 heads x 2,048 (2,048 dQ blocks of 64 rows, 512 dK/dV)
+BITWISE_SHAPE, BITWISE_MANY = (2, 8, 2, 600, 64, 100), (4, 16, 4, 2048, 64,
+                                                        0)
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.bfloat16, BITWISE_SHAPE), (torch.float32, BITWISE_SHAPE),
+    (torch.float32, BITWISE_MANY)], ids=["bf16", "f32", "f32-many-blocks"])
+def test_backward_gives_the_same_bits_twice(cuda, dtype, shape):
     """No atomics: two backward calls on the same inputs agree bit for
     bit, as a TrainLoop's bitwise replay needs."""
-    q, k, v, dout = _attention_inputs(2, 8, 2, 600, 64, dtype, 3)
-    first = _kernel_grads(q, k, v, dout, 100)
-    again = _kernel_grads(q, k, v, dout, 100)
+    B, Hq, Hkv, S, D, window = shape
+    q, k, v, dout = _attention_inputs(B, Hq, Hkv, S, D, dtype, 3)
+    first = _kernel_grads(q, k, v, dout, window)
+    again = _kernel_grads(q, k, v, dout, window)
     for a, b in zip(first, again):
         assert torch.equal(a, b)
 
