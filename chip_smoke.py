@@ -160,9 +160,10 @@ Phases, one JSON line each:
             of the card (embed's vocab axis split) and gathered back
             bitwise; int8 compression with error feedback of one
             full-width gradient tree, timed, bitwise the CPU on the
-            embedding's and layer 0's gradients; examples/train_lm.py's
-            qwen-100m (train_lm, 200 steps of 8 x 256, a checkpoint every
-            50: the last 10 losses' mean below the first 10's); one
+            embedding's and layer 0's gradients; examples_torch/
+            train_lm.py's qwen-100m (its register_100m, train_lm for 200
+            steps of 8 x 256, a checkpoint every 50: the last 10 losses'
+            mean below the first 10's); one
             layer's attention at the training shape (4 x 16 x 4,096 x
             64) through FlashAttention, its output held to the plain
             version and its dq, dk, dv to the plain version's autograd,
@@ -230,9 +231,10 @@ Phases, one JSON line each:
             full_graph_sm (2,708 nodes, 10,556 edges); egnn (4 layers, d
             64, d_feat 227) on molecule's 128 graphs of 30 nodes and 64
             edges as one disjoint union, its E(n) equivariance checked on
-            the card; then examples/gnn_node_classification.py's setup
-            (R-MAT 2,000 x 16,000, 150 AdamW steps): the last 10 steps'
-            minibatch accuracy above the first 10's by more than 0.1;
+            the card; then examples_torch/gnn_node_classification.py
+            (R-MAT 2,000 x 16,000, 150 AdamW steps; it asserts the last
+            10 steps' minibatch accuracy above the first 10's by more
+            than 0.1), which the examples phase takes as its run;
             step ms, sample ms, graph build s, peak memory, losses
   cells     the launchers (repro_torch.launch): all 39 cells (36 arch x
             shape cells and the three IMM production cells) dry-run on
@@ -253,6 +255,23 @@ Phases, one JSON line each:
             (within 1e-4 * (1 + |1x1|)) again on a 2x2 mesh of the card,
             held to their 1x1 run; coverage_matvec, flash_attention,
             flash_attention_bwd and ic_sparse_hits must launch
+  examples  the port's examples (examples_torch/, one for each of the
+            JAX package's examples/*.py), each main at its defaults on
+            the card, what it prints sent to stderr: quickstart,
+            influence_campaign, streaming_campaign,
+            multi_tenant_campaign, recsys_ctr, gnn_node_classification
+            (gnn_full's run) and train_lm --tiny (its default, qwen-100m
+            for 200 steps, is lm_train's); a line each: wall seconds,
+            the launches counted, the kernel dispatches and the returned
+            dict (lists cut to every 10th item).  It fails on an
+            example's own assertion, on a kernel's reference impl
+            dispatched on the card, on a kernel of EXAMPLE_KERNELS not
+            launched, and on a claim the example prints that does not
+            hold; then, while the run is under TWIN_DEADLINE_S,
+            quickstart and influence_campaign again on the host: equal
+            to the card's answers (the sparse and walk samplers), or on
+            the dense sampler equal or differing only in rows traced to
+            classified near-ties
 
 The kernels phase holds arena_commit (both kinds, with the batch's row
 sums written into a stale sizes slice) bitwise on all-ones and all-zero
@@ -2837,12 +2856,12 @@ STREAM_KERNELS = ("packed_count", "token_count", "coverage_matvec",
 STREAM_LAUNCHED = ("packed_count", "token_count", "arena_commit_packed")
 
 
-def dispatch_counts(snapshot: dict) -> dict:
+def dispatch_counts(snapshot: dict, impl: str = "cuda") -> dict:
     """``{kernel: calls}`` from the ``kernels.dispatch`` counters of an
-    obs snapshot (the card's dispatches only)."""
+    obs snapshot (the card's dispatches, or ``impl``'s)."""
     out = {}
     for key, v in snapshot["counters"].items():
-        if key.startswith("kernels.dispatch") and "impl=cuda" in key:
+        if key.startswith("kernels.dispatch") and f"impl={impl}" in key:
             name = key.split("kernel=")[1].split(",")[0].rstrip("}")
             out[name] = out.get(name, 0) + v
     return out
@@ -4232,11 +4251,9 @@ TRAIN_S, QWEN_B, QWEN_STEPS, QWEN_SAVE_EVERY, QWEN_FAULT_STEP = (
     4096, 4, 6, 3, 4)
 MOON_B, MOON_STEPS, MOON_LAYERS = 2, 2, 2
 MOON_PROMPT, MOON_GEN = 512, 8
-#: examples/train_lm.py's ~100M member of the qwen family
-#: (`register_100m`) and its run: 200 steps of 8 x 256, a checkpoint
-#: every 50
-Q100M = dict(name="qwen-100m", n_layers=8, d_model=512, n_heads=8,
-             n_kv_heads=8, d_ff=1408, vocab=32_000, qkv_bias=True)
+#: examples_torch/train_lm.py's run of its ~100M member of the qwen
+#: family (`register_100m` holds the config): 200 steps of 8 x 256, a
+#: checkpoint every 50
 Q100M_STEPS, Q100M_B, Q100M_S, Q100M_SAVE = 200, 8, 256, 50
 
 
@@ -4524,24 +4541,22 @@ def _leaf_items(tree, path=()):
 
 
 def qwen_100m(torch, root: str) -> dict:
-    """examples/train_lm.py's run on the card: ``qwen-100m`` registered
-    as the example registers it, `train_lm` for 200 steps of 8 x 256
-    with a checkpoint every 50; the mean of the last 10 losses below
-    the first 10's; the f32 attention kernels' launches over the run and
-    a step."""
+    """examples_torch/train_lm.py's default run on the card: ``qwen-100m``
+    registered by the example's `register_100m`, `train_lm` for 200 steps
+    of 8 x 256 with a checkpoint every 50; the mean of the last 10 losses
+    below the first 10's; the f32 attention kernels' launches over the
+    run and a step.  (The examples phase runs the example's ``--tiny``,
+    so these 200 steps run once a smoke.)"""
+    import contextlib
+
     import numpy as np
 
-    from repro_torch.configs import base
-    from repro_torch.configs._lm_common import lm_shapes, lm_smoke_step
+    from examples_torch.train_lm import register_100m
     from repro_torch.kernels import ops
     from repro_torch.launch.train import train_lm
-    from repro_torch.models.transformer import LMConfig, init_lm
 
-    cfg = LMConfig(**Q100M)
-    base.register(base.ArchDef(
-        arch_id="qwen-100m", family="lm", source="examples/train_lm.py",
-        config=cfg, smoke_config=cfg, shapes=lm_shapes(), init_fn=init_lm,
-        smoke_step=lm_smoke_step))
+    with contextlib.redirect_stdout(sys.stderr):
+        cfg = register_100m().config
     d = os.path.join(root, "qwen-100m")
     before = ops.launch_counts()
     t = time.perf_counter()
@@ -5947,67 +5962,11 @@ def egnn_molecule(torch, gen, shape, d_feat: int):
     return nf, pos, es, ed
 
 
-def sage_example(torch, dev) -> dict:
-    """examples/gnn_node_classification.py's setup through the port on
-    ``dev``: GraphSAGE (d_hidden 64, fan-out 10-5) on an R-MAT graph of
-    2,000 nodes and 16,000 edges with planted-partition features (5
-    classes, d_feat 32, noise 1.5), 150 AdamW steps (lr 3e-3, no weight
-    decay) of 64 seeds, both hops sampled every step; the minibatch
-    accuracy after each step."""
-    from repro_torch import prng
-    from repro_torch.data import synthetic_node_features
-    from repro_torch.graphs import rmat_graph
-    from repro_torch.graphs.sampler import neighbor_sampler
-    from repro_torch.models.common import value_and_grad
-    from repro_torch.models.gnn.graphsage import (SageConfig, forward_blocks,
-                                                  init_sage, loss_blocks)
-    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
-
-    n_classes, d_feat, steps, batch = 5, 32, 150, 64
-    t0 = time.perf_counter()
-    g = rmat_graph(2_000, 16_000, seed=0).to(dev)
-    feats, labels = synthetic_node_features(g.n, d_feat, n_classes, seed=0,
-                                            noise=1.5)
-    table = torch.cat([torch.from_numpy(feats),
-                       torch.zeros((1, d_feat))]).to(dev)
-    labels = torch.from_numpy(labels).to(dev).long()
-    cfg = SageConfig(n_layers=2, d_hidden=64, d_feat=d_feat,
-                     n_classes=n_classes, sample_sizes=(10, 5))
-    f1, f2 = cfg.sample_sizes
-    params = init_sage(torch.Generator(device=dev).manual_seed(0), cfg,
-                       device=dev)
-    opt_cfg = AdamWConfig(lr=3e-3, weight_decay=0.0)
-    opt = adamw_init(params, opt_cfg)
-    key = prng.PRNGKey(1)
-    losses, accs = [], []
-    for _ in range(steps):
-        key, k1, k2 = prng.split(key, 3)
-        s1, s2 = prng.split(k2)
-        seeds = prng.randint(k1, (batch,), 0, g.n, device=dev).long()
-        n1 = neighbor_sampler(s1, g.dst_offsets, g.in_src, seeds, f1)
-        n2 = neighbor_sampler(s2, g.dst_offsets, g.in_src, n1.reshape(-1),
-                              f2)
-        x = (table[seeds], table[n1.long()], table[n2.long()])
-        loss, grads = value_and_grad(loss_blocks, params, cfg, *x,
-                                     labels[seeds])
-        params, opt = adamw_update(params, grads, opt, opt_cfg)
-        with torch.no_grad():
-            logits = forward_blocks(params, cfg, *x)
-        losses.append(loss)
-        accs.append((logits.argmax(-1) == labels[seeds]).float().mean())
-    losses = torch.stack(losses).tolist()
-    accs = torch.stack(accs).tolist()
-    return {"steps": steps, "s": time.perf_counter() - t0,
-            "loss_first": losses[0], "loss_last": losses[-1],
-            "acc_first10": sum(accs[:10]) / 10,
-            "acc_last10": sum(accs[-10:]) / 10}
-
-
-def gnn_full_phase(torch) -> dict:
+def gnn_full_phase(torch, runs: dict) -> dict:
     """The GNNs at their published widths on the card (see the
     docstring): graphsage-reddit at minibatch_lg, graphcast and
-    equiformer-v2 at full_graph_sm, egnn at molecule, and the example's
-    configuration."""
+    equiformer-v2 at full_graph_sm, egnn at molecule, and the port's
+    example (`run_example`, kept in ``runs``)."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -6090,12 +6049,12 @@ def gnn_full_phase(torch) -> dict:
          d_feat=d_feat, **gnn_bound("egnn", cfg, N, es.numel()),
          **out["egnn"])
 
-    ex = sage_example(torch, DEV)
-    check(ex["acc_last10"] > ex["acc_first10"] + 0.1,
-          f"gnn_full example: accuracy {ex['acc_first10']:.3f} -> "
-          f"{ex['acc_last10']:.3f} did not rise by more than 0.1")
+    # the example asserts its own rise in accuracy; the examples phase
+    # takes this run as its own
+    ex = run_example(torch, "gnn_node_classification", runs)
     out["example"] = ex
-    emit("gnn_full", cell="examples/gnn_node_classification.py", **ex,
+    emit("gnn_full", cell="examples_torch/gnn_node_classification.py",
+         **dict(ex, result=brief(ex["result"])),
          gnn_launches=gnn_launches(ops))
     return out
 
@@ -6379,6 +6338,231 @@ def cells_phase(torch, assigned: list) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- examples ----
+
+#: the port's examples (examples_torch/, one for each of examples/*.py) in
+#: the examples phase's order
+EXAMPLES = ("quickstart", "influence_campaign", "streaming_campaign",
+            "multi_tenant_campaign", "recsys_ctr", "gnn_node_classification",
+            "train_lm")
+#: the kernels each example must launch on the card (GraphSAGE's path
+#: holds none)
+EXAMPLE_KERNELS = {
+    "quickstart": ("arena_commit", "coverage_matvec"),
+    "influence_campaign": ("ic_sparse_hits", "uniform_draw", "arena_commit",
+                           "coverage_matvec"),
+    "streaming_campaign": ("arena_commit",),
+    "multi_tenant_campaign": ("arena_commit",),
+    "recsys_ctr": ("fm_interaction", "fm_gather_interaction"),
+    "gnn_node_classification": (),
+    "train_lm": ("flash_attention:simt", "flash_attention_bwd:simt"),
+}
+#: the IM examples run again on the host, their answers held to the card's
+EXAMPLE_TWINS = ("quickstart", "influence_campaign")
+#: seconds into the run after which the examples phase runs no host twin
+TWIN_DEADLINE_S = 900
+
+
+def call_example(name: str, dev: str, root: str) -> dict:
+    """``examples_torch.<name>.main`` at its defaults on ``dev``, what it
+    prints sent to stderr; train_lm with ``--tiny`` (its default run is
+    lm_train's qwen_100m), its checkpoints under ``root``."""
+    import contextlib
+    import importlib
+
+    mod = importlib.import_module(f"examples_torch.{name}")
+    with contextlib.redirect_stdout(sys.stderr):
+        if name in ("recsys_ctr", "gnn_node_classification"):
+            return mod.main(device=dev)
+        argv = ["--device", dev]
+        if name == "train_lm":
+            argv += ["--tiny", "--checkpoint-dir",
+                     os.path.join(root, "train_lm")]
+        return mod.main(argv)
+
+
+def brief(x):
+    """``x`` with each list longer than 20 cut to every 10th item."""
+    if isinstance(x, dict):
+        return {str(k): brief(v) for k, v in x.items()}
+    if isinstance(x, list):
+        if len(x) > 20:
+            return {"len": len(x), "every_10th": brief(x[::10])}
+        return [brief(v) for v in x]
+    return x
+
+
+def run_example(torch, name: str, runs: dict) -> dict:
+    """One example on the card (`call_example`) with obs on: its wall
+    seconds, the launches it counted, its kernel dispatches and its
+    returned dict, kept in ``runs[name]`` and returned.  Fails if it
+    dispatched a kernel's reference impl or launched no kernel of
+    ``EXAMPLE_KERNELS[name]``."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+
+    obs.reset()
+    obs.enable()
+    before = ops.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        res = call_example(name, DEV, root)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    snap = obs.snapshot()
+    obs.reset()
+    launches = {k: n - before.get(k, 0)
+                for k, n in ops.launch_counts().items()
+                if n > before.get(k, 0)}
+    reference = dispatch_counts(snap, "reference")
+    check(not reference, f"examples {name}: reference impls dispatched on "
+          f"the card: {reference}")
+    for kernel in EXAMPLE_KERNELS[name]:
+        check(launches.get(kernel, 0) > 0,
+              f"examples {name}: {kernel} launched no time")
+    runs[name] = dict(s=wall, launches=launches,
+                      dispatch=dispatch_counts(snap), result=res)
+    return runs[name]
+
+
+def example_checks(name: str, res: dict) -> None:
+    """What an example prints as a claim, held: the baseline's influence
+    (identical math), a restored snapshot's selection, the stream equal
+    to a fresh engine, a drained tier whose flood stops at its cap."""
+    if name == "quickstart":
+        check(res["baseline_influence"] == res["influence"],
+              f"examples quickstart: baseline {res['baseline_influence']} "
+              f"vs {res['influence']}")
+    elif name == "influence_campaign":
+        check(res["models"]["IC"]["restore"]["identical"],
+              "examples influence_campaign: the restored select differs")
+    elif name == "streaming_campaign":
+        check(res["identical_to_fresh"],
+              "examples streaming_campaign: not seed-for-seed a fresh "
+              "engine's")
+    elif name == "multi_tenant_campaign":
+        check(res["drained"] and res["admitted"] == res["max_pending"],
+              f"examples multi_tenant_campaign: drained {res['drained']}, "
+              f"{res['admitted']} admitted of cap {res['max_pending']}")
+
+
+def timeless(x):
+    """An example's returned dict without its host timings."""
+    if isinstance(x, dict):
+        return {k: timeless(v) for k, v in x.items()
+                if not (isinstance(k, str)
+                        and (k == "s" or k.endswith("_s")))}
+    return x
+
+
+def dense_twin_ties(torch, graph, model: str, *, seed: int, batch: int,
+                    theta: int) -> dict:
+    """The first ``theta // batch`` batches of an engine's dense sampler
+    run on the card and on the host from the same keys, every row on
+    which they differ traced to its first differing BFS step and
+    classified (`repro_torch.core.ties`); the summed report."""
+    from repro_torch.core import sampler, ties
+
+    logq = {dev: sampler.logq_from_probs(g, sampler._edge_probs(
+        sampler.get_model(model), g))
+        for dev, g in ((DEV, graph.to(DEV)), ("cpu", graph.to("cpu")))}
+    total = {"rows": 0, "cells": 0, "ties": 0, "faults": []}
+    for key in batch_keys(seed, theta // batch):
+        def run(dev, key=key):
+            return lambda t: sampler._dense_loop(
+                key, logq[dev], batch=batch,
+                max_steps=t)[0].cpu().numpy()
+
+        roots = sampler._dense_loop(key, logq["cpu"], batch=batch,
+                                    max_steps=1)[2].numpy()
+        rep = ties.classify_runs(
+            run(DEV), run("cpu"),
+            lambda t, key=key: sampler.dense_coins(key, t, batch=batch,
+                                                   n_nodes=graph.n),
+            logq["cpu"].numpy(), roots, max_steps=graph.n)
+        for k in total:
+            total[k] += rep[k]
+    return total
+
+
+def example_twin(torch, name: str, card: dict) -> dict:
+    """``name`` again on the host, its answers held to the card's
+    (``card``, its returned dict):
+    equal on the sparse and walk samplers (influence_campaign); on the
+    dense one (quickstart) equal, or every row on which the card's and
+    the host's samplers differ a classified near-tie."""
+    import tempfile
+
+    from repro_torch.graphs import rmat_graph
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        host = timeless(call_example(name, "cpu", root))
+    card = timeless(card)
+    out = {"host_s": time.perf_counter() - t0, "equal": card == host}
+    if name == "quickstart" and card != host:
+        rep = dense_twin_ties(torch, rmat_graph(n=2_000, m=16_000, seed=0),
+                              "IC", seed=0, batch=BATCH,
+                              theta=card["theta"])
+        check(rep["rows"] > 0 and rep["faults"] == [],
+              f"examples quickstart: card {card} vs host {host}: {rep}")
+        out["near_ties"] = {k: rep[k] for k in ("rows", "cells", "ties")}
+    else:
+        check(card == host, f"examples {name}: card {card} vs host {host}")
+    return out
+
+
+def example_mesh(torch, card: dict) -> dict:
+    """influence_campaign with ``--mesh 2x2`` on the card (clipped, as the
+    reference clips to its devices, to a 1x1 mesh of the one card: the
+    tiled store's path): every answer equal to the unmeshed run's
+    ``card``."""
+    import contextlib
+    import importlib
+
+    mod = importlib.import_module("examples_torch.influence_campaign")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        res = mod.main(["--device", DEV, "--mesh", "2x2"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    shards = res.pop("shards")
+    want = {k: v for k, v in timeless(card).items() if k != "shards"}
+    check(shards >= 1 and timeless(res) == want,
+          f"examples influence_campaign --mesh 2x2: {res} vs {card}")
+    return {"s": wall, "shards": shards}
+
+
+def examples_phase(torch, t_run: float, runs: dict) -> dict:
+    """Every port example at its defaults on the card (one that ``runs``
+    holds already, gnn_full's, taken as it is), then the IM twins on the
+    host while the run is under TWIN_DEADLINE_S; returns the launches
+    summed over the examples."""
+    total = {}
+    for name in EXAMPLES:
+        reused = name in runs
+        rec = runs[name] if reused else run_example(torch, name, runs)
+        example_checks(name, rec["result"])
+        emit("examples", example=name, reused=reused,
+             **dict(rec, result=brief(rec["result"])))
+        for kernel, n in rec["launches"].items():
+            total[kernel] = total.get(kernel, 0) + n
+    twins = {}
+    for name in EXAMPLE_TWINS:
+        if time.perf_counter() - t_run > TWIN_DEADLINE_S:
+            twins[name] = "skipped: past TWIN_DEADLINE_S"
+            continue
+        twins[name] = example_twin(torch, name, runs[name]["result"])
+    meshed = example_mesh(torch, runs["influence_campaign"]["result"])
+    emit("examples", twins=twins, mesh=meshed,
+         s={name: runs[name]["s"] for name in EXAMPLES},
+         launches=total)
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--max-theta", type=int, default=THETA,
@@ -6390,15 +6574,15 @@ def main(argv=None) -> int:
                             "stream_full,mesh_stream_full,tier_full,"
                             "mesh_tier_full,pallas_full,lm_parity,"
                             "lm_full,lm_train,fm_parity,fm_full,fm_profile,"
-                            "gnn_parity,gnn_full,cells",
+                            "gnn_parity,gnn_full,cells,examples",
                     help="comma list of kernels, parity, imm_full, "
                          "packed_full, compressed_full, mesh_full, "
                          "indices_full, lt_full, stream_full, "
                          "mesh_stream_full, tier_full, mesh_tier_full, "
                          "pallas_full, lm_parity, "
                          "lm_full, lm_train, fm_parity, fm_full, "
-                         "fm_profile, gnn_parity, gnn_full, cells and "
-                         "the optional profile")
+                         "fm_profile, gnn_parity, gnn_full, cells, "
+                         "examples and the optional profile")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if "mesh_stream_full" in phases:
@@ -6435,6 +6619,7 @@ def run_phases(torch, phases: set, max_theta: int) -> int:
         from repro_torch.core.sampler import make_logq
         from repro_torch.graphs.datasets import scaled_snap, synthetic_snap
         from repro_torch.kernels import build
+        import examples_torch  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -6532,12 +6717,16 @@ def run_phases(torch, phases: set, max_theta: int) -> int:
     if "gnn_parity" in phases:
         gnn_parity_phase(torch)
         ended("gnn_parity")
+    example_runs = {}
     if "gnn_full" in phases:
-        gnn_full_phase(torch)
+        gnn_full_phase(torch, example_runs)
         ended("gnn_full")
     if "cells" in phases:
         launches["cells"] = cells_phase(torch, assigned)
         ended("cells")
+    if "examples" in phases:
+        launches["examples"] = examples_phase(torch, t_run, example_runs)
+        ended("examples")
     two_card_phase(torch)
     ended("two_cards")
     # each kernel's launches on the full run that is its path

@@ -14,3 +14,11 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available: pass device='cpu' to run the "
             "plain PyTorch versions of the kernels on the host")
     return dev
+
+
+def synchronize(device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the
+    host), so that a host clock read after it times that work."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

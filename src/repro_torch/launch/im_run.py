@@ -34,12 +34,8 @@ from repro_torch.configs.imm_snap import (
     IMM_EXPERIMENTS, make_im_mesh, mesh_engine_kwargs,
 )
 from repro_torch.core.engine import IMMConfig, InfluenceEngine, resolve_device
+from repro_torch.device import synchronize
 from repro_torch.graphs.datasets import scaled_snap, synthetic_snap
-
-
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def run(graph: str, *, scale: float = None, model: str = "IC", k: int = 50,
@@ -71,7 +67,7 @@ def run(graph: str, *, scale: float = None, model: str = "IC", k: int = 50,
         engine.restore(snapshot_dir)       # resume if a snapshot exists
     t0 = time.time()
     res = engine.run()
-    _sync(dev)
+    synchronize(dev)
     t_imm = time.time() - t0
 
     t0 = time.time()

@@ -52,7 +52,7 @@ import torch
 
 from repro_torch import obs, prng
 from repro_torch.configs import get_arch
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.models.transformer import (
     LMConfig, decode_step, init_kv_cache, init_lm, prefill,
 )
@@ -294,11 +294,6 @@ class IMServer:
                 time.sleep(0.002)
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _main_lm(args) -> torch.Tensor:
     cfg = get_arch(args.arch).smoke_config
     server = LMServer(cfg, device=args.device)
@@ -306,7 +301,7 @@ def _main_lm(args) -> torch.Tensor:
                            0, cfg.vocab, device=server.device)
     t0 = time.time()
     out = server.generate(prompts, args.gen)
-    _sync(server.device)
+    synchronize(server.device)
     dt = time.time() - t0
     print(f"[serve] {args.arch} on {server.device}: generated "
           f"{tuple(out.shape)} in {dt:.2f}s "
@@ -342,7 +337,7 @@ def _main_im(args, log=print) -> dict:
     dev = engine.store.device
     t0 = time.time()
     engine.extend(args.max_theta)
-    _sync(dev)
+    synchronize(dev)
     t_sample = time.time() - t0
     server = IMServer(
         engine,

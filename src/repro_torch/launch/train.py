@@ -25,6 +25,7 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.device import resolve_device
+from repro_torch.models.common import tree_map
 from repro_torch.models.transformer import (LMConfig, init_lm,
                                             lm_value_and_grad)
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
@@ -58,11 +59,13 @@ def make_step(cfg: LMConfig, opt_cfg: AdamWConfig, schedule_fn):
 
 def lm_loop(cfg: LMConfig, *, steps: int, batch: int, seq_len: int,
             checkpoint_dir: str, save_every: int, seed: int = 0,
-            wsd: bool = False, device=None, inject_fault=None) -> TrainLoop:
+            wsd: bool = False, device=None, inject_fault=None,
+            params=None) -> TrainLoop:
     """`train_lm`'s loop over ``cfg``: AdamW at lr 1e-3, the WSD schedule
     with ``wsd`` and the cosine one otherwise, `TokenPipeline` batches
     (int64 on ``device``) and ``init_lm`` from a generator seeded
-    ``seed`` on ``device``."""
+    ``seed`` on ``device``, or a copy of ``params`` (say the reference's
+    carried across by `repro_torch.convert.lm_params_from_jax`)."""
     dev = resolve_device(device)
     opt_cfg = AdamWConfig(lr=1e-3)
     if wsd:
@@ -83,9 +86,13 @@ def lm_loop(cfg: LMConfig, *, steps: int, batch: int, seq_len: int,
                 torch.from_numpy(l).to(dev, torch.int64))
 
     def init_fn():
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        params = init_lm(gen, cfg, device=dev)
-        return {"params": params, "opt": adamw_init(params, opt_cfg)}
+        if params is None:
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            start = init_lm(gen, cfg, device=dev)
+        else:
+            start = tree_map(lambda p: p.detach().to(dev, copy=True),
+                             params)
+        return {"params": start, "opt": adamw_init(start, opt_cfg)}
 
     return TrainLoop(
         LoopConfig(total_steps=steps, checkpoint_dir=checkpoint_dir,
@@ -97,15 +104,18 @@ def lm_loop(cfg: LMConfig, *, steps: int, batch: int, seq_len: int,
 def train_lm(arch_id: str, *, smoke: bool = True, steps: int = 100,
              batch: int = 8, seq_len: int = 128,
              checkpoint_dir: str = DEFAULT_CHECKPOINT_DIR,
-             save_every: int = 50, seed: int = 0, log=print, device=None):
+             save_every: int = 50, seed: int = 0, log=print, device=None,
+             params=None):
     """Train ``arch_id`` (its smoke config, or its published one without
-    ``smoke``) for ``steps`` steps; WSD for ``minicpm-2b``, cosine
-    otherwise.  -> ``(state, losses, loop)``."""
+    ``smoke``) for ``steps`` steps from ``params`` (None: `lm_loop`'s
+    draw); WSD for ``minicpm-2b``, cosine otherwise.  -> ``(state,
+    losses, loop)``."""
     arch = get_arch(arch_id)
     cfg = arch.smoke_config if smoke else arch.config
     loop = lm_loop(cfg, steps=steps, batch=batch, seq_len=seq_len,
                    checkpoint_dir=checkpoint_dir, save_every=save_every,
-                   seed=seed, wsd=arch_id == "minicpm-2b", device=device)
+                   seed=seed, wsd=arch_id == "minicpm-2b", device=device,
+                   params=params)
     t0 = time.time()
     state = loop.run()
     losses = [float(r.metrics["loss"]) for r in loop.history]

@@ -2,7 +2,8 @@
 ``src/repro_torch/`` at the same relative path, or an entry in
 `NO_COUNTERPART` with the reason there is none.  A reference module that
 is neither ported nor listed fails, and so does a listed one that gained
-a port."""
+a port.  Every example of the reference (``examples/*.py``) has its
+port in ``examples_torch/`` under the same name."""
 import os
 
 import pytest
@@ -10,6 +11,8 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF = os.path.join(ROOT, "src", "repro")
 PORT = os.path.join(ROOT, "src", "repro_torch")
+EXAMPLES = sorted(f for f in os.listdir(os.path.join(ROOT, "examples"))
+                  if f.endswith(".py"))
 
 #: reference modules with no port file, each with its reason
 NO_COUNTERPART = {
@@ -48,3 +51,16 @@ def test_a_listed_module_is_in_the_reference_and_has_no_port(path):
     assert os.path.isfile(os.path.join(REF, path))
     assert not os.path.exists(os.path.join(PORT, path))
     assert NO_COUNTERPART[path]
+
+
+def test_the_reference_has_seven_examples():
+    assert len(EXAMPLES) == 7
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_every_example_has_a_port(name):
+    path = os.path.join(ROOT, "examples_torch", name)
+    assert os.path.isfile(path), f"examples/{name} has no port"
+    with open(path) as f:
+        src = f.read()
+    assert "def main(" in src and 'if __name__ == "__main__":' in src

@@ -19,10 +19,37 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import examples_torch
+examples = [m.name for m in pkgutil.iter_modules(examples_torch.__path__,
+                                                 "examples_torch.")]
+for name in examples:
+    importlib.import_module(name)
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(json.dumps({"modules": names, "leaked": leaked}))
+                if m.split(".")[0] in ("jax", "jaxlib", "repro", "examples"))
+print(json.dumps({"modules": names, "examples": examples,
+                  "leaked": leaked}))
 """
+
+#: the port's examples (``examples_torch/``), one for each of the
+#: reference's ``examples/*.py``
+EXAMPLES = ("gnn_node_classification", "influence_campaign",
+            "multi_tenant_campaign", "quickstart", "recsys_ctr",
+            "streaming_campaign", "train_lm")
+
+
+def _imported_roots(path) -> set:
+    """The top-level packages a file's import statements name."""
+    import ast
+
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
 
 
 def test_no_module_imports_jax_or_repro():
@@ -64,7 +91,34 @@ def test_no_module_imports_jax_or_repro():
                  "configs.graphsage_reddit", "launch.steps",
                  "launch.shardings", "launch.mesh", "launch.dryrun"):
         assert f"repro_torch.{name}" in res["modules"]
+    assert res["examples"] == [f"examples_torch.{n}" for n in EXAMPLES]
     assert res["leaked"] == []
+    for name in EXAMPLES:
+        roots = _imported_roots(os.path.join(ROOT, "examples_torch",
+                                             f"{name}.py"))
+        assert not roots & {"jax", "jaxlib", "repro", "examples"}, name
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_run_on_cuda_unless_told_otherwise(name, capsys):
+    """Each port example's ``--device`` defaults to ``cuda``, which raises
+    on a host without a card before any work."""
+    from repro_torch.device import resolve_device
+
+    sys.path.insert(0, ROOT)
+    try:
+        import importlib
+        mod = importlib.import_module(f"examples_torch.{name}")
+    finally:
+        sys.path.remove(ROOT)
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if name in ("recsys_ctr", "gnn_node_classification"):
+            mod.main()
+        else:
+            mod.main(["--tiny"] if name == "train_lm" else [])
 
 
 def test_entry_points_default_to_cuda():
