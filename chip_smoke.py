@@ -1165,11 +1165,13 @@ def frontier_row(torch, gen, lj_logq) -> dict:
 
 
 #: (name, B, Hq, Hkv, S, D, window): the serving cell's prefill, Qwen's
-#: 8k prefill, Danube's attention shape, and prefill_32k (lm_shapes)
+#: 8k prefill, Danube's attention shape, prefill_32k (lm_shapes), and
+#: Qwen1.5-0.5B's training shape (lm_train: 48 launches a step)
 ATTN_TIMED = (("serve_prefill", 4, 16, 16, 512, 64, 0),
               ("qwen_8k", 1, 16, 16, 8192, 64, 0),
               ("danube_8k", 1, 32, 8, 8192, 120, 4096),
-              ("prefill_32k", 1, 16, 16, 32768, 64, 0))
+              ("prefill_32k", 1, 16, 16, 32768, 64, 0),
+              ("qwen_train", 4, 16, 16, 4096, 64, 0))
 #: the SIMT kernel's timed shapes in f32 (name, B, Hq, Hkv, S, D, window):
 #: the serving prefill, Qwen's 8k prefill, and qwen-100m's training shape
 #: (examples/train_lm.py, 8 x 256); the f32 forward's probe adds
@@ -1201,6 +1203,35 @@ def attention_err(torch, got, want, dtype_name: str, tag: str):
     check(rel <= ATTN_TOL[dtype_name], f"flash_attention {tag}: err "
           f"{rel:.3g} > {ATTN_TOL[dtype_name]} (max abs {float(diff.max())})")
     return float(diff.max()), rel
+
+
+#: the forward kernel's logsumexp against the plain version's: |err| <=
+#: tol * (1 + |ref|).  Both take f32 scores of the same operands (exact
+#: bf16 products summed in another order) and sum f32 exponentials, the
+#: kernel's by ex2.approx (2**-22 relative): ~1e-6 seen
+ATTN_LSE_TOL = 1e-4
+
+
+def attention_repeat(torch, q, k, v, causal: bool, window: int, tag: str):
+    """The forward with its logsumexp, called twice: output and lse equal
+    bit for bit (and the output the one a call without lse gives), lse
+    within ATTN_LSE_TOL of the plain version's; returns that error."""
+    from repro_torch.kernels import flash_attention as fa
+
+    o1, l1 = fa.forward_cuda(q, k, v, causal=causal, window=window,
+                             with_lse=True)
+    o2, l2 = fa.forward_cuda(q, k, v, causal=causal, window=window,
+                             with_lse=True)
+    o3 = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    check(bool(torch.equal(o1, o2) and torch.equal(l1, l2)
+               and torch.equal(o1, o3)),
+          f"flash_attention {tag}: two calls differ")
+    want, _ = fa.flash_attention_stats_plain(q, k, v, causal=causal,
+                                             window=window)
+    err = float(((l1 - want).abs() / (1 + want.abs())).max())
+    check(err <= ATTN_LSE_TOL, f"flash_attention {tag}: lse err {err:.3g} "
+          f"> {ATTN_LSE_TOL}")
+    return err
 
 
 def attention_bound(B, Hq, Hkv, Sq, Skv, D, window, f32: bool = False):
@@ -1260,6 +1291,9 @@ def attention_rows(torch, gen) -> dict:
                 fa.flash_attention_plain(q, k, v, window=window), name, tag)
             cases.append(dict(case=tag, impl=fa.design(q, k, v),
                               max_abs_err=abs_e, max_rel_err=rel_e))
+            if dtype == torch.bfloat16:
+                cases[-1]["lse_err"] = attention_repeat(
+                    torch, q, k, v, True, window, tag)
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = attention_inputs(torch, gen, 2, 4, 2, 50, 90, 32, dtype)
         name = str(dtype).split(".")[1]
@@ -1270,6 +1304,9 @@ def attention_rows(torch, gen) -> dict:
         cases.append(dict(case=f"non-causal 2x4:2x50/90xD32 w16 {name}",
                           impl=fa.design(q, k, v), max_abs_err=abs_e,
                           max_rel_err=rel_e))
+        if dtype == torch.bfloat16:
+            cases[-1]["lse_err"] = attention_repeat(
+                torch, q, k, v, False, 16, f"non-causal {name}")
 
     timed = {}
     for name, B, Hq, Hkv, S, D, window in ATTN_TIMED:
@@ -1281,6 +1318,7 @@ def attention_rows(torch, gen) -> dict:
             torch, ops.flash_attention(q, k, v, window=window), want,
             "bfloat16", name)
         del want
+        lse_err = attention_repeat(torch, q, k, v, True, window, name)
         ms = time_cuda(torch, lambda: fa.flash_attention_cuda(
             q, k, v, window=window), warmup=1 if big else 2,
             iters=3 if big else 10)
@@ -1298,7 +1336,8 @@ def attention_rows(torch, gen) -> dict:
                            bytes=nbytes, tflops=flops / ms / 1e9,
                            flops_share=flops / ms * 1e3 / BF16_FLOPS_PER_S,
                            vs_sdpa=ms / library_ms,
-                           max_abs_err=abs_e, max_rel_err=rel_e)
+                           max_abs_err=abs_e, max_rel_err=rel_e,
+                           lse_err=lse_err)
         if name == "serve_prefill":
             timed[name]["host_us"] = attention_host_us(torch, q, k, v)
         del q, k, v

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Time the attention kernels on the card, alone: the backward, or with
-``--forward`` the f32 forward.
+``--forward`` the f32 forward, or with ``--forward-tc`` the bf16 forward.
 
     python3 scripts/attention_bwd_probe.py [--repeats 3] [--yardsticks]
         [--kernels] [--root DIR]
     python3 scripts/attention_bwd_probe.py --forward [--repeats 3]
         [--root DIR]
     python3 scripts/attention_bwd_probe.py --f32-backward [--repeats 3]
+        [--root DIR]
+    python3 scripts/attention_bwd_probe.py --forward-tc [--repeats 3]
         [--root DIR]
 
 Builds the port's kernels from ``DIR/src`` (default: this checkout; the
@@ -58,6 +60,24 @@ the plain backward timed once; each pass's tile from
 ptxas's lines.  At qwen-100m's shape it also takes the host µs of one
 Python call of each direction (the mean of 200 enqueued without a
 sync) and of binding the backward's C entry point (`_common.bind`).
+
+``--forward-tc``: builds the bf16 forward's source alone and times
+``flash_attention_cuda`` in bf16 (the tensor-core kernel; the mean of 20
+calls after 3 warm-ups, ``--repeats`` times) at ``chip_smoke.py``'s
+``ATTN_TIMED`` shapes (the serving prefill, Qwen's 8k prefill, Danube's
+window, prefill_32k, Qwen1.5-0.5B's training shape) and grok-1's heads
+(``ATTN_BWD_SHAPES``: 1 x 48:8 x 2,048 x 128), each repeat beside
+SDPA on the same inputs (`chip_smoke.sdpa`), with the bound at the bf16
+tensor-core rate (`attention_bound`) and the share of it the kernel
+reaches; then the kernel's and SDPA's device ms alone (the mean of 5
+calls under the profiler).  Each shape's output is held to the plain
+version (``ATTN_TOL``) and its logsumexp to the plain version's
+(``ATTN_LSE_TOL``), output and logsumexp compared bitwise with a second
+call (`chip_smoke.attention_repeat`).  Where the build has ``repro_flash_attention_tc_config``,
+the tile: query rows a block, shared memory, registers a thread at launch
+and a consumer's after ``setmaxnreg``, local (stack and spill) bytes a
+thread, blocks an SM, keys a tile and ring stages; and ptxas's lines of
+the build, either way.
 """
 from __future__ import annotations
 
@@ -207,12 +227,83 @@ def forward(torch, args, chip_smoke, fa, gen, out) -> None:
 
 
 def ptxas_lines(build, name: str) -> list:
+    """ptxas's register, spill and entry lines of a build, and any warning
+    that it serialized the wgmmas or ignored setmaxnreg."""
     log = build.BUILD_DIR / f"{name}.log"
     if not log.exists():
         return []
+    keys = ("registers", "spill", "Compiling entry", "Performance Loss",
+            "setmaxnreg", "wgmma")
     return [line.strip() for line in log.read_text().splitlines()
-            if "registers" in line or "spill" in line
-            or "Compiling entry" in line]
+            if any(key in line for key in keys)]
+
+
+#: the fields of ``repro_flash_attention_tc_config``
+TC_TILE_KEYS = ("rows", "smem_bytes", "registers", "local_bytes",
+                "blocks_per_sm", "consumer_registers", "producer_registers",
+                "tile_keys", "stages")
+
+
+def tc_tile(lib, D: int) -> dict | None:
+    """What the build says the bf16 forward runs at head dim D, where it
+    can say."""
+    try:
+        fn = lib.repro_flash_attention_tc_config
+    except AttributeError:
+        return None
+    info = (ctypes.c_int * len(TC_TILE_KEYS))()
+    fn.argtypes = (ctypes.c_int, ctypes.c_void_p)
+    if fn(D, ctypes.addressof(info)) != 0:
+        return None
+    return dict(zip(TC_TILE_KEYS, info))
+
+
+def forward_tc(torch, args, chip_smoke, fa, gen, out) -> None:
+    from repro_torch.kernels import build
+
+    # the bf16 forward's library alone: the other sources are not timed
+    build.build_all(("flash_attention_tc",))
+    lib = ctypes.CDLL(str(build.lib_path("flash_attention_tc")))
+    build._libs.setdefault("flash_attention_tc", lib)
+    out["ptxas"] = ptxas_lines(build, "flash_attention_tc")
+    shapes = chip_smoke.ATTN_TIMED + tuple(
+        (f"{name}_heads", B, Hq, Hkv, S, D, window)
+        for name, B, Hq, Hkv, S, D, window, _ in chip_smoke.ATTN_BWD_SHAPES
+        if name == "grok")
+    for name, B, Hq, Hkv, S, D, window in shapes:
+        q, k, v = chip_smoke.attention_inputs(torch, gen, B, Hq, Hkv, S, S,
+                                              D, torch.bfloat16)
+
+        def call():
+            return fa.flash_attention_cuda(q, k, v, window=window)
+
+        abs_e, rel_e = chip_smoke.attention_err(
+            torch, call(), fa.flash_attention_plain(q, k, v, window=window),
+            "bfloat16", f"{name} bf16")
+        # raises unless two calls are bitwise equal, output and lse
+        lse_err = chip_smoke.attention_repeat(torch, q, k, v, True, window,
+                                              f"{name} bf16")
+        lib_call = chip_smoke.sdpa(torch, q, k, v, window)
+        runs, sdpa_runs = [], []
+        for _ in range(args.repeats):
+            sdpa_runs.append(event_ms(torch, lib_call))
+            runs.append(event_ms(torch, call))
+        _, _, bound_ms, _ = chip_smoke.attention_bound(
+            B, Hq, Hkv, S, S, D, window)
+        out[name] = dict(shape=[B, Hq, Hkv, S, D], window=window, ms=runs,
+                         kernel_ms=kernel_ms(torch, call, 5),
+                         sdpa_ms=sdpa_runs,
+                         sdpa_device_ms=sum(
+                             kernel_ms(torch, lib_call, 5).values()),
+                         bound_ms=bound_ms,
+                         bound_share=[bound_ms / ms for ms in runs],
+                         vs_sdpa=[ms / lib for ms, lib in
+                                  zip(runs, sdpa_runs)],
+                         max_abs_err=abs_e, max_rel_err=rel_e,
+                         lse_err=lse_err, bitwise_twice=True,
+                         tile=tc_tile(lib, D))
+        del q, k, v, lib_call
+        torch.cuda.empty_cache()
 
 
 def backward_tiles(lib, D: int) -> dict | None:
@@ -330,6 +421,7 @@ def main() -> int:
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--forward", action="store_true")
     ap.add_argument("--f32-backward", action="store_true")
+    ap.add_argument("--forward-tc", action="store_true")
     ap.add_argument("--yardsticks", action="store_true")
     ap.add_argument("--kernels", action="store_true")
     ap.add_argument("--root", default=HERE)
@@ -348,10 +440,12 @@ def main() -> int:
                          text=True).stdout.strip()
     gen = torch.Generator(device="cuda").manual_seed(0)
     mode = ("forward" if args.forward else
-            "f32_backward" if args.f32_backward else "backward")
+            "f32_backward" if args.f32_backward else
+            "forward_tc" if args.forward_tc else "backward")
     out = {"root": args.root, "nvidia_smi": smi, "mode": mode}
     {"forward": forward, "f32_backward": f32_backward,
-     "backward": backward}[mode](torch, args, chip_smoke, fa, gen, out)
+     "forward_tc": forward_tc, "backward": backward}[mode](
+        torch, args, chip_smoke, fa, gen, out)
     print(json.dumps(out), flush=True)
     return 0
 

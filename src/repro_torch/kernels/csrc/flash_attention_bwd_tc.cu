@@ -126,10 +126,9 @@ __device__ __forceinline__ void p_and_ds(float (&s)[N / 2],
     for (int j = 0; j < N / 8; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        float l2, dl, p;
+        float l2, dl;
         stat(j, r, l2, dl);
-        asm("ex2.approx.ftz.f32 %0, %1;\n"
-            : "=f"(p) : "f"(fmaf(s[4 * j + r], scale_log2, -l2)));
+        float p = ex2(fmaf(s[4 * j + r], scale_log2, -l2));
         if constexpr (decltype(masked)::value)
           if (!ok(j, r)) p = 0.f;
         s[4 * j + r] = p;
@@ -161,18 +160,6 @@ __device__ __forceinline__ void split_frags(const float (&x)[N / 2],
     hi[j / 2][(j % 2) * 2 + 1] = pack_bf16(h[2], h[3]);
     lo[j / 2][(j % 2) * 2] = pack_bf16(l[0], l[1]);
     lo[j / 2][(j % 2) * 2 + 1] = pack_bf16(l[2], l[3]);
-  }
-}
-
-// A 64 x N f32 accumulator rounded once to bf16 A fragments of N / 16
-// k-steps
-template <int N>
-__device__ __forceinline__ void round_frags(const float (&x)[N / 2],
-                                            uint32_t (&a)[N / 16][4]) {
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    a[j / 2][(j % 2) * 2] = pack_bf16(x[4 * j], x[4 * j + 1]);
-    a[j / 2][(j % 2) * 2 + 1] = pack_bf16(x[4 * j + 2], x[4 * j + 3]);
   }
 }
 
@@ -335,7 +322,7 @@ delta_kernel(const __grid_constant__ CUtensorMap tq,
               desc(Vt + (kk / 4) * kTile * 128 + (kk % 4) * 32, 16, 1024),
               kk > 0);
         wg_commit();
-        wg_wait0();
+        wg_wait<0>();
         fence_regs(sc);
         fence_regs(dp);
 
@@ -509,7 +496,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tq,
               desc(Vt + (kk / 4) * kTile * 128 + (kk % 4) * 32, 16, 1024),
               kk > 0);
         wg_commit();
-        wg_wait0();
+        wg_wait<0>();
         fence_regs(sc);
         fence_regs(dp);
 
@@ -548,7 +535,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tq,
             wgmma_rs<DP>(dqa, dh[kk], bk);
           }
           wg_commit();
-          wg_wait0();
+          wg_wait<0>();
           fence_regs(dqa);
         }
       }
@@ -815,7 +802,7 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tq,
               desc(dOt + (kk / 4) * kTile * 128 + (kk % 4) * 32, 16, 1024),
               kk > 0);
         wg_commit();
-        wg_wait0();
+        wg_wait<0>();
         fence_regs(st);
         fence_regs(dpt);
 
@@ -895,7 +882,7 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                         desc(dSw + kk * 16 * 128, kTile * 128, 1024), kk > 0);
         wg_commit();
         }
-        wg_wait0();
+        wg_wait<0>();
         fence_regs(dva);
         fence_regs(dka);
         fence_regs(dqt);

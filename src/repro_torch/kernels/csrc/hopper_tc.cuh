@@ -107,8 +107,11 @@ __device__ __forceinline__ void wg_fence() {
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// returns once at most N of this warpgroup's committed wgmma groups are
+// still running (groups complete in the order they were committed)
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // ---- named barriers (id 0 is __syncthreads'); count: the threads that
@@ -194,6 +197,16 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the same for bf16 A fragments in registers, which a wgmma reads until
+// it completes
+template <int K>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[i][r])::"memory");
 }
 
 // d (m64 x N, f32) = or += A (m64 x k16, K-major smem) . B (k16 x N,
@@ -410,6 +423,26 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2**x on the MUFU, ex2.approx.ftz (relative error 2**-22; 0 for -inf)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A 64 x N f32 accumulator rounded once to bf16 A fragments of N / 16
+// k-steps: k-step kk holds columns 16 kk .. 16 kk + 15, the accumulator's
+// chunks 2 kk (registers 0, 1) and 2 kk + 1 (registers 2, 3)
+template <int N>
+__device__ __forceinline__ void round_frags(const float (&x)[N / 2],
+                                            uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    a[j / 2][(j % 2) * 2] = pack_bf16(x[4 * j], x[4 * j + 1]);
+    a[j / 2][(j % 2) * 2 + 1] = pack_bf16(x[4 * j + 2], x[4 * j + 3]);
+  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {

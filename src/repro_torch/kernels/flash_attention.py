@@ -41,14 +41,18 @@ dtype on a CUDA tensor:
   products are ``wgmma`` on the tensor cores (S = Q.K^T from shared
   memory, O += P.V with P in registers), fed by TMA: one producer thread
   loads Q once and K/V tiles into a ring of shared-memory stages with an
-  mbarrier each, two consumer warpgroups of 64 query rows take them; tiles
-  are 128-byte swizzled 64-column sub-tiles whose ragged edges (D 120,
-  rows past Sq or Skv) TMA fills with zeros.  Only the tiles that straddle
-  the diagonal, the window's edge or Skv are masked.  P is rounded to bf16
-  as the A operand of P.V (the TPU kernel multiplies it in f32): a
-  relative error of at most 2**-9 a term, inside the bf16 tolerance.  Left
-  for later: a softmax/GEMM pingpong, GQA sharing of staged K/V, fp8, a
-  backward kernel.
+  mbarrier each, consumer warpgroups of 64 query rows take them (three at
+  D <= 128, 192 queries a block; two at D 256); tiles are 128-byte
+  swizzled 64-column sub-tiles whose ragged edges (D 120, rows past Sq or
+  Skv) TMA fills with zeros.  A warpgroup issues a tile's S with the
+  previous tile's P.V and runs the tile's softmax (``ex2.approx``) under
+  that P.V and the other warpgroups' products; only the tiles that
+  straddle the diagonal, the window's edge or Skv run the masked softmax,
+  compiled apart.  P is rounded to bf16 as the A
+  operand of P.V (the TPU kernel multiplies it in f32): a relative error
+  of at most 2**-9 a term, inside the bf16 tolerance.  Left for later:
+  GQA sharing of staged K/V, a TMA store of the output, persistent
+  blocks, fp8.
 - **f32: ``csrc/flash_attention.cu``**, SIMT f32 FMAs.  The tensor
   cores would round f32 operands to TF32, which the f32 contract (1e-4,
   and f32 greedy tokens equal to the reference's) does not allow; its
@@ -332,8 +336,9 @@ _SOURCE = {"tc": "flash_attention_tc", "simt": "flash_attention"}
 #: the backward's name in the launch counts, and its sources
 BWD_KERNEL = "flash_attention_bwd"
 _BWD_SOURCE = {"tc": "flash_attention_bwd_tc", "simt": "flash_attention_bwd"}
-#: query rows a tensor-core block takes, and CUDA's cap on a grid's
-#: second axis (the tensor-core grid is (B * Hq, query tiles))
+#: the fewest query rows a tensor-core block takes (192 at D <= 128, 128
+#: at D 256), and CUDA's cap on a grid's second axis (the tensor-core grid
+#: is (B * Hq, query tiles))
 _TC_BLOCK_Q, _GRID_MAX = 128, 65535
 #: the SIMT forward's smallest query tile, and CUDA's cap on a grid's
 #: first axis, where that kernel puts its B * Hq * query tiles blocks

@@ -110,6 +110,45 @@ def test_f32_lse_matches_plain_and_repeats(cuda, B, Hq, Hkv, Sq, Skv, D,
            torch.float32)
 
 
+# (B, Hq, Hkv, Sq, Skv, D, window) for the tensor-core kernel's logsumexp
+# and repeats, on its tiles (128 queries a block, two warpgroups of 64;
+# 128 keys a tile, 64 at D 256): D 8, 64, 120, 128 and 256; GQA 4:1; Sq
+# 1,050 (the last block's second warpgroup holds no row); Sq < Skv at an
+# offset of 64 (the first warpgroup skips each block's last tile) and of
+# 800 with a window of 300 whose edge falls inside a tile; a window of 150
+# (the second warpgroup skips each block's first tile); Sq 4,096 (rows of
+# 31 interior tiles, unmasked)
+LSE_CASES = [
+    (3, 2, 1, 77, 77, 8, 5), (1, 4, 1, 1050, 1050, 64, 0),
+    (1, 4, 2, 2048, 2112, 64, 0), (1, 8, 2, 700, 1500, 120, 300),
+    (2, 4, 2, 1100, 1100, 128, 150), (1, 2, 2, 300, 364, 256, 0),
+    (1, 4, 4, 4096, 4096, 64, 0), (1, 4, 1, 1000, 1000, 128, 0),
+    (1, 2, 1, 640, 640, 256, 100),
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,window", LSE_CASES)
+def test_bf16_lse_matches_plain_and_repeats(cuda, B, Hq, Hkv, Sq, Skv, D,
+                                            window):
+    """The tensor-core kernel's logsumexp (what the bf16 backward reads)
+    within ``1e-4 * (1 + |ref|)`` of the plain version's (f32 scores of
+    the same operands, summed in another order, and exponentials by
+    ``ex2.approx``), its output within the bf16 bound, and two calls give
+    the same bits, output and lse, and the output of a call without lse."""
+    q, k, v = _qkv(B, Hq, Hkv, Sq, Skv, D, torch.bfloat16, seed=Sq + D)
+    out, lse = fa.forward_cuda(q, k, v, window=window, with_lse=True)
+    out2, lse2 = fa.forward_cuda(q, k, v, window=window, with_lse=True)
+    out3 = fa.flash_attention_cuda(q, k, v, window=window)
+    want, _ = fa.flash_attention_stats_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert torch.equal(out, out3)
+    err = float(((lse - want).abs() / (1 + want.abs())).max())
+    assert err <= 1e-4, err
+    _check(out, fa.flash_attention_plain(q, k, v, window=window),
+           torch.bfloat16)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 def test_non_causal_and_views(cuda, dtype):
